@@ -1,0 +1,280 @@
+"""Local mapping driver (counterpart of mapad_tpu/map/pipeline.py and
+reference mapping.rs:57-296).
+
+Chunks the input, runs a search engine over each chunk, converts hit
+intervals to BAM records with the native C++ postprocessor
+(map/native_post.py) and writes them in input order.  Engines:
+
+- DeviceSearchEngine (ops/engine.py): the pool search on the card, with
+  the host C++ searcher for escalated reads, through the streaming block
+  driver `_run_inner_streaming`;
+- NativeSearchEngine (map/native_search.py): the exact host C++ search,
+  through the chunk driver `run_inner`.
+
+The sequential Python oracle engine and the Python per-record conversion
+are a later slice of the port.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+
+from ..errors import MapadError
+from ..index import load_index
+from ..io.bam import BamWriter
+from ..io.sniff import InputSource
+from .postprocess import create_bam_header
+
+logger = logging.getLogger(__name__)
+
+
+def run(
+    reads_path: str,
+    reference_path: str,
+    out_file_path: str,
+    force_overwrite: bool,
+    alignment_parameters,
+    read_group=None,
+    engine=None,
+    position_seed: int = 0,
+    cmdline: str | None = None,
+    threads: int = 1,
+    index=None,
+):
+    """Load index parts and launch the mapping process (mapping.rs:57-125).
+
+    `index`: a preloaded LoadedIndex to reuse across runs."""
+    if reads_path != "-" and not os.path.exists(reads_path):
+        raise MapadError("The given input file could not be found")
+
+    if index is None:
+        logger.info("Load index")
+        index = load_index(reference_path)
+    mb = alignment_parameters.mismatch_bound
+    if hasattr(mb, "__str__") and type(mb).__str__ is not object.__str__:
+        logger.debug("Allowed mismatches:\n%s", mb)
+
+    if engine is None:
+        raise NotImplementedError(
+            "the sequential oracle engine is a later slice of "
+            "mapad_tpu_torch; pass a device or native engine"
+        )
+
+    if not force_overwrite and os.path.exists(out_file_path):
+        raise MapadError(f"Output file {out_file_path} exists (use --force_overwrite)")
+
+    logger.info("Map reads")
+    input_source = InputSource.from_path(reads_path)
+    out_header = create_bam_header(
+        input_source.header, index.id_pos_map, read_group, cmdline
+    )
+
+    with open(out_file_path, "wb") as raw:
+        with BamWriter(raw, out_header) as writer:
+            run_inner(
+                input_source.task_queue(alignment_parameters.chunk_size),
+                index,
+                alignment_parameters,
+                read_group,
+                engine,
+                writer,
+                position_seed,
+                threads,
+            )
+    logger.info("Done")
+
+
+def _native_postprocessor(index, alignment_parameters, threads):
+    from . import native_post
+
+    if not native_post.available() or os.environ.get("MAPAD_NO_NATIVE_POST"):
+        raise NotImplementedError(
+            "the Python per-record BAM conversion is a later slice of "
+            "mapad_tpu_torch (the native postprocessor needs g++)"
+        )
+    return native_post.NativePostprocessor(
+        index, alignment_parameters, threads=max(threads, 1)
+    )
+
+
+def run_inner(
+    task_queue, index, alignment_parameters, read_group, engine, writer,
+    position_seed: int = 0, threads: int = 1,
+):
+    """Search and postprocess run as a two-stage pipeline: a background
+    thread converts and writes chunk k while the engine searches chunk k+1.
+
+    Engines exposing `search_stream` (the device pool engine) instead run
+    the fully streaming driver."""
+    if hasattr(engine, "search_stream"):
+        return _run_inner_streaming(
+            task_queue, index, alignment_parameters, read_group, engine,
+            writer, position_seed, threads,
+        )
+    import inspect
+    from concurrent.futures import Future, ThreadPoolExecutor
+
+    native_pp = _native_postprocessor(index, alignment_parameters, threads)
+    lazy = "lazy_fallback" in inspect.signature(
+        engine.search_chunk
+    ).parameters
+
+    def postprocess(sheet, results):
+        t0 = time.perf_counter()
+        if lazy:
+            results = [
+                r.result() if isinstance(r, Future) else r for r in results
+            ]
+        blob = native_pp.convert_chunk(
+            sheet.records, results, sheet.chunk_id, position_seed,
+            read_group,
+        )
+        t1 = time.perf_counter()
+        writer.write_raw(blob)
+        logger.debug(
+            "postprocess chunk %d: convert %.0fms write %.0fms",
+            sheet.chunk_id, (t1 - t0) * 1e3,
+            (time.perf_counter() - t1) * 1e3,
+        )
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pending = None
+        for sheet in task_queue:
+            logger.debug("Map chunk %d of records", sheet.chunk_id)
+            results = (
+                engine.search_chunk(sheet.records, lazy_fallback=True)
+                if lazy else engine.search_chunk(sheet.records)
+            )
+            if pending is not None:
+                pending.result()
+            pending = pool.submit(postprocess, sheet, results)
+        if pending is not None:
+            pending.result()
+
+
+def _run_inner_streaming(
+    task_queue, index, alignment_parameters, read_group, engine, writer,
+    position_seed: int = 0, threads: int = 1,
+):
+    """Fully overlapped block pipeline over a streaming-capable engine.
+
+    Stages (all concurrent): prep thread (inside engine.search_stream) ->
+    device search (<= 2 pool invocations in flight) -> collect/decode (this
+    thread) -> fallback pool (escalated reads) -> conversion pool
+    (coordinates/MAPQ/CIGAR/MD/BAM encode, GIL-released C++) -> ordered
+    writer thread.
+
+    Output record order is identical to the sequential path: blocks are
+    written in submission order and the per-read PrRange seed uses the
+    in-sheet index (index_offset), so the BAM is byte-identical.
+    """
+    import queue as queue_mod
+    import threading
+    from concurrent.futures import Future, ThreadPoolExecutor
+
+    native_pp = _native_postprocessor(index, alignment_parameters, threads)
+    R = engine.block_reads
+
+    def sheets_prefetched():
+        """Parse input sheets on a reader thread so record decoding
+        overlaps the pipeline.  The reader checks a `closed` flag while
+        putting so an abandoned consumer releases the thread."""
+        q: "queue_mod.Queue" = queue_mod.Queue(maxsize=2)
+        closed = threading.Event()
+
+        def put_until_closed(item) -> bool:
+            while not closed.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+
+        def reader():
+            try:
+                for sheet in task_queue:
+                    if not put_until_closed(sheet):
+                        return
+                put_until_closed(None)
+            except BaseException as e:  # surfaced on the consumer side
+                put_until_closed(e)
+
+        threading.Thread(
+            target=reader, name="input-reader", daemon=True
+        ).start()
+        try:
+            while True:
+                s = q.get()
+                if s is None:
+                    return
+                if isinstance(s, BaseException):
+                    raise s
+                yield s
+        finally:
+            closed.set()
+
+    def blocks():
+        for sheet in sheets_prefetched():
+            logger.debug("Map chunk %d of records", sheet.chunk_id)
+            recs = sheet.records
+            for off in range(0, max(len(recs), 1), R):
+                yield (sheet, off), recs[off : off + R]
+
+    def pp_task(sheet, off, block, results):
+        t0 = time.perf_counter()
+        # escalated reads' exact searches may still be running on the
+        # engine's pool; resolving here overlaps them with later blocks
+        results = [
+            r.result() if isinstance(r, Future) else r for r in results
+        ]
+        t_wait = time.perf_counter() - t0
+        out = native_pp.convert_chunk(
+            block, results, sheet.chunk_id, position_seed, read_group,
+            index_offset=off,
+        )
+        logger.debug(
+            "postprocess block (chunk %d @%d): %.0fms (fallback wait %.0fms)",
+            sheet.chunk_id, off, (time.perf_counter() - t0) * 1e3,
+            t_wait * 1e3,
+        )
+        return out
+
+    # Ordered writer: conversion futures are enqueued in block-submission
+    # order and written in that order, whatever order they complete in.
+    write_q: "queue_mod.Queue" = queue_mod.Queue(maxsize=8)
+    write_err: list = []
+
+    def writer_loop():
+        while True:
+            fut = write_q.get()
+            if fut is None:
+                return
+            if write_err:
+                continue  # drain without writing after a failure
+            try:
+                writer.write_raw(fut.result())
+            except BaseException as e:  # surfaced on the main thread
+                write_err.append(e)
+
+    wt = threading.Thread(target=writer_loop, name="bam-writer", daemon=True)
+    wt.start()
+    pp_pool = ThreadPoolExecutor(max_workers=2, thread_name_prefix="postproc")
+    try:
+        for (sheet, off), results in engine.search_stream(
+            blocks(), lazy_fallback=True
+        ):
+            block = sheet.records[off : off + R]
+            write_q.put(pp_pool.submit(pp_task, sheet, off, block, results))
+        write_q.put(None)
+        wt.join()
+        if write_err:
+            raise write_err[0]
+    finally:
+        pp_pool.shutdown(wait=False)
+    stats = engine.stats()
+    logger.info("search stats: %s", json.dumps(stats),
+                extra={"search_stats": stats})

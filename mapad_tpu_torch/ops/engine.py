@@ -1,0 +1,981 @@
+"""Device search engine: batches reads onto the card and reconstructs hits.
+
+Counterpart of mapad_tpu/ops/engine.py (`DeviceSearchEngine`, pool mode,
+one device, small genomes).  Per block of up to `block_reads` reads:
+
+1. prep thread (host): pad the reads, build the score LUT / penalty rows
+   and the bound thresholds (numpy, ops/prep.py), the Bi-D composite (host
+   C++, map/native_search.py) and one int32 upload blob;
+2. device thread: upload the blob, unpack it (kernel K4), run the pool
+   search (K2 with K1 inline) and the chain extraction (K3,
+   ops/search_pool2.py), pack the result (K5) and copy it back
+   asynchronously on a side stream into pinned host memory;
+3. caller: wait for the copy, decode the chains into per-read hits and
+   route escalated reads to the exact host C++ searcher.
+
+Two kernels live in this module, each beside its plain PyTorch version:
+
+- K4 `_unpack_prep_lut` (csrc/unpack_prep.cu) replaces `_unpack_prep_lut`
+  and `_unpack_cq10` (mapad_tpu/ops/engine.py:220-288).  Bound: bytes, the
+  24 B LUT/Bi-D row written per cell (25 MB at R=8192, M=128).
+- K5 `_pack_result` (csrc/pack_result.cu) replaces `_pack_result`
+  (mapad_tpu/ops/engine.py:1589-1634).  Bound: bytes, the C*MW op words
+  read (8.4 MB at C=16384, MW=128).
+
+The wrappers take the plain version for CPU tensors only (the tests); on
+a CUDA tensor they launch the kernel or raise.
+
+Not in this slice (each raises NotImplementedError): the multi-device
+mesh, big (int64) mode with the device Bi-D (K6/K7), the retry and deep
+tiers, in-kernel generations > 1 (K8), the no-hit probe batches, the
+fixed-batch mode (K10) and the hybrid engine.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from .._build import LAUNCHES, check, cuda_function, require
+from ..index.fmd import BiInterval
+from ..map import EditOperation, HitInterval
+from ..models.bounds import Continuous, TestBound
+from ..utils.seq import BASE_TO_CODE, CODE_TO_BASE
+from .fm import DeviceFmIndex, resolve_device
+from .prep import (
+    _BID_SEG,
+    _DEV_LUT_MEMO,
+    _DEV_LUT_Q,
+    _EMPTY,
+    _RANK_TABLE,
+    _LutCache,
+    _batch_luts,
+    _build_all_lut,
+    _cq_words,
+    _inject_pre_escalate,
+    _pack_bid_rle,
+    _pack_cq10,
+    _unpack_result,
+    _wire_opbits,
+)
+from .search import OP_DELETION, OP_MISMATCH, SearchConfig, SearchParams
+from .search_pool import PoolConfig, PoolResult
+from .search_pool2 import k_mismatch_search_pool2
+
+logger = logging.getLogger(__name__)
+
+
+def _later(what: str):
+    return NotImplementedError(f"{what} is a later slice of mapad_tpu_torch")
+
+
+# --- K4: unpack the upload blob -----------------------------------------
+
+
+def _unpack_prep_lut_plain(blob, tab, off, R, M, Q, rle=False):
+    """Plain PyTorch K4: blob -> (n, split, scale, thresh, repr_mm, slut)
+    with slut the (R*M, 6) f32 rows [score4 | class | Bi-D]."""
+    dev = blob.device
+
+    def f32(x):
+        return x.view(torch.float32)
+
+    n = blob[:R]
+    split = blob[R : 2 * R]
+    scale = f32(blob[2 * R : 3 * R])
+    thresh = f32(blob[3 * R : 4 * R])
+    repr_mm = f32(blob[4 * R : 5 * R])
+    RM = R * M
+    jrow = torch.arange(M, dtype=torch.int32, device=dev)
+    if rle:
+        BW = _BID_SEG // 4
+        w4 = blob[5 * R : (5 + BW) * R].reshape(R, BW)
+        b = torch.stack(
+            [w4 & 0xFF, (w4 >> 8) & 0xFF, (w4 >> 16) & 0xFF,
+             (w4 >> 24) & 0xFF],
+            dim=2,
+        ).reshape(R, _BID_SEG)[:, : _BID_SEG - 1]
+        vals = f32(blob[(5 + BW) * R : (5 + BW + _BID_SEG) * R]).reshape(
+            R, _BID_SEG
+        )
+        seg = (jrow[None, :, None] >= b[:, None, :]).sum(2)
+        bid = vals.gather(1, seg).reshape(RM)
+        cqseg = blob[(5 + BW + _BID_SEG) * R :]
+    else:
+        bid = f32(blob[5 * R : 5 * R + RM])
+        cqseg = blob[5 * R + RM :]
+    cq = torch.stack(
+        [cqseg & 0x3FF, (cqseg >> 10) & 0x3FF, (cqseg >> 20) & 0x3FF], dim=1
+    ).reshape(-1)[:RM]
+    cls = cq >> 7
+    q = cq & 0x7F
+    j = jrow.repeat(R)
+    n_rows = n.repeat_interleave(M)
+    last = tab.shape[0] - 1
+    # gathers clamp like XLA's
+    base = off[torch.clamp(n_rows, 0, off.shape[0] - 1).long()]
+    idx = torch.where(j < n_rows, base + (j * 5 + cls) * Q + q, last)
+    score4 = tab[torch.clamp(idx, 0, last).long()]
+    slut = torch.cat(
+        [score4, cls.to(torch.float32)[:, None], bid[:, None]], dim=1
+    )
+    return n, split, scale, thresh, repr_mm, slut
+
+
+class _UnpackArgs(ctypes.Structure):
+    """Mirror of `struct UnpackArgs` in csrc/unpack_prep.cu."""
+
+    _fields_ = [
+        ("blob", ctypes.c_void_p), ("tab", ctypes.c_void_p),
+        ("off", ctypes.c_void_p), ("tab_rows", ctypes.c_int),
+        ("n_off", ctypes.c_int), ("R", ctypes.c_int), ("M", ctypes.c_int),
+        ("Q", ctypes.c_int), ("rle", ctypes.c_int), ("slut", ctypes.c_void_p),
+    ]
+
+
+def _unpack_prep_lut(blob, tab, off, R, M, Q, rle=False):
+    """K4 wrapper: the plain version for CPU tensors, the kernel for CUDA
+    tensors (never a fallback)."""
+    if not blob.is_cuda:
+        return _unpack_prep_lut_plain(blob, tab, off, R, M, Q, rle)
+    for t, dt in ((blob, torch.int32), (tab, torch.float32),
+                  (off, torch.int32)):
+        require(t.is_cuda and t.dtype == dt and t.is_contiguous(),
+                "unpack_prep takes contiguous CUDA tensors")
+    words = 5 * R + ((_BID_SEG // 4 + _BID_SEG) * R if rle else R * M)
+    require(blob.numel() == words + _cq_words(R * M), "blob size")
+    require(tab.dim() == 2 and tab.shape[1] == 4, "LUT table shape")
+    slut = torch.empty((R * M, 6), dtype=torch.float32, device=blob.device)
+    args = _UnpackArgs(blob.data_ptr(), tab.data_ptr(), off.data_ptr(),
+                       tab.shape[0], off.shape[0], R, M, Q, int(rle),
+                       slut.data_ptr())
+    fn = cuda_function("unpack_prep", "unpack_prep",
+                       [ctypes.POINTER(_UnpackArgs), ctypes.c_void_p])
+    LAUNCHES.add("unpack_prep")
+    check(fn(ctypes.byref(args),
+             torch.cuda.current_stream(blob.device).cuda_stream),
+          "unpack_prep")
+
+    def f32(x):
+        return x.view(torch.float32)
+
+    return (blob[:R], blob[R : 2 * R], f32(blob[2 * R : 3 * R]),
+            f32(blob[3 * R : 4 * R]), f32(blob[4 * R : 5 * R]), slut)
+
+
+def _unpack_prep(blob, R, M):
+    """Split the full-LUT upload blob (quality values past the device LUT's
+    ceiling) into kernel inputs: a reinterpretation of the blob's words,
+    no copy and no kernel."""
+
+    def f32(x):
+        return x.view(torch.float32)
+
+    return (blob[:R], blob[R : 2 * R], f32(blob[2 * R : 3 * R]),
+            f32(blob[3 * R : 4 * R]), f32(blob[4 * R : 5 * R]),
+            f32(blob[5 * R :]).reshape(R * M, 6))
+
+
+# --- K5: pack the result --------------------------------------------------
+
+
+def _pack_result_plain(res: PoolResult) -> torch.Tensor:
+    """Plain PyTorch K5: every PoolResult field as int32 words, c_ops as
+    narrow wire ops packed K per int64 (ops/prep.py `_wire_opbits`)."""
+    parts = []
+    for name, a in zip(res._fields, res):
+        if a is None:
+            continue
+        if name == "c_ops":
+            Cn, MW = a.shape
+            opbits, K, pb = _wire_opbits(MW)
+            w = a & 0x1FFFFF
+            narrow = (
+                (w & 3)
+                | (((w >> 2) & ((1 << pb) - 1)) << 2)
+                | (((w >> 17) & 3) << (2 + pb))
+                | (((w >> 20) & 1) << (4 + pb))
+            )
+            MWK = -(-MW // K) * K
+            g = torch.nn.functional.pad(narrow, (0, MWK - MW))
+            g = g.reshape(Cn, MWK // K, K).to(torch.int64)
+            w64 = g[..., 0]
+            for k in range(1, K):
+                w64 = w64 | (g[..., k] << (k * opbits))
+            a = w64.contiguous().view(torch.int32)
+        elif a.dtype == torch.float32:
+            a = a.view(torch.int32)
+        elif a.dtype == torch.bool:
+            a = a.to(torch.int32)
+        parts.append(a.reshape(-1))
+    return torch.cat(parts)
+
+
+class _PackArgs(ctypes.Structure):
+    """Mirror of `struct PackArgs` in csrc/pack_result.cu."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in PoolResult._fields] + [
+        ("C", ctypes.c_int), ("MW", ctypes.c_int), ("L", ctypes.c_int),
+        ("R", ctypes.c_int), ("opbits", ctypes.c_int), ("K", ctypes.c_int),
+        ("pb", ctypes.c_int), ("out", ctypes.c_void_p),
+    ]
+
+
+def _packed_words(C, MW, L, R) -> int:
+    _opbits, K, _pb = _wire_opbits(MW)
+    return 7 * C + C * (-(-MW // K)) * 2 + 3 + 2 * L + R
+
+
+def _pack_result(res: PoolResult) -> torch.Tensor:
+    """K5 wrapper: the plain version for CPU tensors, the kernel for CUDA
+    tensors (never a fallback)."""
+    if not res.c_read.is_cuda:
+        return _pack_result_plain(res)
+    C, MW = res.c_ops.shape
+    L = res.lane_read.shape[0]
+    R = res.read_steps.shape[0]
+    for t in res:
+        require(t.is_cuda and t.is_contiguous(),
+                "pack_result takes contiguous CUDA tensors")
+    opbits, K, pb = _wire_opbits(MW)
+    total = _packed_words(C, MW, L, R)
+    out = torch.empty(total, dtype=torch.int32, device=res.c_read.device)
+    args = _PackArgs(*[t.data_ptr() for t in res], C, MW, L, R, opbits, K,
+                     pb, out.data_ptr())
+    fn = cuda_function("pack_result", "pack_result",
+                       [ctypes.POINTER(_PackArgs), ctypes.c_longlong,
+                        ctypes.c_void_p])
+    LAUNCHES.add("pack_result")
+    check(fn(ctypes.byref(args), total,
+             torch.cuda.current_stream(out.device).cuda_stream),
+          "pack_result")
+    return out
+
+
+_NP_DTYPE = {torch.int32: np.int32, torch.float32: np.float32,
+             torch.bool: np.bool_}
+
+
+def _result_spec(res: PoolResult) -> PoolResult:
+    """Shape/dtype stand-ins (zero-stride numpy views) that tell the numpy
+    `_unpack_result` how to read the packed buffer."""
+    return PoolResult(*[
+        None if t is None
+        else np.broadcast_to(np.zeros((), _NP_DTYPE[t.dtype]), tuple(t.shape))
+        for t in res
+    ])
+
+
+class DeviceSearchEngine:
+    def __init__(self, fmd_index, parameters, lanes: int = 2048,
+                 config: SearchConfig | None = None, mode: str = "pool",
+                 pool_config: "PoolConfig | None" = None,
+                 big: bool | None = None, packed_hits: bool = False,
+                 threads: int | None = None, device=None):
+        if mode != "pool":
+            raise _later("the fixed-batch engine mode (kernel K10)")
+        self.device = resolve_device(device)
+        self.fmd = fmd_index
+        self.parameters = parameters
+        self.lanes = lanes
+        # --threads bounds the exact-fallback worker pool
+        self.threads = threads
+        # packed_hits: hits as PackedHits (flat op-word arrays for the
+        # native postprocess path) instead of decoded HitInterval lists
+        self.packed_hits = packed_hits
+        self.device_index = DeviceFmIndex.from_host(
+            fmd_index, big=big, device=self.device
+        )
+        sdm = parameters.difference_model
+        self._is_backward_only = sdm.find_alignment_start(100) == 100
+        if config is None:
+            config = SearchConfig(
+                compute_forward_part=not self._is_backward_only
+            )
+        self.config = config
+        if pool_config is None:
+            # the production shape: L=512 lanes, S = 512*8192/L steps (the
+            # frame store, L*S blocks, stays constant), per-read cap 3072,
+            # 16384 chains for 8192-read invocations
+            pool_lanes = max(8, min(lanes, 512))
+            pool_steps = max(2048, (512 * 8192) // pool_lanes)
+            if os.environ.get("MAPAD_POOL_STEPS"):
+                pool_steps = int(os.environ["MAPAD_POOL_STEPS"])
+            pool_config = PoolConfig(
+                max_len=config.max_len,
+                lanes=pool_lanes,
+                total_steps=pool_steps,
+                max_chains=16384,
+                read_step_cap=min(3072, pool_steps),
+                compute_forward_part=config.compute_forward_part,
+                backward_only=self._is_backward_only,
+                generations=int(os.environ.get("MAPAD_KGENS", "1")),
+            )
+        elif pool_config.backward_only and not self._is_backward_only:
+            pool_config = pool_config._replace(backward_only=False)
+        if pool_config.generations > 1:
+            raise _later("in-kernel store generations > 1 (kernel K8)")
+        if not pool_config.backward_only:
+            raise _later("the bidirectional pool search (center-start models)")
+        self.pool_config = pool_config
+        # counts, and seconds per stage: prep (prep thread), device (device
+        # thread), wait + decode (caller), exact fallback (core-seconds)
+        self._stats = {"device_lanes": 0, "escalated": 0, "oracle": 0,
+                       "batches": 0, "steps": 0, "prep_s": 0.0,
+                       "device_s": 0.0, "wait_s": 0.0, "decode_s": 0.0,
+                       "fb_secs": 0.0}
+        self._stats_lock = threading.Lock()
+        self._params_cache = None
+        if os.environ.get("MAPAD_SHARD") == "1":
+            raise _later("the multi-device mesh (kernel K9)")
+        if self.device.type == "cuda":
+            self._stream = torch.cuda.Stream(self.device)
+            self._copy_stream = torch.cuda.Stream(self.device)
+
+    # --- host-side per-read preparation (exact f32 paths) ---
+
+    def _prepare(self, records, max_len: int, lanes: int | None = None):
+        """Host preparation of one invocation: the C++ Bi-D and one int32
+        upload blob (consts | Bi-D, RLE-coded by default | 10-bit (class,
+        qual) cells; or consts | packed LUT/Bi-D rows when the qualities
+        exceed the device LUT's ceiling).  Returns the blob and the host
+        stash the exact fallback reuses."""
+        from ..map import native_search
+
+        if not native_search.available():
+            raise _later("the device Bi-D prologue (kernels K6/K7)")
+        L = lanes if lanes is not None else self.lanes
+        sdm = self.parameters.difference_model
+        mb = self.parameters.mismatch_bound
+
+        seqs = np.zeros((L, max_len), dtype=np.uint8)
+        quals = np.zeros((L, max_len), dtype=np.uint8)
+        n = np.zeros(L, dtype=np.int32)
+        split = np.zeros(L, dtype=np.int32)
+        cutoff_scale = np.ones(L, dtype=np.float32)
+        cutoff_thresh = np.full(L, np.float32(-np.inf), dtype=np.float32)
+        repr_mm = np.full(L, np.float32(-np.inf), dtype=np.float32)
+
+        # per-length parameter cache (pure functions of the read length)
+        by_len: dict[int, tuple] = getattr(self, "_len_params", None)
+        if by_len is None:
+            by_len = self._len_params = {}
+
+        def len_params(ln):
+            v = by_len.get(ln)
+            if v is None:
+                s = sdm.find_alignment_start(ln)
+                # bound encoding: reject(v) == (v / scale) < thresh
+                if isinstance(mb, Continuous):
+                    sc, th = mb._scale_read_length(ln), mb.cutoff
+                else:  # Discrete / TestBound: absolute threshold
+                    sc, th = np.float32(1.0), mb.threshold_for_length(ln)
+                rm = (
+                    np.float32(-np.inf) if isinstance(mb, TestBound)
+                    else mb.representative_mismatch_penalty
+                )
+                v = by_len[ln] = (s, sc, th, rm)
+            return v
+
+        for i, record in enumerate(records):
+            seq = np.frombuffer(bytes(record.sequence), dtype=np.uint8)
+            ln = len(seq)
+            n[i] = ln
+            if ln == 0:
+                continue
+            seqs[i, :ln] = seq
+            quals[i, :ln] = np.frombuffer(
+                bytes(record.base_qualities), dtype=np.uint8
+            )
+            split[i], cutoff_scale[i], cutoff_thresh[i], repr_mm[i] = (
+                len_params(ln)
+            )
+
+        pattern_rank = np.where(n[:, None] > 0, _RANK_TABLE[seqs], 0)
+        pattern_rank[seqs == 0] = 0
+        pattern_code = BASE_TO_CODE[seqs].astype(np.int32)
+        n_real = min(len(records), L)
+        pen = np.zeros((L, max_len), dtype=np.float32)
+        # device-LUT mode: ship consts + Bi-D + (class, qual) cells and
+        # gather the score columns on the card from the one-time table
+        dev_lut = (
+            self._lut_cache() is not None
+            and max_len % 2 == 0
+            and max_len <= self.config.max_len
+            and int(quals.max(initial=0)) < _DEV_LUT_Q
+        )
+        # Bi-D as a run-length code: reads with more runs than the code
+        # carries are neutralized on the card (thresh = +inf) and routed to
+        # the host fallback at collect time (stash["pre_escalate"])
+        bid_rle = dev_lut and os.environ.get("MAPAD_BID_RLE", "1") != "0"
+        RM = L * max_len
+        bid_words = (_BID_SEG // 4 + _BID_SEG) * L if bid_rle else RM
+        if not dev_lut:
+            # the score columns are filled straight into the blob
+            blob = np.zeros(5 * L + RM * 6, dtype=np.int32)
+            packed3 = blob[5 * L :].view(np.float32).reshape(L, max_len, 6)
+            score_lut = packed3[:, :, :4]
+        else:
+            blob = np.zeros(5 * L + bid_words + _cq_words(RM),
+                            dtype=np.int32)
+            packed3 = None
+            score_lut = np.zeros((L, max_len, 4), dtype=np.float32)
+        if n_real:
+            cache = self._lut_cache()
+            if cache is not None:
+                cache.fill(
+                    seqs[:n_real], quals[:n_real], n[:n_real],
+                    score_lut[:n_real], pen[:n_real],
+                )
+            else:
+                sl, pe = _batch_luts(
+                    sdm, self.parameters, seqs[:n_real], quals[:n_real],
+                    n[:n_real],
+                )
+                score_lut[:n_real] = sl
+                pen[:n_real] = pe
+
+        # host views kept for the escalated-read fallback: the native
+        # searcher takes the SAME per-read LUT/penalty rows
+        stash = dict(
+            pattern_rank=pattern_rank, pattern_code=pattern_code, n=n,
+            score_lut=score_lut, pen=pen, split=split,
+            scale=cutoff_scale, thresh=cutoff_thresh, repr_mm=repr_mm,
+            max_len=max_len,
+        )
+        # the threaded C++ Bi-D overlaps the blob packing below
+        bid_fut = self._bid_exec().submit(
+            self._native_bid().compute,
+            pattern_rank.astype(np.uint8), pen, n, split,
+            max(1, (os.cpu_count() or 2) - 2),
+        )
+        # padded/empty reads reject everything at once
+        thresh = cutoff_thresh.copy()
+        thresh[n == 0] = np.float32(np.inf)
+        blob[:L] = n.view(np.int32)
+        blob[L : 2 * L] = split.view(np.int32)
+        blob[2 * L : 3 * L] = cutoff_scale.view(np.int32)
+        blob[3 * L : 4 * L] = thresh.view(np.int32)
+        blob[4 * L : 5 * L] = repr_mm.view(np.int32)
+        if dev_lut:
+            blob[5 * L + bid_words :] = _pack_cq10(seqs, quals)
+        else:
+            packed3[:, :, 4] = pattern_code
+        bid = bid_fut.result()
+        if bid_rle:
+            br, vv, ovf = _pack_bid_rle(bid)
+            bw = _BID_SEG // 4
+            blob[5 * L : (5 + bw) * L] = br
+            blob[(5 + bw) * L : (5 + bw) * L + _BID_SEG * L] = vv
+            if ovf.size:
+                # unrepresentable reads finish at once with no hits and
+                # escalate
+                blob[3 * L + ovf] = np.float32(np.inf).view(np.int32)
+                stash["pre_escalate"] = ovf
+        elif dev_lut:
+            blob[5 * L : 5 * L + RM] = (
+                np.ascontiguousarray(bid, dtype=np.float32)
+                .reshape(-1).view(np.int32)
+            )
+        else:
+            packed3[:, :, 5] = bid
+        return dict(blob=blob, L=L, max_len=max_len, dev_lut=dev_lut,
+                    rle=bid_rle, _stash=stash)
+
+    def _upload(self, prep):
+        """Blob to the card (on the current stream) and its unpack (K4)."""
+        L, M = prep["L"], prep["max_len"]
+        host = torch.from_numpy(prep["blob"])
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        blob = host.to(self.device, non_blocking=True)
+        if prep["dev_lut"]:
+            tab, off = self._device_lut()
+            return _unpack_prep_lut(blob, tab, off, L, M, _DEV_LUT_Q,
+                                    rle=prep["rle"])
+        return _unpack_prep(blob, L, M)
+
+    def _params(self) -> SearchParams:
+        # host scalars: the kernels take them by value
+        if self._params_cache is None:
+            self._params_cache = SearchParams.from_alignment(
+                self.parameters, "cpu"
+            )
+        return self._params_cache
+
+    # --- public API ---
+
+    def search_chunk(self, records, lazy_fallback: bool = False):
+        """lazy_fallback: escalated entries come back as Futures still
+        running on the engine's fallback pool."""
+        R = self.block_reads
+        out = [None] * len(records)
+        blocks = (
+            (base, records[base : base + R])
+            for base in range(0, len(records), R)
+        )
+        for base, block_out in self.search_stream(blocks, lazy_fallback=True):
+            out[base : base + len(block_out)] = block_out
+        if not lazy_fallback:
+            out = [o.result() if isinstance(o, Future) else o for o in out]
+        return out
+
+    def _fallback_pool(self):
+        if getattr(self, "_fb_pool", None) is None:
+            self._fb_pool = ThreadPoolExecutor(
+                max_workers=self.threads or max(1, (os.cpu_count() or 2) - 1)
+            )
+        return self._fb_pool
+
+    @property
+    def block_reads(self) -> int:
+        """Device invocation size: 8192 reads (assignable for tests)."""
+        override = getattr(self, "_block_reads", None) or int(
+            os.environ.get("MAPAD_BLOCK_READS", 0)
+        )
+        if override:
+            return max(self.pool_config.lanes, override)
+        return max(self.pool_config.lanes, 8192)
+
+    @block_reads.setter
+    def block_reads(self, value: int):
+        self._block_reads = value
+
+    def search_stream(self, blocks, lazy_fallback: bool = False,
+                      max_in_flight: int = 2):
+        """Pipelined block search: yields (key, results) per input block in
+        submission order.
+
+        A prep thread builds the next blocks' LUT rows, Bi-D and upload
+        blob while up to `max_in_flight` invocations are queued on the
+        device thread; each invocation's result pack and its copy to the
+        host are enqueued behind its search, so the copy overlaps the next
+        invocation.  Escalated entries come back as Futures resolved on the
+        fallback pool when lazy_fallback."""
+        from collections import deque
+
+        if os.environ.get("MAPAD_RETRY_TIER") == "1":
+            raise _later("the device retry tier")
+        if os.environ.get("MAPAD_DEEP_TIER") == "1":
+            raise _later("the deep tier")
+        if os.environ.get("MAPAD_NOHIT_PROBE", "0") == "1":
+            raise _later("the batched no-hit probe")
+        cfg = self.pool_config
+        R = self.block_reads
+        params = self._params()
+        self._ensure_native()
+        fb_pool = self._fallback_pool()
+        if getattr(self, "_prep_exec", None) is None:
+            self._prep_exec = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="pool-prep"
+            )
+        it = iter(blocks)
+        prep_q: deque = deque()  # (key, records, Future[prepped])
+        run_q: deque = deque()   # (key, records, launched)
+        exhausted = False
+
+        def refill_prep():
+            # one block in prep, the next one queued behind it
+            nonlocal exhausted
+            while not exhausted and len(prep_q) < 2:
+                nxt = next(it, None)
+                if nxt is None:
+                    exhausted = True
+                    break
+                key, recs = nxt
+                prep_q.append(
+                    (key, recs,
+                     self._prep_exec.submit(self._prep_block, recs, R, cfg))
+                )
+
+        while True:
+            refill_prep()
+            while prep_q and len(run_q) < max_in_flight:
+                key, recs, fut = prep_q.popleft()
+                launched = self._launch_block(fut.result(), params)
+                run_q.append((key, recs, launched))
+                refill_prep()
+            if not run_q:
+                break
+            key, recs, launched = run_q.popleft()
+            out = [None] * len(recs)
+            escalated = self._collect_pool(recs, launched, out)
+            stash = launched[3]
+            for i in escalated:
+                self._stats["oracle"] += 1
+                fut = fb_pool.submit(self._fallback_one, recs[i],
+                                     self._stash_row(stash, i))
+                out[i] = fut if lazy_fallback else fut.result()
+            yield key, out
+
+    def warm(self, records):
+        """Build the kernels and run one block before timing starts."""
+        self.search_chunk(records)
+
+    def stats(self) -> dict:
+        """A copy of the counts and stage seconds of the blocks run so far
+        (the streaming driver logs it when a run ends)."""
+        with self._stats_lock:
+            return {k: dict(v) if isinstance(v, dict) else v
+                    for k, v in self._stats.items()}
+
+    @staticmethod
+    def _stash_row(stash, i):
+        """Single-read view of a block prep stash (index 0) for the
+        fallback path, so fallbacks reuse the block's LUT/penalty rows."""
+        if stash is None or i is None:
+            return None
+        return dict(
+            pattern_rank=stash["pattern_rank"][i : i + 1],
+            pattern_code=stash["pattern_code"][i : i + 1],
+            n=stash["n"][i : i + 1],
+            score_lut=stash["score_lut"][i : i + 1],
+            pen=stash["pen"][i : i + 1],
+            split=stash["split"][i : i + 1],
+            scale=stash["scale"][i : i + 1],
+            thresh=stash["thresh"][i : i + 1],
+            repr_mm=stash["repr_mm"][i : i + 1],
+            max_len=stash["max_len"],
+        )
+
+    def _prep_block(self, chunk, R, cfg):
+        """Host-side preparation of one pool invocation (prep thread)."""
+        t0 = time.perf_counter()
+        # size the pattern axis to the block's longest read, rounded up to
+        # 16 (fewer LUT cells and shorter c_ops rows for short reads)
+        mlen = max((len(r.sequence) for r in chunk), default=1)
+        m_fit = min(cfg.max_len, max(16, -(-mlen // 16) * 16))
+        # per-read XD timing from per-read step counts
+        cfg = cfg._replace(max_len=m_fit, track_read_steps=True)
+        prep = self._prepare(
+            [r if len(r.sequence) <= cfg.max_len else _EMPTY for r in chunk],
+            cfg.max_len, R,
+        )
+        self._stats["prep_s"] += time.perf_counter() - t0
+        return cfg, prep, t0
+
+    def _device_exec(self):
+        if getattr(self, "_dev_exec", None) is None:
+            self._dev_exec = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="pool-device"
+            )
+        return self._dev_exec
+
+    def _run_block(self, cfg, prep, params):
+        """Device thread: upload + K4, K2 + K3, K5 and the async copy of
+        the packed result into pinned host memory on a side stream.
+        Returns (result spec, host buffer, copy-done event or None).  The
+        step loop polls the card, so this thread's busy time is close to
+        the card's time for the invocation (`_stats["device_s"]`)."""
+        t0 = time.perf_counter()
+        if self.device.type != "cuda":
+            parts = self._upload(prep)
+            res = k_mismatch_search_pool2(self.device_index, *parts[:5],
+                                          params, cfg, parts[5])
+            out = _result_spec(res), _pack_result(res).numpy(), None
+            self._stats["device_s"] += time.perf_counter() - t0
+            return out
+        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+            parts = self._upload(prep)
+            res = k_mismatch_search_pool2(self.device_index, *parts[:5],
+                                          params, cfg, parts[5])
+            packed = _pack_result(res)
+            host = torch.empty(packed.shape, dtype=torch.int32,
+                               pin_memory=True)
+            self._copy_stream.wait_stream(self._stream)
+            with torch.cuda.stream(self._copy_stream):
+                host.copy_(packed, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(self._copy_stream)
+            packed.record_stream(self._copy_stream)
+        self._stats["device_s"] += time.perf_counter() - t0
+        return _result_spec(res), host, done
+
+    def _launch_block(self, prepped, params):
+        """Queue one prepared invocation on the device thread."""
+        cfg, prep, t0 = prepped
+        stash = prep.pop("_stash", None)
+        fut = self._device_exec().submit(self._run_block, cfg, prep, params)
+        return fut, None, t0, stash
+
+    def _fetch(self, fut):
+        spec, host, done = fut.result()
+        if done is not None:
+            done.synchronize()
+            host = host.numpy()
+        return _unpack_result(spec, host)
+
+    def _collect_pool(self, chunk, launched, out):
+        """Wait for one invocation's result, decode its chains into `out`
+        and return the set of escalated read indexes (by cause in
+        `_stats["esc_why"]`)."""
+        fut, _, t0, stash = launched
+        t_fetch = time.perf_counter()
+        result = self._fetch(fut)
+        t_dec = time.perf_counter()
+        elapsed = t_dec - t0
+        self._stats["wait_s"] += t_dec - t_fetch
+        per_read = elapsed / max(len(chunk), 1)
+        read_time = None
+        if result.read_steps is not None and result.read_steps.size:
+            rs = np.asarray(result.read_steps)
+            if (rs >= 0).any():
+                step_time = elapsed / max(int(result.steps), 1)
+                read_time = np.where(rs >= 0, rs * step_time, per_read)
+        splits = [
+            self.parameters.difference_model.find_alignment_start(
+                len(r.sequence)
+            )
+            for r in chunk
+        ]
+
+        escalated = set(
+            i for i in range(len(chunk))
+            if len(chunk[i].sequence) > self.pool_config.max_len
+        )
+        esc_why = self._stats.setdefault(
+            "esc_why", {"overlong": 0, "overflow": 0, "unfinished": 0,
+                        "undispatched": 0, "abandon": 0, "bid_rle": 0}
+        )
+        esc_why["overlong"] += len(escalated)
+        esc_why["bid_rle"] += _inject_pre_escalate(
+            stash, len(chunk), escalated, None, None
+        )
+        n_chains = int(result.n_chains)
+        if n_chains > result.c_read.shape[0]:
+            # chain log overflow: cannot attribute hits safely
+            pre = len(escalated)
+            escalated.update(
+                i for i in range(len(chunk)) if len(chunk[i].sequence) > 0
+            )
+            esc_why["overflow"] += len(escalated) - pre
+            logger.warning("pool chain log overflow (%d chains)", n_chains)
+        else:
+            pre = len(escalated)
+            for rid in result.lane_read[result.lane_unfinished]:
+                if rid < len(chunk):
+                    escalated.add(int(rid))
+            esc_why["unfinished"] += len(escalated) - pre
+            pre = len(escalated)
+            for rid in range(int(result.next_read), len(chunk)):
+                escalated.add(rid)
+            esc_why["undispatched"] += len(escalated) - pre
+
+            # group chains by read (descending slot == completion order);
+            # abandon markers escalate their read
+            cr = result.c_read[:n_chains]
+            valid = (cr >= 0) & (cr < len(chunk))
+            ab = result.c_abandon[:n_chains] & valid
+            pre = len(escalated)
+            escalated.update(np.unique(cr[ab]).tolist())
+            esc_why["abandon"] += len(escalated) - pre
+            idx = np.flatnonzero(valid & ~result.c_abandon[:n_chains])
+            ordk = idx[np.lexsort((-result.c_slot[idx], cr[idx]))]
+            crs = cr[ordk]
+            rid_range = np.arange(len(chunk))
+            starts = np.searchsorted(crs, rid_range)
+            ends = np.searchsorted(crs, rid_range, side="right")
+            if self.packed_hits:
+                from ..map.native_post import _EMPTY_PACKED, PackedHits
+
+                ivals_all = np.stack(
+                    [
+                        result.c_lower[ordk].astype(np.int64),
+                        result.c_lrev[ordk].astype(np.int64),
+                        result.c_size[ordk].astype(np.int64),
+                    ],
+                    axis=1,
+                )
+                scores_all = result.c_score[ordk].astype(np.float32)
+                ops_all = result.c_ops[ordk].astype(np.uint32, copy=False)
+            for i, record in enumerate(chunk):
+                if i in escalated:
+                    continue
+                s, e = starts[i], ends[i]
+                if self.packed_hits:
+                    hits = (
+                        PackedHits(ivals_all[s:e], scores_all[s:e],
+                                   ops_all[s:e], splits[i])
+                        if e > s else _EMPTY_PACKED
+                    )
+                else:
+                    hits = [
+                        self._decode_chain(result, int(k), splits[i])
+                        for k in ordk[s:e]
+                    ]
+                out[i] = (
+                    hits,
+                    float(read_time[i]) if read_time is not None
+                    else per_read,
+                )
+
+        self._stats["decode_s"] += time.perf_counter() - t_dec
+        self._stats["device_lanes"] += len(chunk)
+        self._stats["escalated"] += len(escalated)
+        self._stats["batches"] += 1
+        self._stats["steps"] += int(result.steps)
+        return escalated
+
+    def _decode_chain(self, result, k, split):
+        buckets: dict[int, list] = {}
+        for w in result.c_ops[k]:
+            w = int(w)
+            if w == 0:
+                break
+            kind = (w >> 17) & 7
+            pos = (w >> 2) & 0x7FFF
+            base = (
+                int(CODE_TO_BASE[w & 3])
+                if kind in (OP_MISMATCH, OP_DELETION)
+                else 0
+            )
+            buckets.setdefault(pos, []).append(EditOperation(kind, pos, base))
+        track = []
+        for pos in sorted(buckets):
+            ops = buckets[pos]
+            if pos < split:
+                track.extend(ops)
+            else:
+                track.extend(reversed(ops))
+        return HitInterval(
+            BiInterval(int(result.c_lower[k]), int(result.c_lrev[k]),
+                       int(result.c_size[k])),
+            np.float32(result.c_score[k]),
+            track,
+        )
+
+    def _ensure_native(self):
+        from ..map import native_search
+
+        if getattr(self, "_native_searcher", None) is None:
+            self._native_searcher = (
+                native_search.NativeSearcher(self.fmd)
+                if native_search.available()
+                else None
+            )
+        return self._native_searcher
+
+    def _native_bid(self):
+        from ..map import native_search
+
+        if getattr(self, "_native_bid_cache", None) is None:
+            self._native_bid_cache = native_search.NativeBiD(self.fmd)
+        return self._native_bid_cache
+
+    def _bid_exec(self):
+        if getattr(self, "_bid_exec_cache", None) is None:
+            self._bid_exec_cache = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="bid"
+            )
+        return self._bid_exec_cache
+
+    def _lut_cache(self):
+        """Per-length LUT table cache (None when the model has no
+        vectorized raw_grid -- then the direct grid build is faster)."""
+        cache = getattr(self, "_lut_cache_obj", False)
+        if cache is False:
+            cache = self._lut_cache_obj = (
+                _LutCache(self.parameters.difference_model, self.parameters)
+                if _LutCache.usable(self.parameters.difference_model)
+                else None
+            )
+        return cache
+
+    def _device_lut(self):
+        """One-time all-length score-LUT table + per-length offsets on the
+        card for K4.  The host build is memoized across engines on the
+        model's scalar parameters."""
+        ent = getattr(self, "_dev_lut_obj", None)
+        if ent is None:
+            sdm = self.parameters.difference_model
+            attrs = tuple(
+                (k, str(v))
+                for k, v in sorted(vars(sdm).items())
+                if isinstance(
+                    v, (str, bool, int, float, tuple,
+                        np.floating, np.integer)
+                )
+            )
+            p = self.parameters
+            key = (
+                type(sdm).__name__, attrs,
+                str(np.float32(p.penalty_gap_extend)),
+                int(p.gap_dist_ends), self.config.max_len, _DEV_LUT_Q,
+            )
+            host = _DEV_LUT_MEMO.get(key)
+            if host is None:
+                t0 = time.perf_counter()
+                host = _DEV_LUT_MEMO[key] = _build_all_lut(
+                    sdm, p, self.config.max_len
+                )
+                logger.debug(
+                    "device LUT table: %d rows built in %.1fs",
+                    host[0].shape[0], time.perf_counter() - t0,
+                )
+            ent = self._dev_lut_obj = (
+                torch.from_numpy(host[0]).to(self.device),
+                torch.from_numpy(host[2]).to(self.device),
+            )
+        return ent
+
+    def _fallback_one(self, record, stash=None):
+        """Exact host C++ search of one escalated read -> (hits, seconds).
+        `stash` is the read's row of its block's prep (`_stash_row`)."""
+        searcher = self._ensure_native()
+        t1 = time.perf_counter()
+        ln = len(record.sequence)
+        if ln == 0:
+            hits = []
+        elif searcher is None:
+            raise _later("the Python oracle fallback (no C++ compiler)")
+        elif (
+            stash is not None
+            and ln <= stash["max_len"]
+            and int(stash["n"][0]) == ln
+        ):
+            # reuse the block's prepped LUT/penalty rows (identical f32)
+            hits = searcher.search(
+                stash["pattern_rank"][0], stash["pattern_code"][0], ln,
+                stash["score_lut"][0], stash["pen"][0],
+                int(stash["split"][0]), stash["scale"][0],
+                stash["thresh"][0], stash["repr_mm"][0],
+                self.parameters, packed=self.packed_hits,
+            )
+        else:
+            hits = self._native_search(searcher, record)
+        dt = time.perf_counter() - t1
+        with self._stats_lock:  # total exact-fallback core-seconds
+            self._stats["fb_secs"] += dt
+        return hits, dt
+
+    def _native_search(self, searcher, record):
+        sdm = self.parameters.difference_model
+        mb = self.parameters.mismatch_bound
+        seq = np.frombuffer(bytes(record.sequence), dtype=np.uint8)
+        quals = np.frombuffer(bytes(record.base_qualities), dtype=np.uint8)
+        ln = len(seq)
+        score_lut, pen = _batch_luts(
+            sdm, self.parameters, seq[None, :], quals[None, :],
+            np.asarray([ln], dtype=np.int32),
+        )
+        if isinstance(mb, Continuous):
+            scale, thresh = mb._scale_read_length(ln), mb.cutoff
+        else:
+            scale, thresh = np.float32(1.0), mb.threshold_for_length(ln)
+        repr_mm = (
+            np.float32(-np.inf) if isinstance(mb, TestBound)
+            else mb.representative_mismatch_penalty
+        )
+        return searcher.search(
+            _RANK_TABLE[seq].astype(np.uint8), BASE_TO_CODE[seq], ln,
+            score_lut[0], pen[0], sdm.find_alignment_start(ln),
+            scale, thresh, repr_mm, self.parameters,
+            packed=self.packed_hits,
+        )

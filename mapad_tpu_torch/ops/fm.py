@@ -1,0 +1,253 @@
+"""Batched FMD-index rank queries and extension on the card (kernel K1).
+
+Counterpart of mapad_tpu/ops/fm.py (reference src/map/fmd_index.rs:108-182).
+Layout: one fused int32 row per BWT block --
+  row[0:6]    exclusive-prefix occ checkpoint counts for ranks 0..5
+  row[6:128]  BWT symbol ranks packed 8 per int32 (4 bits each)
+so one 512 B row answers the rank query for all four DNA symbols (k = 976
+symbols per row).  The rows of the doubled 8 Mbp bench text are ~4.2 MB and
+stay in the H100's 50 MB L2.
+
+K1 replaces `_row_occ4` / `extend_batch` (mapad_tpu/ops/fm.py:149-229):
+on the card it is the warp-cooperative `__device__` function `occ4_warp` of
+csrc/common.cuh, called inline by the pool search (csrc/pool_search.cu);
+`extend_batch` below launches its thin `__global__` wrapper so the function
+can be checked alone.  Bound on the card: one 512 B row read per interval
+end (2 per lane) -- bytes, L2-resident; each warp lane counts 4 words with
+SWAR nibble compares, so a query is ~4 dependent loads and a 5-step
+shuffle reduction.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .._build import LAUNCHES, check, cuda_function, require
+
+ROW_WORDS = 128
+N_CP = 6
+OCC_K = (ROW_WORDS - N_CP) * 8  # 976 symbols per fused row
+
+
+def resolve_device(device) -> torch.device:
+    """The card unless the caller names another device; raises when CUDA
+    is asked for (or defaulted to) and no card is there."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels"
+        )
+    return device
+
+
+class DeviceFmIndex(NamedTuple):
+    """FMD-index arrays on the engine's device (small mode: int32)."""
+
+    rows: torch.Tensor  # (nb, 128) int32 fused occ+bwt rows
+    less: torch.Tensor  # (A,) int32
+    sentinels: torch.Tensor  # (2,) int32
+    occ_k: int
+    text_len: int
+    big: bool = False
+
+    @classmethod
+    def from_numpy(cls, rows, less, sentinels, occ_k: int, text_len: int,
+                   big: bool = False, device=None) -> "DeviceFmIndex":
+        """Take the arrays of the JAX package's DeviceFmIndex as numpy and
+        put them on `device` (default: the card)."""
+        if big:
+            raise NotImplementedError(
+                "big-genome (int64) index mode is a later slice of the port"
+            )
+        device = resolve_device(device)
+        rows = np.ascontiguousarray(rows, dtype=np.int32)
+        require(rows.ndim == 2 and rows.shape[1] == ROW_WORDS,
+                f"fused index rows must be (nb, {ROW_WORDS}) int32")
+        return cls(
+            rows=torch.from_numpy(rows.copy()).to(device),
+            less=torch.from_numpy(
+                np.asarray(less, dtype=np.int64).astype(np.int32)
+            ).to(device),
+            sentinels=torch.from_numpy(
+                np.asarray(sentinels, dtype=np.int64).astype(np.int32)
+            ).to(device),
+            occ_k=int(occ_k),
+            text_len=int(text_len),
+            big=False,
+        )
+
+    @classmethod
+    def from_host(cls, fmd, occ_k: int | None = None,
+                  big: bool | None = None,
+                  device=None) -> "DeviceFmIndex":
+        """Build from a host FmdIndex (index/fmd.py): the same fused rows as
+        mapad_tpu/ops/fm.py:58-136, read from and written to the same
+        `device_rows_k976.npy` cache next to the index bundle, and put them
+        on `device` (default: the card)."""
+        from ..index.fmd import compute_occ_checkpoints
+
+        n = len(fmd.bwt)
+        if big is None:
+            big = n >= 2**31 - 1
+        if big:
+            raise NotImplementedError(
+                "big-genome (int64) index mode is a later slice of the port"
+            )
+        device = resolve_device(device)
+        k = occ_k or OCC_K
+        assert k % 8 == 0
+        nb = (n + k - 1) // k
+        cache_dir = getattr(fmd, "cache_dir", None)
+        cache_path = (
+            os.path.join(cache_dir, f"device_rows_k{k}.npy")
+            if cache_dir else None
+        )
+        rows = None
+        if cache_path and os.path.exists(cache_path):
+            cached = np.load(cache_path, mmap_mode="r")
+            if cached.shape == (nb, ROW_WORDS) and cached.dtype == np.int32:
+                rows = cached
+        if rows is None:
+            bwt = np.asarray(fmd.bwt, dtype=np.uint8)
+            padded = np.full(nb * k, 15, dtype=np.uint8)
+            padded[:n] = bwt
+            nibbles = padded.reshape(nb, k // 8, 8).astype(np.uint32)
+            packed = np.zeros((nb, k // 8), dtype=np.uint32)
+            for b in range(8):
+                packed |= nibbles[:, :, b] << (4 * b)
+            packed = packed.view(np.int32)
+            if k == fmd.occ_k:
+                cp = np.asarray(fmd.occ_cp, dtype=np.int64)
+            else:
+                alphabet_size = len(fmd.rank_transform)
+                cp = compute_occ_checkpoints(bwt, k, alphabet_size)
+            cp = cp[:nb]
+            if cp.shape[1] < 6:
+                cp = np.pad(cp, ((0, 0), (0, 6 - cp.shape[1])))
+            cp = cp[:, :6]
+            rows = np.concatenate([cp.astype(np.int32), packed], axis=1)
+            if cache_path:
+                try:
+                    tmp = f"{cache_path}.{os.getpid()}.tmp"
+                    with open(tmp, "wb") as f:
+                        np.save(f, rows)
+                    os.replace(tmp, cache_path)
+                except OSError:  # read-only bundle: skip the cache
+                    pass
+        return cls.from_numpy(rows, fmd.less, fmd.sentinel_occ, k, n,
+                              False, device)
+
+
+def _row_occ4(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:
+    """(N,) positions -> (N, 4) counts of ranks 1..4 in bwt[0..=r] (-1 -> 0).
+
+    Plain version of K1's rank query.  Row indices clamp to the table like
+    XLA's gather does (lanes holding no read may query garbage)."""
+    k = index.occ_k
+    r_safe = torch.clamp(r, min=0)
+    blk = torch.clamp(r_safe // k, max=index.rows.shape[0] - 1).long()
+    off = r_safe % k
+    rows = index.rows[blk]
+    cp = rows[:, 1:5]
+    words = rows[:, N_CP:]
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=r.device)
+    symbols = ((words[:, :, None] >> shifts) & 0xF).reshape(rows.shape[0], -1)
+    pos = torch.arange(symbols.shape[1], dtype=torch.int32, device=r.device)
+    in_prefix = pos[None, :] <= off[:, None]
+    counts = torch.stack(
+        [((symbols == c) & in_prefix).sum(dim=1, dtype=torch.int32)
+         for c in (1, 2, 3, 4)],
+        dim=1,
+    )
+    return torch.where(r[:, None] >= 0, counts + cp, torch.zeros_like(cp))
+
+
+def sentinel_count(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:
+    """(N,) -> number of sentinels in bwt[0..=r] (fmd_index.rs:138-151)."""
+    return ((r >= index.sentinels[0]).to(torch.int32)
+            + (r >= index.sentinels[1]).to(torch.int32))
+
+
+def extend_batch_plain(index: DeviceFmIndex, lower, lower_rev, size):
+    """Plain PyTorch K1: the 4-symbol backward-extension sweep.
+
+    (L,) int32 inputs -> (child_lower, child_lower_rev, child_size), each
+    (L, 4) in sweep slot order [T, G, C, A] (ranks 4, 3, 2, 1)."""
+    L = lower.shape[0]
+    r1 = lower - 1
+    r2 = lower + size - 1
+    rr = torch.cat([torch.where(lower == 0, torch.full_like(r1, -1), r1), r2])
+    occ12 = _row_occ4(index, rr)
+    occ1, occ2 = occ12[:L], occ12[L:]
+    sent1 = torch.where(lower == 0, torch.zeros_like(r1),
+                        sentinel_count(index, r1))
+    sent2 = sentinel_count(index, r2)
+    out_lower, out_lrev, out_size = [], [], []
+    s_run = sent2 - sent1
+    l_run = lower_rev
+    for c in (4, 3, 2, 1):
+        l_run = l_run + s_run
+        o = occ1[:, c - 1]
+        s_run = occ2[:, c - 1] - o
+        out_lower.append(index.less[c] + o)
+        out_lrev.append(l_run)
+        out_size.append(s_run)
+    return (torch.stack(out_lower, 1), torch.stack(out_lrev, 1),
+            torch.stack(out_size, 1))
+
+
+def extend_batch(index: DeviceFmIndex, lower, lower_rev, size):
+    """K1 wrapper: the plain version for CPU tensors, the kernel for CUDA
+    tensors (never a fallback)."""
+    if not lower.is_cuda:
+        return extend_batch_plain(index, lower, lower_rev, size)
+    L = lower.shape[0]
+    for t in (lower, lower_rev, size, index.rows, index.less,
+              index.sentinels):
+        require(t.is_cuda and t.dtype == torch.int32 and t.is_contiguous(),
+                "extend_batch takes contiguous int32 CUDA tensors")
+    require(lower_rev.shape == size.shape == (L,), "extend_batch shapes")
+    outs = [torch.empty((L, 4), dtype=torch.int32, device=lower.device)
+            for _ in range(3)]
+    fn = cuda_function(
+        "pool_search", "k1_extend_batch",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+        + [ctypes.c_int, ctypes.c_void_p],
+    )
+    LAUNCHES.add("extend_batch")
+    check(fn(
+        index.rows.data_ptr(), index.less.data_ptr(),
+        index.sentinels.data_ptr(), index.rows.shape[0], index.occ_k,
+        lower.data_ptr(), lower_rev.data_ptr(), size.data_ptr(),
+        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), L,
+        torch.cuda.current_stream(lower.device).cuda_stream,
+    ), "k1_extend_batch")
+    return tuple(outs)
+
+
+def backward_ext_by_rank(index: DeviceFmIndex, lower, lower_rev, size, c):
+    """Backward-extend (L,) intervals by per-lane symbol ranks c (1..4);
+    c outside 1..4 yields the empty interval."""
+    ch_lower, ch_lrev, ch_size = extend_batch(index, lower, lower_rev, size)
+    slot = torch.clamp(4 - c, 0, 3).long()[:, None]
+    valid = (c >= 1) & (c <= 4)
+    zero = torch.zeros_like(lower)
+    return (
+        torch.where(valid, ch_lower.gather(1, slot)[:, 0], zero),
+        torch.where(valid, ch_lrev.gather(1, slot)[:, 0], zero),
+        torch.where(valid, ch_size.gather(1, slot)[:, 0], zero),
+    )
+
+
+def forward_ext_by_rank(index: DeviceFmIndex, lower, lower_rev, size, c):
+    """Forward extension = backward extension of the swapped interval with
+    the complement symbol, then swap back (fmd_index.rs:93-96)."""
+    comp = torch.where((c >= 1) & (c <= 4), 5 - c, torch.zeros_like(c))
+    sl, slr, ss = backward_ext_by_rank(index, lower_rev, lower, size, comp)
+    return slr, sl, ss

@@ -1,0 +1,625 @@
+"""Persistent best-first pool search (kernel K2) and chain extraction (K3).
+
+Counterpart of mapad_tpu/ops/search_pool2.py (generations == 1, backward-only
+extension, host-packed LUT/Bi-D rows): the same pop order (max monotone
+key, then minimum ring age = LIFO, then the first max candidate of the
+block), the same f32 operation order, the same store slot numbering (the
+block of step s is block S-1-s, its 9 candidates stored in reverse), so
+`PoolResult` matches the JAX function field for field.
+
+Two implementations of each kernel live here:
+
+- `_pool_loop_plain` / `_extract_chains_plain`: plain PyTorch, a line by
+  line transcription of the JAX loop body.  The wrappers take them for CPU
+  tensors only (the tests) and `chip_smoke.py` holds the kernels against
+  them on the card.
+- the CUDA kernels of csrc/pool_search.cu and csrc/extract_chains.cu.
+
+K2 (`pool_search`, replaces `k_mismatch_search_pool2` setup + `body`,
+search_pool2.py:99-612): one lane kernel launch per step (one block per
+lane: dense pop scan over the RB = CAP+1 ring, the popped block read, the
+LUT row read, K1 inline, the 9-candidate expansion, the store write) and a
+one-block refill kernel (lane-order exclusive scan of the finish flags,
+next-read assignment, the done flag).  Launches after the done flag
+return at once, so the host polls the flag only every `POLL_STEPS` steps.
+Bound: the pop reads the lane's bm_key ring, 4 x RB bytes per lane per
+step (6.3 MB a step at L=512, CAP=3072: ~1.9 us at 3.35 TB/s; the JAX
+design's two dense (L, RB) passes model twice that); the store write is
+288 B per lane per step.
+
+K3 (`extract_chains` + `fold_read_steps` + tail, search_pool2.py:617-737,
+921-971): per-lane counts of completion/abandon entries from the 9-bit
+block masks the lane kernel writes, a lane-order prefix sum (giving the
+first C entries in ascending (lane, slot) order, as JAX's top_k of
+negated keys does), an in-order emit per lane, then one thread per chain
+gathers its fields and walks MW-1 ancestors into `c_ops`; the per-read
+step fold is an exact `atomicMax`.  Bound: bytes -- the block masks
+(4 B per lane per executed step) plus ~MW dependent 32 B reads per chain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._build import LAUNCHES, check, cuda_function, require
+from .fm import DeviceFmIndex, extend_batch_plain
+from .search import (
+    CANDS,
+    F_GAPS,
+    F_LOWER,
+    F_LREV,
+    F_OP,
+    F_PARENT,
+    F_SCOREBITS,
+    F_SIZE,
+    F_STARTLEN,
+    GAP_CLOSED,
+    GAP_DELETION,
+    GAP_INSERTION,
+    NF,
+    OP_COMP_BIT,
+    OP_DELETION,
+    OP_INSERTION,
+    OP_MATCH,
+    OP_MISMATCH,
+    OP_VALID_BIT,
+    SearchParams,
+    pack_op,
+)
+from .search_pool import OP_ABANDON_BIT, PoolConfig, PoolResult
+
+OP_PUSHED_BIT = 1 << 23  # op word of a live (poppable) pushed frame
+INT_MIN = -(2**31)
+# host polls the device done flag once per this many step launches
+POLL_STEPS = 64
+
+
+def _check_config(config: PoolConfig, R: int):
+    if not config.backward_only:
+        raise NotImplementedError(
+            "bidirectional pool search (center-start models) is a later "
+            "slice of the port"
+        )
+    if config.generations != 1:
+        raise NotImplementedError(
+            "in-kernel store generations > 1 (K8) are a later slice"
+        )
+    S = config.total_steps
+    require(config.lanes * (S * CANDS + 1) < 2**31,
+            "store slot numbers exceed int32")
+    require(config.max_len + 16 <= 1 << 15, "op positions exceed 15 bits")
+
+
+def _mono(f: torch.Tensor) -> torch.Tensor:
+    u = f.view(torch.int32)
+    return u ^ ((u >> 31) & 0x7FFFFFFF)
+
+
+def _mono_bits(u: torch.Tensor) -> torch.Tensor:
+    return u ^ ((u >> 31) & 0x7FFFFFFF)
+
+
+def _mono_inv(k: torch.Tensor) -> torch.Tensor:
+    return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
+def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
+                     cutoff_thresh, repr_mm, params: SearchParams,
+                     config: PoolConfig, slut):
+    """Plain PyTorch K2: the lock-step pool loop.  Returns the loop state
+    `_extract_chains_plain` reads."""
+    dev = n.device
+    i32 = torch.int32
+    R = n.shape[0]
+    M = config.max_len
+    L = config.lanes
+    S = config.total_steps
+    ROOT = S * CANDS
+    CAP = config.read_step_cap
+    RB = min(S, CAP + 1)
+    lanes = torch.arange(L, device=dev)
+    cand_iota = torch.arange(CANDS, dtype=i32, device=dev)[None, :]
+    slot_iota = torch.arange(RB, dtype=i32, device=dev)[None, :]
+    NEG_INF = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    pgo_pge = params.pgo_pge.to(dev)
+    pge = params.pge.to(dev)
+    gde = params.gap_dist_ends.to(dev)
+    max_gaps = params.max_gaps.to(dev)
+
+    consts = torch.stack(
+        [n.to(i32), split.to(i32), cutoff_scale.view(i32),
+         cutoff_thresh.view(i32), repr_mm.view(i32)], dim=1,
+    )
+    consts_pad = torch.cat([consts, torch.zeros((L, 5), dtype=i32,
+                                                device=dev)])
+
+    consumed = torch.zeros((L, RB), dtype=i32, device=dev)
+    bm_key = torch.full((L, RB), INT_MIN, dtype=i32, device=dev)
+    lane_start = torch.zeros(L, dtype=i32, device=dev)
+    # block b holds slots b*9..b*9+8; block S is the all-zero ROOT block
+    store = torch.zeros((L, S + 1, CANDS, NF), dtype=i32, device=dev)
+
+    read_id = torch.where(lanes < R, lanes, R).to(i32)
+    fresh = read_id < R
+    next_read = min(L, R)
+    lane_done = read_id >= R
+    lane_age = torch.zeros(L, dtype=i32, device=dev)
+    row0 = consts[torch.clamp(read_id, 0, R - 1).long()]
+    c_n, c_split = row0[:, 0], row0[:, 1]
+    c_scale = row0[:, 2].view(torch.float32)
+    c_thresh = row0[:, 3].view(torch.float32)
+    c_repr = row0[:, 4].view(torch.float32)
+    best_score = torch.full((L,), float("-inf"), dtype=torch.float32,
+                            device=dev)
+    best_size = torch.zeros(L, dtype=i32, device=dev)
+    hcount = torch.zeros(L, dtype=i32, device=dev)
+    fin_log = torch.full((L, S if config.track_read_steps else 1), -1,
+                         dtype=i32, device=dev)
+
+    def reject(v):
+        return (v / c_scale) < c_thresh
+
+    step = 0
+    while step < S and not bool(lane_done.all()):
+        active = ~lane_done
+        # --- pop: dense ring scan (key max, then LIFO = min ring age) ---
+        age = torch.remainder(step - 1 - slot_iota, RB)
+        t_s = step - 1 - age
+        keym = torch.where(
+            (t_s >= lane_start[:, None]) & (bm_key > INT_MIN), bm_key,
+            INT_MIN,
+        )
+        kstar = keym.max(dim=1).values
+        popped = kstar > INT_MIN
+        agem = torch.where(keym == kstar[:, None], age, RB)
+        astar = agem.min(dim=1).values
+        pstep = step - 1 - astar
+        sel_slot = torch.remainder(pstep, RB)
+        sel_col = slot_iota == sel_slot[:, None]
+        cword = consumed.gather(1, sel_slot[:, None].long())[:, 0]
+
+        finish_empty = active & ~fresh & ~popped
+        working = active & (fresh | popped)
+        do_pop = working & ~fresh
+
+        # --- the popped block's 9 stored candidates ---
+        blk_full = torch.clamp(S - 1 - pstep, 0, S - 1)
+        rows9 = store[lanes, blk_full.long()]  # (L, 9, NF)
+        op9s = rows9[:, :, F_OP]
+        live9 = ((op9s & OP_PUSHED_BIT) != 0) & (
+            ((cword[:, None] >> cand_iota) & 1) == 0
+        )
+        key9 = torch.where(live9, _mono_bits(rows9[:, :, F_SCOREBITS]),
+                           INT_MIN)
+        off = torch.argmax(key9, dim=1).to(i32)  # first max
+        f_mono = key9.max(dim=1).values
+        sel = blk_full * CANDS + off
+
+        newbit = torch.where(do_pop, 1 << off, 0)
+        cword2 = cword | newbit
+        live9b = live9 & (cand_iota != off[:, None])
+        newkey = torch.where(live9b, key9, INT_MIN).max(dim=1).values
+        updm = sel_col & do_pop[:, None]
+        consumed = torch.where(updm, cword2[:, None], consumed)
+        bm_key = torch.where(updm, newkey[:, None], bm_key)
+
+        frame = rows9[lanes, off.long()]  # (L, NF)
+        f_score = torch.where(fresh, torch.zeros_like(best_score),
+                              _mono_inv(f_mono))
+        zero = torch.zeros_like(read_id)
+        f_lower = torch.where(fresh, zero, frame[:, F_LOWER])
+        f_lrev = torch.where(fresh, zero, frame[:, F_LREV])
+        f_size = torch.where(fresh, zero + index.text_len, frame[:, F_SIZE])
+        f_start = torch.where(fresh, c_split, frame[:, F_STARTLEN] >> 16)
+        f_len = torch.where(fresh, zero, frame[:, F_STARTLEN] & 0xFFFF)
+        gaps = torch.where(fresh, zero, frame[:, F_GAPS])
+        parent = torch.where(fresh, zero + ROOT, sel)
+        f_gapb = gaps & 3
+        f_gapf = (gaps >> 2) & 3
+        f_ngaps = (gaps >> 4) & 0xFF
+        fresh = torch.zeros_like(fresh)
+
+        nn = c_n
+        j = f_start - 1
+        d_k = f_start - 1
+        gap_state = f_gapb
+        ins_score = torch.where(gap_state == GAP_INSERTION, pge,
+                                pgo_pge) + f_score
+        del_score = torch.where(gap_state == GAP_DELETION, pge,
+                                pgo_pge) + f_score
+        ngaps_inc = torch.where(gap_state == GAP_CLOSED, f_ngaps + 1,
+                                f_ngaps)
+
+        rid_c = torch.clamp(read_id, 0, R - 1)
+        j_c = torch.clamp(j, 0, M - 1)
+        row_j = slut[(rid_c * M + j_c).long()]  # (L, 6)
+        d_rev = torch.where((d_k >= 0) & (d_k < nn), row_j[:, 5],
+                            torch.zeros_like(f_score))
+        lb = d_rev + 0.0  # + d_fwd (identically 0 backward-only)
+        Sj = row_j[:, :4]
+        pat_j = row_j[:, 4].to(i32)
+
+        stop = (f_score + lb) < best_score + c_repr
+        abandon = working & (lane_age >= CAP)
+        finish_stop = working & stop & ~abandon
+        still = working & ~stop & ~abandon
+
+        ch_lower, ch_lrev, ch_size = extend_batch_plain(
+            index, f_lower, f_lrev, f_size
+        )
+        ins_allowed = torch.minimum(j, nn - j - 1) >= gde
+        d5 = j + 1
+        del_allowed = torch.minimum(d5, nn - d5) >= gde
+        next_start = f_start - 1
+        del_rej = reject(del_score + lb)
+        ins_rej = reject(ins_score + lb)
+
+        def gaps_word(gb, gf, ng):
+            return gb | (gf << 2) | (ng << 4)
+
+        c_ok = [still & ~ins_rej & ins_allowed & (ngaps_inc <= max_gaps)]
+        c_score = [ins_score]
+        cl_lower, cl_lrev, cl_size = [f_lower], [f_lrev], [f_size]
+        c_startlen = [(next_start << 16) | (f_len + 1)]
+        c_gaps = [gaps_word(GAP_INSERTION, f_gapf, ngaps_inc)]
+        c_op = [pack_op(OP_INSERTION, j_c, 0)]
+        for slot in range(4):
+            s_size = ch_size[:, slot]
+            nonzero = s_size >= 1
+            code = 3 - slot
+            mm_score = Sj[:, code] + f_score
+            c_ok.append(still & nonzero & ~del_rej & del_allowed
+                        & (ngaps_inc <= max_gaps))
+            c_score.append(del_score)
+            cl_lower.append(ch_lower[:, slot])
+            cl_lrev.append(ch_lrev[:, slot])
+            cl_size.append(s_size)
+            c_startlen.append((f_start << 16) | f_len)
+            c_gaps.append(gaps_word(GAP_DELETION, f_gapf, ngaps_inc))
+            c_op.append(pack_op(OP_DELETION, j_c, code))
+
+            c_ok.append(still & nonzero & ~reject(mm_score + lb))
+            c_score.append(mm_score)
+            cl_lower.append(ch_lower[:, slot])
+            cl_lrev.append(ch_lrev[:, slot])
+            cl_size.append(s_size)
+            c_startlen.append((next_start << 16) | (f_len + 1))
+            c_gaps.append(gaps_word(GAP_CLOSED, f_gapf, f_ngaps))
+            kind = torch.where(pat_j == code, OP_MATCH, OP_MISMATCH)
+            c_op.append(pack_op(kind, j_c, code))
+
+        score9 = torch.stack(c_score, dim=1)
+        size9 = torch.stack(cl_size, dim=1)
+        startlen9 = torch.stack(c_startlen, dim=1)
+        len9 = startlen9 & 0xFFFF
+        ok_cols, comp_cols = [], []
+        run_best, run_size = best_score, best_size
+        for k in range(CANDS):
+            ok_k = c_ok[k] & ~(score9[:, k] < run_best + c_repr)
+            comp_k = ok_k & (len9[:, k] == nn)
+            upd = comp_k & (score9[:, k] > run_best)
+            run_size = torch.where(upd, size9[:, k], run_size)
+            run_best = torch.where(upd, score9[:, k], run_best)
+            ok_cols.append(ok_k)
+            comp_cols.append(comp_k)
+        best_score, best_size = run_best, run_size
+        ok9 = torch.stack(ok_cols, dim=1)
+        comp9 = torch.stack(comp_cols, dim=1)
+        push9 = ok9 & ~comp9
+
+        op9 = (torch.stack([torch.as_tensor(o, dtype=i32, device=dev)
+                            .expand(L) for o in c_op], dim=1)
+               | torch.where(comp9, OP_COMP_BIT, 0)
+               | torch.where(push9, OP_PUSHED_BIT, 0)).to(i32)
+        op9[:, 0] = torch.where(abandon, OP_VALID_BIT | OP_ABANDON_BIT,
+                                op9[:, 0])
+        record9 = comp9.clone()
+        record9[:, 0] |= abandon
+        gaps9 = torch.stack(c_gaps, dim=1)
+        gaps9 = torch.where(record9, read_id[:, None], gaps9)
+        pack9 = torch.stack(
+            [torch.stack(cl_lower, 1), torch.stack(cl_lrev, 1), size9,
+             parent[:, None].expand(L, CANDS), startlen9, gaps9, op9,
+             score9.view(i32)],
+            dim=2,
+        ).to(i32)
+        store[:, S - 1 - step] = pack9.flip(1)
+        mono9 = torch.where(push9, _mono(score9), INT_MIN).flip(1)
+        ring_slot = step % RB
+        bm_key[:, ring_slot] = mono9.max(dim=1).values
+        consumed[:, ring_slot] = 0
+
+        hcount = hcount + comp9.sum(dim=1, dtype=i32)
+        finish_hits = still & ((hcount > 9) | (best_size > 1))
+
+        # --- refill finished lanes from the pool, in lane order ---
+        finish = finish_empty | finish_stop | finish_hits | abandon
+        fi = finish.to(i32)
+        rank = torch.cumsum(fi, 0, dtype=i32) - fi
+        new_rid = next_read + rank
+        act = active.to(i32)
+        if config.track_read_steps:
+            fin_log[:, step] = torch.where(
+                finish,
+                torch.clamp(read_id, 0, R) * 4096
+                + torch.clamp(lane_age + act, max=4095),
+                -1,
+            )
+        read_id = torch.where(finish, torch.clamp(new_rid, max=R), read_id)
+        win = consts_pad[next_read : next_read + L]
+        next_read = min(next_read + int(fi.sum()), R)
+        fresh = finish & (new_rid < R)
+        lane_done = lane_done | (finish & (new_rid >= R))
+        lane_start = torch.where(finish, step + 1, lane_start).to(i32)
+        lane_age = torch.where(finish, 0, lane_age + act).to(i32)
+        best_score = torch.where(finish, NEG_INF, best_score)
+        best_size = torch.where(finish, 0, best_size).to(i32)
+        hcount = torch.where(finish, 0, hcount).to(i32)
+        nc = win[rank.long()]
+        c_n = torch.where(finish, nc[:, 0], c_n)
+        c_split = torch.where(finish, nc[:, 1], c_split)
+        c_scale = torch.where(finish, nc[:, 2].view(torch.float32), c_scale)
+        c_thresh = torch.where(finish, nc[:, 3].view(torch.float32),
+                               c_thresh)
+        c_repr = torch.where(finish, nc[:, 4].view(torch.float32), c_repr)
+        step += 1
+
+    lane_unfinished = ~lane_done & (read_id < R)
+    return (store, fin_log, read_id, lane_unfinished, lane_age, next_read,
+            step, R)
+
+
+def _extract_chains_plain(store, fin_log, read_id, lane_unfinished,
+                          lane_age, next_read, steps, R, config):
+    """Plain PyTorch K3: compaction of completion/abandon entries (first C
+    in ascending (lane, slot) order), ancestor walk, per-read step fold."""
+    dev = store.device
+    i32 = torch.int32
+    S = config.total_steps
+    C = config.max_chains
+    MW = config.max_len + 16
+    ROOT = S * CANDS
+    mark = (store[..., F_OP] & (OP_COMP_BIT | OP_ABANDON_BIT)) != 0
+    n_chains = mark.sum(dtype=i32)
+    idx = mark.nonzero()  # row-major: ascending (lane, block, candidate)
+    k = min(idx.shape[0], C)
+    # unused entries point at candidate 0 of the first marked block (what
+    # JAX's top_k padding selects), or (lane 0, slot 0) when none is marked
+    if idx.shape[0]:
+        lane0, blk0 = int(idx[0, 0]), int(idx[0, 1])
+    else:
+        lane0, blk0 = 0, 0
+    c_lane = torch.full((C,), lane0, dtype=torch.long, device=dev)
+    c_slot = torch.full((C,), blk0 * CANDS, dtype=torch.long, device=dev)
+    c_lane[:k] = idx[:k, 0]
+    c_slot[:k] = idx[:k, 1] * CANDS + idx[:k, 2]
+    valid = torch.arange(C, device=dev) < k
+    rows_c = store[c_lane, c_slot // CANDS, c_slot % CANDS]  # (C, NF)
+    e_op = rows_c[:, F_OP]
+    c_abandon = ((e_op & OP_ABANDON_BIT) != 0) & valid
+    c_read = torch.where(valid, rows_c[:, F_GAPS], -1).to(i32)
+    walk_valid = valid & ~c_abandon
+    node = torch.where(walk_valid, rows_c[:, F_PARENT], ROOT).long()
+    words = [torch.where(walk_valid, e_op, 0).to(i32)]
+    for _ in range(MW - 1):
+        at_root = node == ROOT
+        r = store[c_lane, node // CANDS, node % CANDS]
+        words.append(torch.where(at_root, 0, r[:, F_OP]).to(i32))
+        node = torch.where(at_root, ROOT, r[:, F_PARENT].long())
+    c_ops = torch.stack(words, dim=1)
+
+    if config.track_read_steps:
+        ev = fin_log.reshape(-1)
+        rid = torch.where(ev >= 0, torch.div(ev, 4096, rounding_mode="floor"),
+                          R).long()
+        acc = torch.full((R + 1,), -1, dtype=i32, device=dev)
+        acc.scatter_reduce_(0, rid, torch.remainder(ev, 4096), "amax")
+        ur = torch.where(lane_unfinished, torch.clamp(read_id, 0, R),
+                         R).long()
+        acc.scatter_reduce_(0, ur, lane_age, "amax")
+        read_steps = acc[:R]
+    else:
+        read_steps = torch.full((R,), -1, dtype=i32, device=dev)
+    return PoolResult(
+        c_read=c_read, c_slot=c_slot.to(i32), c_abandon=c_abandon,
+        c_lower=rows_c[:, F_LOWER].contiguous(),
+        c_lrev=rows_c[:, F_LREV].contiguous(),
+        c_size=rows_c[:, F_SIZE].contiguous(),
+        c_score=rows_c[:, F_SCOREBITS].contiguous().view(torch.float32),
+        c_ops=c_ops, n_chains=n_chains,
+        lane_read=read_id.to(i32), lane_unfinished=lane_unfinished,
+        next_read=torch.tensor(next_read, dtype=i32, device=dev),
+        steps=torch.tensor(steps, dtype=i32, device=dev),
+        read_steps=read_steps,
+    )
+
+
+# --- CUDA path ---------------------------------------------------------
+
+# lane-state rows of the (N_LANE_STATE, L) int32 state tensor; the order
+# is shared with csrc/common.cuh
+N_LANE_STATE = 15
+
+
+class _PoolArgs(ctypes.Structure):
+    """Mirror of `struct PoolArgs` in csrc/common.cuh."""
+
+    _fields_ = [
+        ("rows", ctypes.c_void_p), ("less", ctypes.c_void_p),
+        ("sent", ctypes.c_void_p), ("nb", ctypes.c_int),
+        ("occ_k", ctypes.c_int), ("text_len", ctypes.c_int),
+        ("slut", ctypes.c_void_p), ("n", ctypes.c_void_p),
+        ("split", ctypes.c_void_p), ("scale", ctypes.c_void_p),
+        ("thresh", ctypes.c_void_p), ("repr", ctypes.c_void_p),
+        ("R", ctypes.c_int), ("M", ctypes.c_int), ("L", ctypes.c_int),
+        ("S", ctypes.c_int), ("CAP", ctypes.c_int), ("RB", ctypes.c_int),
+        ("track", ctypes.c_int), ("pgo_pge", ctypes.c_float),
+        ("pge", ctypes.c_float), ("gap_dist_ends", ctypes.c_int),
+        ("max_gaps", ctypes.c_int),
+        ("store", ctypes.c_void_p), ("bmask", ctypes.c_void_p),
+        ("consumed", ctypes.c_void_p), ("bm_key", ctypes.c_void_p),
+        ("lane", ctypes.c_void_p), ("glob", ctypes.c_void_p),
+        ("fin_log", ctypes.c_void_p),
+    ]
+
+
+class _ExtractArgs(ctypes.Structure):
+    """Mirror of `struct ExtractArgs` in csrc/common.cuh."""
+
+    _fields_ = [
+        ("store", ctypes.c_void_p), ("bmask", ctypes.c_void_p),
+        ("lane", ctypes.c_void_p), ("glob", ctypes.c_void_p),
+        ("fin_log", ctypes.c_void_p),
+        ("R", ctypes.c_int), ("L", ctypes.c_int), ("S", ctypes.c_int),
+        ("C", ctypes.c_int), ("MW", ctypes.c_int), ("track", ctypes.c_int),
+        ("lane_cnt", ctypes.c_void_p), ("lane_off", ctypes.c_void_p),
+        ("lane_first", ctypes.c_void_p), ("c_lane", ctypes.c_void_p),
+        ("pad", ctypes.c_void_p),
+        ("c_read", ctypes.c_void_p), ("c_slot", ctypes.c_void_p),
+        ("c_abandon", ctypes.c_void_p), ("c_lower", ctypes.c_void_p),
+        ("c_lrev", ctypes.c_void_p), ("c_size", ctypes.c_void_p),
+        ("c_score", ctypes.c_void_p), ("c_ops", ctypes.c_void_p),
+        ("n_chains", ctypes.c_void_p), ("lane_read", ctypes.c_void_p),
+        ("lane_unfinished", ctypes.c_void_p),
+        ("next_read", ctypes.c_void_p), ("steps", ctypes.c_void_p),
+        ("read_steps", ctypes.c_void_p),
+    ]
+
+
+def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
+                    cutoff_thresh, repr_mm, params: SearchParams,
+                    config: PoolConfig, slut):
+    """K2 wrapper: launch the step kernels until the device done flag is
+    set or the step budget is spent.  Returns the loop state
+    `_extract_chains_cuda` reads."""
+    dev = n.device
+    i32 = torch.int32
+    R = n.shape[0]
+    M = config.max_len
+    L = config.lanes
+    S = config.total_steps
+    RB = min(S, config.read_step_cap + 1)
+    require(1 <= L <= 1024, "the refill kernel scans at most 1024 lanes")
+    require(R >= 1 and slut.shape == (R * M, 6), "pool search shapes")
+    for t, dt in ((n, i32), (split, i32), (cutoff_scale, torch.float32),
+                  (cutoff_thresh, torch.float32), (repr_mm, torch.float32),
+                  (slut, torch.float32), (index.rows, i32),
+                  (index.less, i32), (index.sentinels, i32)):
+        require(t.is_cuda and t.dtype == dt and t.is_contiguous(),
+                "the pool search takes contiguous CUDA tensors")
+    require(all(t.shape == (R,) for t in (split, cutoff_scale,
+                                          cutoff_thresh, repr_mm)),
+            "per-read consts must be (R,)")
+    track = bool(config.track_read_steps)
+
+    def empty(*shape, dtype=i32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    store = empty(L, S + 1, CANDS, NF)
+    bmask = empty(L, S)
+    consumed = empty(L, RB)
+    bm_key = empty(L, RB)
+    lane = empty(N_LANE_STATE, L)
+    glob = empty(4)
+    fin_log = empty(L, S) if track else None
+    args = _PoolArgs(
+        index.rows.data_ptr(), index.less.data_ptr(),
+        index.sentinels.data_ptr(), index.rows.shape[0], index.occ_k,
+        index.text_len, slut.data_ptr(), n.data_ptr(), split.data_ptr(),
+        cutoff_scale.data_ptr(), cutoff_thresh.data_ptr(),
+        repr_mm.data_ptr(), R, M, L, S, config.read_step_cap, RB,
+        int(track), float(params.pgo_pge), float(params.pge),
+        int(params.gap_dist_ends), int(params.max_gaps),
+        store.data_ptr(), bmask.data_ptr(), consumed.data_ptr(),
+        bm_key.data_ptr(), lane.data_ptr(), glob.data_ptr(),
+        fin_log.data_ptr() if track else None,
+    )
+    stream = torch.cuda.current_stream(dev)
+    P = ctypes.POINTER(_PoolArgs)
+    pool_init = cuda_function("pool_search", "pool_init",
+                              [P, ctypes.c_void_p])
+    pool_steps = cuda_function("pool_search", "pool_steps",
+                               [P, ctypes.c_int, ctypes.c_void_p])
+    LAUNCHES.add("pool_search")
+    check(pool_init(ctypes.byref(args), stream.cuda_stream), "pool_init")
+    # launch POLL_STEPS steps at a time; read the done flag of the batch
+    # before last (the copy is queued behind it), so the queue never drains.
+    # Each step is two launches (lane kernel, refill kernel); steps queued
+    # after the flag is set return at once but are launches all the same.
+    flags = torch.empty((2, 4), dtype=i32, pin_memory=True)
+    events = [torch.cuda.Event(), torch.cuda.Event()]
+    batch = 0
+    while True:
+        LAUNCHES.add("pool_search", 2 * POLL_STEPS)
+        check(pool_steps(ctypes.byref(args), POLL_STEPS, stream.cuda_stream),
+              "pool_steps")
+        flags[batch % 2].copy_(glob, non_blocking=True)
+        events[batch % 2].record(stream)
+        if batch >= 1:
+            prev = (batch - 1) % 2
+            events[prev].synchronize()
+            g = flags[prev]
+            if int(g[2]) or int(g[0]) >= S:
+                break
+        batch += 1
+        assert batch <= S // POLL_STEPS + 2
+    return store, bmask, lane, glob, fin_log, R
+
+
+def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, config):
+    """K3 wrapper: compaction, ancestor walk and step fold on the card."""
+    dev = store.device
+    L, C = config.lanes, config.max_chains
+    MW = config.max_len + 16
+
+    def empty(*shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = dict(
+        c_read=empty(C), c_slot=empty(C),
+        c_abandon=empty(C, dtype=torch.bool), c_lower=empty(C),
+        c_lrev=empty(C), c_size=empty(C),
+        c_score=empty(C, dtype=torch.float32), c_ops=empty(C, MW),
+        n_chains=empty(), lane_read=empty(L),
+        lane_unfinished=empty(L, dtype=torch.bool), next_read=empty(),
+        steps=empty(), read_steps=empty(R + 1),
+    )
+    scratch = torch.empty(3 * L + C + 2, dtype=torch.int32, device=dev)
+    args = _ExtractArgs(
+        store.data_ptr(), bmask.data_ptr(), lane.data_ptr(),
+        glob.data_ptr(), fin_log.data_ptr() if fin_log is not None else None,
+        R, L, config.total_steps, C, MW,
+        int(fin_log is not None),
+        *[scratch[k:].data_ptr() for k in (0, L, 2 * L, 3 * L, 3 * L + C)],
+        *[out[k].data_ptr() for k in (
+            "c_read", "c_slot", "c_abandon", "c_lower", "c_lrev", "c_size",
+            "c_score", "c_ops", "n_chains", "lane_read", "lane_unfinished",
+            "next_read", "steps", "read_steps")],
+    )
+    fn = cuda_function("extract_chains", "extract_chains",
+                       [ctypes.POINTER(_ExtractArgs), ctypes.c_void_p])
+    # count, compaction scan, emit, ancestor walk, fold init (+ step fold)
+    LAUNCHES.add("extract_chains", 5 + int(fin_log is not None))
+    check(fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
+          "extract_chains")
+    out["read_steps"] = out["read_steps"][:R]
+    return PoolResult(**out)
+
+
+def k_mismatch_search_pool2(index: DeviceFmIndex, n, split, cutoff_scale,
+                            cutoff_thresh, repr_mm, params: SearchParams,
+                            config: PoolConfig, slut) -> PoolResult:
+    """One pool invocation over R reads: K2 then K3.
+
+    Inputs are the unpacked prep arrays (ops/engine.py `unpack_prep`):
+    n, split (R,) i32; cutoff_scale, cutoff_thresh, repr_mm (R,) f32; slut
+    (R*M, 6) f32 rows [score4 | code | Bi-D] with M = config.max_len.
+    CPU tensors take the plain version, CUDA tensors the kernels."""
+    _check_config(config, n.shape[0])
+    args = (index, n, split, cutoff_scale, cutoff_thresh, repr_mm, params,
+            config, slut)
+    if not n.is_cuda:
+        return _extract_chains_plain(*_pool_loop_plain(*args), config)
+    return _extract_chains_cuda(*_pool_loop_cuda(*args), config)

@@ -1,0 +1,137 @@
+"""The port end to end on the integration fixture of
+tests/test_integration.py: `index` then `map` through the streaming block
+driver pass the reference goldens, and the BAM equals the JAX package's
+record for record (XD, a timing, and the @PG command line excepted).  A
+bundle built by either package is the other's, file for file."""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mapad_tpu.cli import main as j_main  # noqa: E402
+from mapad_tpu.io.bam import BamReader  # noqa: E402
+from mapad_tpu.map.pipeline import run as j_run  # noqa: E402
+from mapad_tpu_torch.cli import main as t_main  # noqa: E402
+from mapad_tpu_torch.index.builder import run as t_index_run  # noqa: E402
+from mapad_tpu_torch.index.runtime import load_index  # noqa: E402
+from mapad_tpu_torch.map.pipeline import run as t_run  # noqa: E402
+from mapad_tpu_torch.models import Discrete, SimpleAncientDnaModel  # noqa: E402
+from mapad_tpu_torch.ops.engine import DeviceSearchEngine  # noqa: E402
+from mapad_tpu_torch.ops.search_pool import PoolConfig  # noqa: E402
+from test_integration import _check_results, prepare  # noqa: E402
+
+
+def _port_params(jparams):
+    """The fixture's AlignmentParameters rebuilt from the port's own
+    classes (same constructor arguments as test_integration.prepare)."""
+    from mapad_tpu_torch.map import AlignmentParameters
+
+    model = SimpleAncientDnaModel(
+        ("single_stranded", 0.6, 0.55), 0.01, 1.0,
+        np.float32(0.02) / np.float32(3.0), False,
+    )
+    repr_mm = model.get_representative_mismatch_penalty()
+    p = AlignmentParameters(
+        difference_model=model,
+        mismatch_bound=Discrete(0.03, 0.02, repr_mm),
+        penalty_gap_open=repr_mm * np.float32(1.5),
+        penalty_gap_extend=repr_mm * np.float32(0.5),
+        chunk_size=jparams.chunk_size, gap_dist_ends=5,
+        stack_limit_abort=False, max_num_gaps_open=2,
+    )
+    assert p.penalty_gap_open == jparams.penalty_gap_open
+    return p
+
+
+def _records(path):
+    """Every BAM record's fields and tags, XD dropped."""
+    with open(path, "rb") as f:
+        reader = BamReader(f)
+        header = reader.header_text
+        recs = [
+            (r.name, r.flags, r.ref_id, r.pos, r.mapq, r.cigar_string(),
+             r.sequence, r.quals,
+             [(bytes(t), tc, v) for t, tc, v in r.tags if bytes(t) != b"XD"])
+            for r in reader
+        ]
+    return header, recs
+
+
+def _header_without_cl(text):
+    return [
+        "\t".join(f for f in line.split("\t") if not f.startswith("CL:"))
+        if line.startswith("@PG\tID:mapAD") else line
+        for line in text.splitlines()
+    ]
+
+
+def test_port_streaming_map_passes_goldens(tmp_path):
+    genome, input_bam, jparams = prepare(tmp_path)
+    # the port indexes the genome again: the bundle it writes must be the
+    # JAX package's, file for file
+    bundle = str(genome) + ".tpx"
+    jfiles = {n: open(os.path.join(bundle, n), "rb").read()
+              for n in os.listdir(bundle)}
+    t_index_run(str(genome), seed=1234)
+    assert sorted(os.listdir(bundle)) == sorted(jfiles)
+    for name, data in jfiles.items():
+        assert open(os.path.join(bundle, name), "rb").read() == data, name
+
+    params = _port_params(jparams)
+    index = load_index(str(genome))
+    cfg = PoolConfig(max_len=64, lanes=8, total_steps=8192, max_chains=256)
+    engine = DeviceSearchEngine(index.fmd, params, pool_config=cfg,
+                                packed_hits=True, device="cpu")
+    engine.block_reads = 8  # several streamed blocks
+    out = tmp_path / "port.bam"
+    t_run(str(input_bam), str(genome), str(out), False, params, None,
+          engine=engine, cmdline="mapad map", index=index)
+    _check_results(out)
+
+    ref_out = tmp_path / "jax.bam"
+    j_run(str(input_bam), str(genome), str(ref_out), False, jparams, None,
+          cmdline="mapad map")
+    got, want = _records(out), _records(ref_out)
+    assert got[1] == want[1]
+    assert _header_without_cl(got[0]) == _header_without_cl(want[0])
+
+
+def test_port_cli_equals_jax_cli(tmp_path, monkeypatch):
+    genome, input_bam, _ = prepare(tmp_path)
+    flags = ["-r", str(input_bam), "-g", str(genome), "-p", "0.03", "-l",
+             "single_stranded", "-f", "0.6", "-t", "0.55", "-d", "0.01",
+             "-s", "1.0", "-i", "0.001", "--batch_size", "7"]
+    # a narrow pool so the plain PyTorch kernels run quickly on the CPU
+    monkeypatch.setenv("MAPAD_POOL_STEPS", "2048")
+    monkeypatch.setenv("MAPAD_BLOCK_READS", "8")
+    assert t_main(["index", "-g", str(genome)]) == 0
+    t_out = tmp_path / "port_cli.bam"
+    trace_dir = tmp_path / "trace"
+    assert t_main(["map", *flags, "-o", str(t_out), "--lanes", "8",
+                   "--device", "cpu", "--profile", str(trace_dir)]) == 0
+    assert (trace_dir / "trace.json").stat().st_size > 0
+    j_out = tmp_path / "jax_cli.bam"
+    assert j_main(["map", *flags, "-o", str(j_out), "--engine",
+                   "native"]) == 0
+    got, want = _records(t_out), _records(j_out)
+    assert len(got[1]) == 17
+    assert got[1] == want[1]
+    assert _header_without_cl(got[0]) == _header_without_cl(want[0])
+
+
+@pytest.mark.parametrize("argv", [
+    ["map", "--engine", "hybrid"], ["map", "--engine", "oracle"],
+    ["map", "--dispatcher"], ["worker", "--host", "localhost"],
+])
+def test_port_cli_later_slices_exit_cleanly(tmp_path, argv):
+    genome, input_bam, _ = prepare(tmp_path)
+    if argv[0] == "map":
+        argv = argv + ["-r", str(input_bam), "-g", str(genome), "-o",
+                       str(tmp_path / "x.bam"), "-p", "0.03", "-l",
+                       "single_stranded", "-f", "0.6", "-t", "0.55", "-d",
+                       "0.01", "-s", "1.0", "-i", "0.001"]
+    assert t_main(argv) == 2
+    assert not (tmp_path / "x.bam").exists()

@@ -1,0 +1,142 @@
+"""Shared inputs of the tests that hold mapad_tpu_torch against mapad_tpu.
+
+Both packages get the same inputs, made with numpy from a seed; the JAX
+side runs on the CPU as the JAX package's own tests run it.  Every
+comparison is bit-exact (f32 compared by its bits).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+# the plain kernels run thousands of tiny tensor ops; one intra-op thread
+# per test worker keeps them from spinning against the other workers
+torch.set_num_threads(1)
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def bench_ref() -> bytes:
+    return open(os.path.join(HERE, "data", "bench_ref.txt")).read().strip().encode()
+
+
+def bench_reads(seed: int = 123, n_random: int = 30, n_exo: int = 4,
+                extra=()) -> list:
+    """The bench fixture's reads, then reads drawn from the reference with
+    up to two substitutions, then exogenous (random) reads."""
+    ref = bench_ref()
+    reads = [
+        line.strip().encode()
+        for line in open(os.path.join(HERE, "data", "bench_reads.txt"))
+    ]
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    for _ in range(n_random):
+        ln = int(rng.integers(20, 101))
+        st = int(rng.integers(0, len(ref) - ln))
+        seq = bytearray(ref[st : st + ln])
+        for _ in range(int(rng.integers(0, 3))):
+            seq[int(rng.integers(0, ln))] = int(rng.choice(bases))
+        reads.append(bytes(seq))
+    for _ in range(n_exo):
+        reads.append(bytes(rng.choice(bases, size=int(rng.integers(30, 80)))))
+    reads.extend(extra)
+    return reads
+
+
+def adna_params(pkg):
+    """The production single-stranded aDNA parameters of
+    tests/test_device_search.py, built from `pkg`'s own model classes."""
+    models = __import__(f"{pkg}.models", fromlist=["x"])
+    mapping = __import__(f"{pkg}.map", fromlist=["x"])
+    dm = models.SimpleAncientDnaModel(
+        ("single_stranded", 0.475, 0.475), 0.001, 0.9,
+        np.float32(0.02) / np.float32(3.0), False,
+    )
+    repr_mm = dm.get_representative_mismatch_penalty()
+    return mapping.AlignmentParameters(
+        difference_model=dm,
+        mismatch_bound=models.Discrete(0.04, 0.02, repr_mm),
+        penalty_gap_open=np.log2(np.float32(0.00001)),
+        penalty_gap_extend=repr_mm,
+        chunk_size=1000, gap_dist_ends=5, stack_limit_abort=False,
+        max_num_gaps_open=2,
+    )
+
+
+def records(pkg, seqs, qual=40):
+    record = __import__(f"{pkg}.map.record", fromlist=["x"])
+    return [
+        record.Record(sequence=bytes(s), base_qualities=bytes([qual] * len(s)))
+        for s in seqs
+    ]
+
+
+def f32_bits(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def assert_bits_equal(a, b, ctx=""):
+    a, b = f32_bits(a), f32_bits(b)
+    assert a.shape == b.shape, (ctx, a.shape, b.shape)
+    assert a.dtype == b.dtype, (ctx, a.dtype, b.dtype)
+    assert np.array_equal(a, b), (ctx, np.flatnonzero(a.ravel() != b.ravel())[:8])
+
+
+def assert_pool_results_equal(jr, tr, ctx=""):
+    """Field by field: a JAX PoolResult (numpy leaves) against the port's
+    (torch leaves)."""
+    assert tuple(jr._fields) == tuple(tr._fields)
+    for name in jr._fields:
+        a, b = getattr(jr, name), getattr(tr, name)
+        assert_bits_equal(np.asarray(a), b.cpu().numpy(), (ctx, name))
+
+
+def packed_equal(a, b) -> bool:
+    """Two PackedHits (either package) hold the same hits bit for bit."""
+    if len(a) != len(b):
+        return False
+    if not len(a):
+        return True
+    return (
+        np.array_equal(np.asarray(a.ivals), np.asarray(b.ivals))
+        and np.array_equal(f32_bits(a.scores), f32_bits(b.scores))
+        and np.array_equal(np.asarray(a.ops), np.asarray(b.ops))
+        and int(a.split) == int(b.split)
+    )
+
+
+def hits_equal(a, b) -> bool:
+    """Two decoded hit lists (either package) are equal hit for hit."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if tuple(x.interval) != tuple(y.interval):
+            return False
+        if np.float32(x.alignment_score).view(np.int32) != np.float32(
+            y.alignment_score
+        ).view(np.int32):
+            return False
+        if [tuple(o) for o in x.edit_operations] != [
+            tuple(o) for o in y.edit_operations
+        ]:
+            return False
+    return True
+
+
+def bid_rows(seed, L=10, M=128):
+    """Step-function Bi-D rows with 1 to 60 runs: rows past 32 runs take
+    the RLE overflow path (truncated code, routed to the host)."""
+    rng = np.random.default_rng(seed)
+    bid = np.zeros((L, M), np.float32)
+    for i in range(L):
+        runs = 1 + (i * 7) % 60
+        cuts = np.sort(rng.choice(np.arange(1, M), size=runs - 1,
+                                  replace=False))
+        vals = np.cumsum(rng.uniform(-4, 0, size=runs)).astype(np.float32)
+        bid[i] = np.repeat(vals, np.diff(np.r_[0, cuts, M]))
+    return bid

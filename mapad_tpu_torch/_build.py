@@ -36,9 +36,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
-# one library per source: the four kernels of the slice (K1 is a device
-# function of pool_search.cu)
-CUDA_SOURCES = ("pool_search", "extract_chains", "unpack_prep", "pack_result")
+# one library per source (K1 is a device function of common.cuh, inline in
+# pool_search.cu and bi_d.cu; unpack_prep.cu holds K4 and K6)
+CUDA_SOURCES = ("pool_search", "extract_chains", "unpack_prep", "pack_result",
+                "bi_d")
 
 _lock = threading.Lock()
 _loaded: dict = {}

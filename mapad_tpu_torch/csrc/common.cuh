@@ -4,7 +4,15 @@
 //
 // K1 lives here as the warp-cooperative __device__ function `occ4_warp`:
 // the rank query of mapad_tpu/ops/fm.py `_row_occ4` over one fused
-// 512 B row (6 checkpoint words + 122 words of 4-bit BWT symbols, k=976).
+// 512 B row.  Every function that touches an FMD interval is a template on
+// the interval type I:
+//   int32_t  small genomes: 6 checkpoint words + 122 words of 4-bit BWT
+//            symbols (k = 976 per row), stored frames of 8 words;
+//   int64_t  big genomes (text of 2^31-1 symbols or more): 6 lo + 6 hi
+//            checkpoint words + 116 symbol words (k = 928), stored frames
+//            of 11 words (the three interval fields' high halves follow
+//            the 8 words of the small layout).
+// The entry points take a `big` flag and launch the matching instance.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,10 +31,23 @@ namespace mapad {
 
 constexpr int CANDS = 9;
 constexpr int NF = 8;
-constexpr int REC = CANDS * NF;  // int32 words per store block
 constexpr int ROW_WORDS = 128;
-constexpr int N_CP = 6;
 constexpr int INT_MIN32 = (-2147483647 - 1);
+
+template <typename I>
+struct Idx;
+template <>
+struct Idx<int32_t> {
+  using U = uint32_t;
+  static constexpr int N_CP = 6;  // checkpoint words of a fused row
+  static constexpr int NFW = NF;  // int32 words of a stored frame
+};
+template <>
+struct Idx<int64_t> {
+  using U = uint64_t;
+  static constexpr int N_CP = 12;
+  static constexpr int NFW = NF + 3;
+};
 
 // frame fields
 constexpr int F_LOWER = 0, F_LREV = 1, F_SIZE = 2, F_PARENT = 3,
@@ -43,16 +64,17 @@ constexpr int OP_PUSHED_BIT = 1 << 23;
 enum LaneState {
   LS_READ_ID = 0, LS_FRESH, LS_DONE, LS_START, LS_AGE, LS_N, LS_SPLIT,
   LS_SCALE, LS_THRESH, LS_REPR, LS_BEST, LS_BEST_SIZE, LS_HCOUNT,
-  LS_FINISH, LS_ACTIVE, N_LANE_STATE
+  LS_FINISH, LS_ACTIVE, LS_BEST_SIZE_HI, N_LANE_STATE
 };
 // glob[]: device-side loop counters
 enum Glob { G_STEP = 0, G_NEXT_READ = 1, G_DONE = 2 };
 
 struct PoolArgs {
   const int* rows;
-  const int* less;
-  const int* sent;
-  int nb, occ_k, text_len;
+  const void* less;  // int32 / int64 with big
+  const void* sent;
+  int nb, occ_k, big;
+  long long text_len;
   const float* slut;  // (R*M, 6)
   const int* n;
   const int* split;
@@ -62,7 +84,7 @@ struct PoolArgs {
   int R, M, L, S, CAP, RB, track;
   float pgo_pge, pge;
   int gap_dist_ends, max_gaps;
-  int* store;     // (L, S+1, 9, 8)
+  int* store;     // (L, S+1, 9, NFW)
   int* bmask;     // (L, S) 9-bit completion/abandon mask per block
   int* consumed;  // (L, RB)
   int* bm_key;    // (L, RB)
@@ -77,7 +99,7 @@ struct ExtractArgs {
   const int* lane;
   const int* glob;
   const int* fin_log;
-  int R, L, S, C, MW, track;
+  int R, L, S, C, MW, track, big;
   int* lane_cnt;    // (L,) scratch: marked entries per lane
   int* lane_off;    // (L,) scratch: lane-order exclusive prefix sum
   int* lane_first;  // (L,) scratch: first marked block per lane (or S)
@@ -86,9 +108,9 @@ struct ExtractArgs {
   int* c_read;
   int* c_slot;
   uint8_t* c_abandon;
-  int* c_lower;
-  int* c_lrev;
-  int* c_size;
+  void* c_lower;  // int32 / int64 with big
+  void* c_lrev;
+  void* c_size;
   float* c_score;
   int* c_ops;
   int* n_chains;
@@ -99,13 +121,17 @@ struct ExtractArgs {
   int* read_steps;  // (R+1,)
 };
 
-// two's-complement wrapping int32 arithmetic (JAX wraps; lanes that hold
-// no read compute on garbage and must not hit signed-overflow UB)
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
+// two's-complement wrapping arithmetic (JAX wraps; lanes that hold no read
+// compute on garbage and must not hit signed-overflow UB)
+template <typename I>
+__device__ __forceinline__ I wadd(I a, I b) {
+  using U = typename Idx<I>::U;
+  return (I)((U)a + (U)b);
 }
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
+template <typename I>
+__device__ __forceinline__ I wsub(I a, I b) {
+  using U = typename Idx<I>::U;
+  return (I)((U)a - (U)b);
 }
 __device__ __forceinline__ int wshl(int a, int s) {
   return (int)((unsigned)a << s);
@@ -119,18 +145,57 @@ __device__ __forceinline__ int mono_bits(int u) {
   return u ^ ((u >> 31) & 0x7FFFFFFF);
 }
 
+// an interval field (F_LOWER, F_LREV, F_SIZE) of a stored frame
+template <typename I>
+__device__ __forceinline__ I frame_get(const int* fr, int f);
+template <>
+__device__ __forceinline__ int32_t frame_get<int32_t>(const int* fr, int f) {
+  return fr[f];
+}
+template <>
+__device__ __forceinline__ int64_t frame_get<int64_t>(const int* fr, int f) {
+  return (int64_t)(((uint64_t)(uint32_t)fr[NF + f] << 32) |
+                   (uint64_t)(uint32_t)fr[f]);
+}
+__device__ __forceinline__ void frame_put(int* fr, int f, int32_t v) {
+  fr[f] = v;
+}
+__device__ __forceinline__ void frame_put(int* fr, int f, int64_t v) {
+  fr[f] = (int)(uint32_t)((uint64_t)v & 0xffffffffu);
+  fr[NF + f] = (int)(uint32_t)((uint64_t)v >> 32);
+}
+
+// checkpoint count of rank s+1 in a fused row
+template <typename I>
+__device__ __forceinline__ I row_checkpoint(const int* row, int s);
+template <>
+__device__ __forceinline__ int32_t row_checkpoint<int32_t>(const int* row,
+                                                           int s) {
+  return row[1 + s];
+}
+template <>
+__device__ __forceinline__ int64_t row_checkpoint<int64_t>(const int* row,
+                                                           int s) {
+  return (int64_t)(((uint64_t)(uint32_t)row[7 + s] << 32) |
+                   (uint64_t)(uint32_t)row[1 + s]);
+}
+
 // K1: counts of ranks 1..4 in bwt[0..=r] (0 for r < 0), from one fused
 // row.  Every lane of the calling warp passes the same r and receives the
-// same counts.  Each lane counts 4 of the 122 symbol words with SWAR
-// nibble compares; a 5-step butterfly sums them.
+// same counts.  Each lane counts 4 of the symbol words with SWAR nibble
+// compares; a 5-step butterfly sums them.
+template <typename I>
 __device__ __forceinline__ void occ4_warp(const int* __restrict__ rows,
-                                          int nb, int k, int r,
-                                          int out[4]) {
+                                          int nb, int k, I r, I out[4]) {
+  constexpr int N_CP = Idx<I>::N_CP;
   const int lane = threadIdx.x & 31;
-  const int r_safe = r > 0 ? r : 0;
-  int blk = r_safe / k;
-  if (blk > nb - 1) blk = nb - 1;  // clamp like XLA's gather
-  const int off = r_safe % k;
+  const I r_safe = r > 0 ? r : 0;
+  // the block number is an int32 (a garbage int64 position wraps), a
+  // negative one counts from the end, and the gather clamps like XLA's
+  int blk = (int)(r_safe / k);
+  if (blk < 0) blk += nb;
+  blk = blk < 0 ? 0 : (blk > nb - 1 ? nb - 1 : blk);
+  const int off = (int)(r_safe % k);
   const int* row = rows + (size_t)blk * ROW_WORDS;
   int c[4] = {0, 0, 0, 0};
   for (int w = lane; w < ROW_WORDS - N_CP; w += 32) {
@@ -153,35 +218,48 @@ __device__ __forceinline__ void occ4_warp(const int* __restrict__ rows,
     for (int d = 16; d > 0; d >>= 1) c[s] += __shfl_xor_sync(0xffffffffu, c[s], d);
   }
 #pragma unroll
-  for (int s = 0; s < 4; ++s) out[s] = r >= 0 ? wadd(c[s], row[1 + s]) : 0;
+  for (int s = 0; s < 4; ++s)
+    out[s] = r >= 0 ? wadd<I>((I)c[s], row_checkpoint<I>(row, s)) : (I)0;
 }
 
-__device__ __forceinline__ int sentinel_count(const int* sent, int r) {
-  return (r >= sent[0] ? 1 : 0) + (r >= sent[1] ? 1 : 0);
+template <typename I>
+__device__ __forceinline__ I sentinel_count(const I* sent, I r) {
+  return (I)((r >= sent[0] ? 1 : 0) + (r >= sent[1] ? 1 : 0));
 }
 
 // the extension sweep of fm.py extend_batch from the two rank queries:
 // child intervals in slot order [T, G, C, A] (ranks 4, 3, 2, 1)
+template <typename I>
 __device__ __forceinline__ void extend_from_occ(
-    const int* less, const int* sent, int lower, int lower_rev, int size,
-    const int occ1[4], const int occ2[4], int ch_lower[4], int ch_lrev[4],
-    int ch_size[4]) {
-  const int r1 = wsub(lower, 1);
-  const int r2 = wsub(wadd(lower, size), 1);
-  const int sent1 = lower == 0 ? 0 : sentinel_count(sent, r1);
-  const int sent2 = sentinel_count(sent, r2);
-  int s_run = sent2 - sent1;
-  int l_run = lower_rev;
+    const I* less, const I* sent, I lower, I lower_rev, I size,
+    const I occ1[4], const I occ2[4], I ch_lower[4], I ch_lrev[4],
+    I ch_size[4]) {
+  const I r1 = wsub<I>(lower, 1);
+  const I r2 = wsub<I>(wadd<I>(lower, size), 1);
+  const I sent1 = lower == 0 ? (I)0 : sentinel_count<I>(sent, r1);
+  const I sent2 = sentinel_count<I>(sent, r2);
+  I s_run = sent2 - sent1;
+  I l_run = lower_rev;
 #pragma unroll
   for (int slot = 0; slot < 4; ++slot) {
     const int c = 4 - slot;
-    l_run = wadd(l_run, s_run);
-    const int o = occ1[c - 1];
-    s_run = wsub(occ2[c - 1], o);
-    ch_lower[slot] = wadd(less[c], o);
+    l_run = wadd<I>(l_run, s_run);
+    const I o = occ1[c - 1];
+    s_run = wsub<I>(occ2[c - 1], o);
+    ch_lower[slot] = wadd<I>(less[c], o);
     ch_lrev[slot] = l_run;
     ch_size[slot] = s_run;
   }
+}
+
+// the two rank queries of an extension: the interval's lower and upper end
+template <typename I>
+__device__ __forceinline__ I occ_query_lower(I lower) {
+  return lower == 0 ? (I)-1 : wsub<I>(lower, 1);
+}
+template <typename I>
+__device__ __forceinline__ I occ_query_upper(I lower, I size) {
+  return wsub<I>(wadd<I>(lower, size), 1);
 }
 
 }  // namespace mapad

@@ -3,7 +3,9 @@
 //
 // Replaces mapad_tpu/ops/search_pool2.py `extract_chains` (617-726),
 // `fold_read_steps` (728-737) and the generations == 1 tail (921-971).
-// Plain version: ops/search_pool2.py `_extract_chains_plain`.
+// Plain version: ops/search_pool2.py `_extract_chains_plain`.  With a big
+// index (int64 intervals, 11-word frames) `c_lower`, `c_lrev` and `c_size`
+// are int64: the chain kernel is a template on the interval type.
 //
 // JAX compacts the completion/abandon entries with two top_k passes over
 // negated (lane, block) keys, which yields the first C marked entries in
@@ -25,7 +27,7 @@
 //
 // Bound on the card: bytes.  The masks are 4 B per lane per executed step
 // (16.8 MB at L=512, S=8192) and each chain reads ~MW dependent 32 B
-// frame records; the finish log is another 4 B per lane per step.
+// (44 B with int64) frame records; the finish log is another 4 B per lane per step.
 #include "common.cuh"
 
 using namespace mapad;
@@ -136,7 +138,10 @@ ext_emit_kernel(ExtractArgs a) {
   }
 }
 
+template <typename I>
 static __global__ void ext_chain_kernel(ExtractArgs a) {
+  constexpr int NFW = Idx<I>::NFW;
+  constexpr int REC = CANDS * NFW;
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= a.C) return;
   const int S = a.S, MW = a.MW, ROOT = S * CANDS;
@@ -147,18 +152,18 @@ static __global__ void ext_chain_kernel(ExtractArgs a) {
   const int slot = valid ? a.c_slot[e] : a.pad[1] * CANDS;
   if (!valid) a.c_slot[e] = slot;
   const int* lane_store = a.store + (size_t)lane * (S + 1) * REC;
-  int rec[NF];
+  int rec[NFW];
   const bool written = block_written(slot / CANDS, S, steps);
 #pragma unroll
-  for (int f = 0; f < NF; ++f)
-    rec[f] = written ? lane_store[(size_t)slot * NF + f] : 0;
+  for (int f = 0; f < NFW; ++f)
+    rec[f] = written ? lane_store[(size_t)slot * NFW + f] : 0;
   const int e_op = rec[F_OP];
   const bool abandon = valid && (e_op & OP_ABANDON_BIT) != 0;
   a.c_read[e] = valid ? rec[F_GAPS] : -1;
   a.c_abandon[e] = abandon;
-  a.c_lower[e] = rec[F_LOWER];
-  a.c_lrev[e] = rec[F_LREV];
-  a.c_size[e] = rec[F_SIZE];
+  ((I*)a.c_lower)[e] = frame_get<I>(rec, F_LOWER);
+  ((I*)a.c_lrev)[e] = frame_get<I>(rec, F_LREV);
+  ((I*)a.c_size)[e] = frame_get<I>(rec, F_SIZE);
   a.c_score[e] = __int_as_float(rec[F_SCOREBITS]);
   const bool walk = valid && !abandon;
   int* ops = a.c_ops + (size_t)e * MW;
@@ -169,7 +174,7 @@ static __global__ void ext_chain_kernel(ExtractArgs a) {
       ops[t] = 0;
       continue;
     }
-    const int* r = lane_store + (size_t)node * NF;
+    const int* r = lane_store + (size_t)node * NFW;
     ops[t] = r[F_OP];
     node = r[F_PARENT];
   }
@@ -205,7 +210,10 @@ extern "C" int extract_chains(const ExtractArgs* a, cudaStream_t stream) {
   CHECK_LAUNCH();
   LAUNCH(ext_emit_kernel, a->L, EXT_THREADS, stream, *a);
   CHECK_LAUNCH();
-  LAUNCH(ext_chain_kernel, (a->C + 127) / 128, 128, stream, *a);
+  if (a->big)
+    LAUNCH(ext_chain_kernel<int64_t>, (a->C + 127) / 128, 128, stream, *a);
+  else
+    LAUNCH(ext_chain_kernel<int32_t>, (a->C + 127) / 128, 128, stream, *a);
   CHECK_LAUNCH();
   LAUNCH(ext_fold_init_kernel, (a->R + 1 + 255) / 256, 256, stream, *a);
   CHECK_LAUNCH();

@@ -5,7 +5,9 @@
 // numpy `_unpack_result` of ops/prep.py.
 //
 // Fields in PoolResult order, each as int32 words: i32 fields as they are,
-// f32 as their bits, bools widened to 0/1, and c_ops narrowed to wire ops
+// f32 as their bits, int64 fields (c_lower, c_lrev, c_size with a big
+// index) as little-endian int32 pairs, bools widened to 0/1, and c_ops
+// narrowed to wire ops
 // (base[0:2] | pos | kind | VALID in 5 + pb bits, pb = ceil(log2 MW)),
 // K = 64 / opbits of them per little-endian int64 (12-bit ops, 5 per int64
 // at MW <= 128).  One thread per output word; a c_ops word's thread builds
@@ -21,7 +23,7 @@ struct PackArgs {
   const int* c_read;
   const int* c_slot;
   const uint8_t* c_abandon;
-  const int* c_lower;
+  const int* c_lower;  // (C,) int32, or (C,) int64 read as (2C,) words
   const int* c_lrev;
   const int* c_size;
   const int* c_score;  // f32 bits
@@ -33,7 +35,7 @@ struct PackArgs {
   const int* steps;
   const int* read_steps;  // (R,)
   int C, MW, L, R;
-  int opbits, K, pb;
+  int opbits, K, pb, big;
   int* out;
 };
 
@@ -51,19 +53,25 @@ static __global__ void pack_result_kernel(PackArgs a, size_t total) {
   const int G = (a.MW + a.K - 1) / a.K;  // int64 words per chain
   const size_t n_ops = C * G * 2;
   int v;
-  if (i < 7 * C) {
-    const int f = (int)(i / C);
-    const size_t k = i % C;
-    switch (f) {
-      case 0: v = a.c_read[k]; break;
-      case 1: v = a.c_slot[k]; break;
-      case 2: v = a.c_abandon[k] ? 1 : 0; break;
-      case 3: v = a.c_lower[k]; break;
-      case 4: v = a.c_lrev[k]; break;
-      case 5: v = a.c_size[k]; break;
-      default: v = a.c_score[k]; break;
+  const size_t W = a.big ? 2 * C : C;  // words of an interval field
+  const size_t head = 4 * C + 3 * W;
+  if (i < head) {
+    if (i < C) {
+      v = a.c_read[i];
+    } else if (i < 2 * C) {
+      v = a.c_slot[i - C];
+    } else if (i < 3 * C) {
+      v = a.c_abandon[i - 2 * C] ? 1 : 0;
+    } else if (i < 3 * C + W) {
+      v = a.c_lower[i - 3 * C];
+    } else if (i < 3 * C + 2 * W) {
+      v = a.c_lrev[i - 3 * C - W];
+    } else if (i < 3 * C + 3 * W) {
+      v = a.c_size[i - 3 * C - 2 * W];
+    } else {
+      v = a.c_score[i - 3 * C - 3 * W];
     }
-  } else if ((i -= 7 * C) < n_ops) {
+  } else if ((i -= head) < n_ops) {
     const size_t p = i >> 1;
     const size_t row = p / G;
     const int g = (int)(p % G);

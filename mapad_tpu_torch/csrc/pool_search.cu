@@ -2,8 +2,11 @@
 // with K1 (occ4_warp, common.cuh) inline.
 //
 // Replaces mapad_tpu/ops/search_pool2.py `k_mismatch_search_pool2` setup
-// and loop body (lines 99-612; generations == 1, backward-only, host-packed
-// LUT/Bi-D rows).  Plain version: ops/search_pool2.py `_pool_loop_plain`.
+// and loop body (lines 99-612; generations == 1, backward-only; the
+// LUT/Bi-D rows come packed from the host or are assembled on the card
+// after K7).  Plain version: ops/search_pool2.py `_pool_loop_plain`.
+// Every kernel is a template on the interval type (common.cuh): int32, or
+// int64 for a big index, whose frames carry three high words.
 //
 // Design: the JAX loop carries every lane in lock step; here the step is a
 // launch of `pool_lane_kernel` (one block per lane) followed by
@@ -19,7 +22,8 @@
 // bytes per lane per step (6.3 MB per step at L=512, CAP=3072, ~1.9 us at
 // 3.35 TB/s; `consumed` is read at the popped slot only); the rest is a
 // few dependent 32 B reads (store block, LUT row, two L2-resident occ
-// rows) and a 288 B store write per lane.  A first kernel that is right:
+// rows) and a 288 B store write per lane (396 B with int64 intervals).  A
+// first kernel that is right:
 // the ring is not yet kept in shared memory and the steps are not yet a
 // CUDA graph.
 #include "common.cuh"
@@ -51,6 +55,7 @@ static __global__ void pool_init_kernel(PoolArgs a) {
     ls[LS_REPR * L + l] = __float_as_int(a.repr[rc]);
     ls[LS_BEST * L + l] = __float_as_int(-__int_as_float(0x7f800000));
     ls[LS_BEST_SIZE * L + l] = 0;
+    ls[LS_BEST_SIZE_HI * L + l] = 0;
     ls[LS_HCOUNT * L + l] = 0;
     ls[LS_FINISH * L + l] = 0;
     ls[LS_ACTIVE * L + l] = 0;
@@ -65,8 +70,26 @@ static __global__ void pool_init_kernel(PoolArgs a) {
 
 constexpr int LANE_THREADS = 256;
 
+// best_size of a lane: two state rows (the high one is zero with int32)
+template <typename I>
+static __device__ __forceinline__ I best_size_get(const int* ls, int L,
+                                                  int lane) {
+  return (I)(((uint64_t)(uint32_t)ls[LS_BEST_SIZE_HI * L + lane] << 32) |
+             (uint64_t)(uint32_t)ls[LS_BEST_SIZE * L + lane]);
+}
+template <typename I>
+static __device__ __forceinline__ void best_size_put(int* ls, int L, int lane,
+                                                     I v) {
+  const uint64_t u = (uint64_t)(int64_t)v;
+  ls[LS_BEST_SIZE * L + lane] = (int)(uint32_t)(u & 0xffffffffu);
+  ls[LS_BEST_SIZE_HI * L + lane] = (int)(uint32_t)(u >> 32);
+}
+
+template <typename I>
 static __global__ void __launch_bounds__(LANE_THREADS)
 pool_lane_kernel(PoolArgs a) {
+  constexpr int NFW = Idx<I>::NFW;
+  constexpr int REC = CANDS * NFW;  // int32 words per store block
   const int step = a.glob[G_STEP];
   if (a.glob[G_DONE] || step >= a.S) return;
   const int lane = blockIdx.x;
@@ -74,7 +97,7 @@ pool_lane_kernel(PoolArgs a) {
   const int L = a.L, S = a.S, RB = a.RB, M = a.M, R = a.R;
   int* ls = a.lane;
   __shared__ unsigned long long red[LANE_THREADS / 32];
-  __shared__ int sh_occ[8];
+  __shared__ I sh_occ[8];
   __shared__ int rec[REC];
 
   // --- pop: dense ring scan, key max then minimum ring age (LIFO) ---
@@ -103,11 +126,12 @@ pool_lane_kernel(PoolArgs a) {
   int kstar = 0, astar = 0, cword = 0, off = 0, newkey = INT_MIN32;
   int read_id = 0, fresh = 0, active = 0, lane_age = 0, c_n = 0;
   float c_scale = 0.f, c_thresh = 0.f, c_repr = 0.f, best_score = 0.f;
-  int best_size = 0, hcount = 0, sel_slot = 0;
+  I best_size = 0;
+  int hcount = 0, sel_slot = 0;
   bool popped = false, working = false, do_pop = false, finish_empty = false;
   float f_score = 0.f;
-  int f_lower = 0, f_lrev = 0, f_size = 0, f_start = 0, f_len = 0, gaps = 0,
-      parent = 0;
+  I f_lower = 0, f_lrev = 0, f_size = 0;
+  int f_start = 0, f_len = 0, gaps = 0, parent = 0;
   if (tid < 64) {
     unsigned long long b = red[0];
     for (int w = 1; w < LANE_THREADS / 32; ++w) b = red[w] > b ? red[w] : b;
@@ -127,7 +151,7 @@ pool_lane_kernel(PoolArgs a) {
     c_thresh = __int_as_float(ls[LS_THRESH * L + lane]);
     c_repr = __int_as_float(ls[LS_REPR * L + lane]);
     best_score = __int_as_float(ls[LS_BEST * L + lane]);
-    best_size = ls[LS_BEST_SIZE * L + lane];
+    best_size = best_size_get<I>(ls, L, lane);
     hcount = ls[LS_HCOUNT * L + lane];
     finish_empty = active && !fresh && !popped;
     working = active && (fresh || popped);
@@ -144,8 +168,8 @@ pool_lane_kernel(PoolArgs a) {
     int f_mono = INT_MIN32;
 #pragma unroll
     for (int c = 0; c < CANDS; ++c) {
-      const int op = written ? brow[c * NF + F_OP] : 0;
-      const int sb = written ? brow[c * NF + F_SCOREBITS] : 0;
+      const int op = written ? brow[c * NFW + F_OP] : 0;
+      const int sb = written ? brow[c * NFW + F_SCOREBITS] : 0;
       live9[c] = (op & OP_PUSHED_BIT) != 0 && ((cword >> c) & 1) == 0;
       key9[c] = live9[c] ? mono_bits(sb) : INT_MIN32;
       if (c == 0 || key9[c] > f_mono) {  // first max (argmax)
@@ -156,22 +180,22 @@ pool_lane_kernel(PoolArgs a) {
 #pragma unroll
     for (int c = 0; c < CANDS; ++c)
       if (live9[c] && c != off && key9[c] > newkey) newkey = key9[c];
-    int fr[NF];
+    int fr[NFW];
 #pragma unroll
-    for (int f = 0; f < NF; ++f) fr[f] = written ? brow[off * NF + f] : 0;
+    for (int f = 0; f < NFW; ++f) fr[f] = written ? brow[off * NFW + f] : 0;
     f_score = fresh ? 0.0f : __int_as_float(mono_bits(f_mono));
-    f_lower = fresh ? 0 : fr[F_LOWER];
-    f_lrev = fresh ? 0 : fr[F_LREV];
-    f_size = fresh ? a.text_len : fr[F_SIZE];
+    f_lower = fresh ? (I)0 : frame_get<I>(fr, F_LOWER);
+    f_lrev = fresh ? (I)0 : frame_get<I>(fr, F_LREV);
+    f_size = fresh ? (I)a.text_len : frame_get<I>(fr, F_SIZE);
     f_start = fresh ? c_split : (fr[F_STARTLEN] >> 16);
     f_len = fresh ? 0 : (fr[F_STARTLEN] & 0xFFFF);
     gaps = fresh ? 0 : fr[F_GAPS];
     parent = fresh ? S * CANDS : blk_full * CANDS + off;
     // K1: warp 0 ranks the interval's lower end, warp 1 its upper end
-    const int r1q = f_lower == 0 ? -1 : wsub(f_lower, 1);
-    const int r2q = wsub(wadd(f_lower, f_size), 1);
-    int occ[4];
-    occ4_warp(a.rows, a.nb, a.occ_k, tid < 32 ? r1q : r2q, occ);
+    const I r1q = occ_query_lower<I>(f_lower);
+    const I r2q = occ_query_upper<I>(f_lower, f_size);
+    I occ[4];
+    occ4_warp<I>(a.rows, a.nb, a.occ_k, tid < 32 ? r1q : r2q, occ);
     if ((tid & 31) == 0) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) sh_occ[(tid >> 5) * 4 + c] = occ[c];
@@ -210,15 +234,15 @@ pool_lane_kernel(PoolArgs a) {
     const bool finish_stop = working && stop && !abandon;
     const bool still = working && !stop && !abandon;
 
-    int occ1[4], occ2[4];
+    I occ1[4], occ2[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       occ1[c] = sh_occ[c];
       occ2[c] = sh_occ[4 + c];
     }
-    int ch_lower[4], ch_lrev[4], ch_size[4];
-    extend_from_occ(a.less, a.sent, f_lower, f_lrev, f_size, occ1, occ2,
-                    ch_lower, ch_lrev, ch_size);
+    I ch_lower[4], ch_lrev[4], ch_size[4];
+    extend_from_occ<I>((const I*)a.less, (const I*)a.sent, f_lower, f_lrev,
+                       f_size, occ1, occ2, ch_lower, ch_lrev, ch_size);
 
     const int gde = a.gap_dist_ends;
     const bool ins_allowed = min(j, nn - j - 1) >= gde;
@@ -231,7 +255,8 @@ pool_lane_kernel(PoolArgs a) {
 
     bool ok[CANDS];
     float score[CANDS];
-    int lo[CANDS], lr[CANDS], sz[CANDS], sl[CANDS], gp[CANDS], op[CANDS];
+    I lo[CANDS], lr[CANDS], sz[CANDS];
+    int sl[CANDS], gp[CANDS], op[CANDS];
     ok[0] = still && !ins_rej && ins_allowed && gaps_ok;
     score[0] = ins_score;
     lo[0] = f_lower;
@@ -265,7 +290,7 @@ pool_lane_kernel(PoolArgs a) {
 
     // running best over the 9 candidates, in candidate order
     float run_best = best_score;
-    int run_size = best_size;
+    I run_size = best_size;
     int n_comp = 0, mask = 0, ring_key = INT_MIN32;
 #pragma unroll
     for (int k = 0; k < CANDS; ++k) {
@@ -292,10 +317,10 @@ pool_lane_kernel(PoolArgs a) {
         ring_key = key > ring_key ? key : ring_key;
       }
       // stored position 8-k: the block's candidates are kept reversed
-      int* e = rec + (CANDS - 1 - k) * NF;
-      e[F_LOWER] = lo[k];
-      e[F_LREV] = lr[k];
-      e[F_SIZE] = sz[k];
+      int* e = rec + (CANDS - 1 - k) * NFW;
+      frame_put(e, F_LOWER, lo[k]);
+      frame_put(e, F_LREV, lr[k]);
+      frame_put(e, F_SIZE, sz[k]);
       e[F_PARENT] = parent;
       e[F_STARTLEN] = sl[k];
       e[F_GAPS] = gp[k];
@@ -312,7 +337,7 @@ pool_lane_kernel(PoolArgs a) {
     const bool finish_hits = still && (hcount > 9 || run_size > 1);
     const bool finish = finish_empty || finish_stop || finish_hits || abandon;
     ls[LS_BEST * L + lane] = __float_as_int(run_best);
-    ls[LS_BEST_SIZE * L + lane] = run_size;
+    best_size_put<I>(ls, L, lane, run_size);
     ls[LS_HCOUNT * L + lane] = hcount;
     ls[LS_FRESH * L + lane] = 0;
     ls[LS_FINISH * L + lane] = finish;
@@ -321,6 +346,7 @@ pool_lane_kernel(PoolArgs a) {
   __syncthreads();
   if (tid < REC)
     a.store[((size_t)lane * (S + 1) + (S - 1 - step)) * REC + tid] = rec[tid];
+  static_assert(REC <= LANE_THREADS, "one thread per store word");
 }
 
 constexpr int REFILL_THREADS = 1024;
@@ -362,6 +388,7 @@ pool_refill_kernel(PoolArgs a) {
       ls[LS_AGE * L + t] = 0;
       ls[LS_BEST * L + t] = __float_as_int(-__int_as_float(0x7f800000));
       ls[LS_BEST_SIZE * L + t] = 0;
+      ls[LS_BEST_SIZE_HI * L + t] = 0;
       ls[LS_HCOUNT * L + t] = 0;
       const bool got = new_rid < R;
       ls[LS_N * L + t] = got ? a.n[new_rid] : 0;
@@ -390,25 +417,25 @@ pool_refill_kernel(PoolArgs a) {
 // K1 alone: one block of two warps per lane (rank of each interval end),
 // then the extension sweep.  Used only to check K1 against its plain
 // version (ops/fm.py extend_batch); the pool search calls occ4_warp inline.
-static __global__ void k1_extend_kernel(const int* rows, const int* less,
-                                        const int* sent, int nb, int occ_k,
-                                        const int* lower, const int* lrev,
-                                        const int* size, int* out_lower,
-                                        int* out_lrev, int* out_size) {
+template <typename I>
+static __global__ void k1_extend_kernel(const int* rows, const I* less,
+                                        const I* sent, int nb, int occ_k,
+                                        const I* lower, const I* lrev,
+                                        const I* size, I* out_lower,
+                                        I* out_lrev, I* out_size) {
   const int l = blockIdx.x, tid = threadIdx.x;
-  __shared__ int occ_s[8];
-  const int lw = lower[l], sz = size[l];
-  const int q = tid < 32 ? (lw == 0 ? -1 : wsub(lw, 1))
-                         : wsub(wadd(lw, sz), 1);
-  int occ[4];
-  occ4_warp(rows, nb, occ_k, q, occ);
+  __shared__ I occ_s[8];
+  const I lw = lower[l], sz = size[l];
+  const I q = tid < 32 ? occ_query_lower<I>(lw) : occ_query_upper<I>(lw, sz);
+  I occ[4];
+  occ4_warp<I>(rows, nb, occ_k, q, occ);
   if ((tid & 31) == 0)
     for (int c = 0; c < 4; ++c) occ_s[(tid >> 5) * 4 + c] = occ[c];
   __syncthreads();
   if (tid == 0) {
-    int cl[4], cr[4], cs[4];
-    extend_from_occ(less, sent, lw, lrev[l], sz, occ_s, occ_s + 4, cl, cr,
-                    cs);
+    I cl[4], cr[4], cs[4];
+    extend_from_occ<I>(less, sent, lw, lrev[l], sz, occ_s, occ_s + 4, cl, cr,
+                       cs);
     for (int s = 0; s < 4; ++s) {
       out_lower[l * 4 + s] = cl[s];
       out_lrev[l * 4 + s] = cr[s];
@@ -428,7 +455,10 @@ extern "C" int pool_init(const PoolArgs* a, cudaStream_t stream) {
 extern "C" int pool_steps(const PoolArgs* a, int nsteps,
                           cudaStream_t stream) {
   for (int i = 0; i < nsteps; ++i) {
-    LAUNCH(pool_lane_kernel, a->L, LANE_THREADS, stream, *a);
+    if (a->big)
+      LAUNCH(pool_lane_kernel<int64_t>, a->L, LANE_THREADS, stream, *a);
+    else
+      LAUNCH(pool_lane_kernel<int32_t>, a->L, LANE_THREADS, stream, *a);
     CHECK_LAUNCH();
     LAUNCH(pool_refill_kernel, 1, REFILL_THREADS, stream, *a);
     CHECK_LAUNCH();
@@ -436,15 +466,24 @@ extern "C" int pool_steps(const PoolArgs* a, int nsteps,
   return 0;
 }
 
-extern "C" int k1_extend_batch(const int* rows, const int* less,
-                               const int* sent, int nb, int occ_k,
-                               const int* lower, const int* lrev,
-                               const int* size, int* out_lower,
-                               int* out_lrev, int* out_size, int L,
+extern "C" int k1_extend_batch(const int* rows, const void* less,
+                               const void* sent, int nb, int occ_k, int big,
+                               const void* lower, const void* lrev,
+                               const void* size, void* out_lower,
+                               void* out_lrev, void* out_size, int L,
                                cudaStream_t stream) {
   if (L <= 0) return 0;
-  LAUNCH(k1_extend_kernel, L, 64, stream, rows, less, sent, nb, occ_k, lower,
-         lrev, size, out_lower, out_lrev, out_size);
+  if (big) {
+    using I = int64_t;
+    LAUNCH(k1_extend_kernel<I>, L, 64, stream, rows, (const I*)less,
+           (const I*)sent, nb, occ_k, (const I*)lower, (const I*)lrev,
+           (const I*)size, (I*)out_lower, (I*)out_lrev, (I*)out_size);
+  } else {
+    using I = int32_t;
+    LAUNCH(k1_extend_kernel<I>, L, 64, stream, rows, (const I*)less,
+           (const I*)sent, nb, occ_k, (const I*)lower, (const I*)lrev,
+           (const I*)size, (I*)out_lower, (I*)out_lrev, (I*)out_size);
+  }
   CHECK_LAUNCH();
   return 0;
 }

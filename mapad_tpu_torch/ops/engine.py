@@ -1,34 +1,46 @@
 """Device search engine: batches reads onto the card and reconstructs hits.
 
 Counterpart of mapad_tpu/ops/engine.py (`DeviceSearchEngine`, pool mode,
-one device, small genomes).  Per block of up to `block_reads` reads:
+one device).  Per block of up to `block_reads` reads:
 
 1. prep thread (host): pad the reads, build the score LUT / penalty rows
-   and the bound thresholds (numpy, ops/prep.py), the Bi-D composite (host
-   C++, map/native_search.py) and one int32 upload blob;
-2. device thread: upload the blob, unpack it (kernel K4), run the pool
-   search (K2 with K1 inline) and the chain extraction (K3,
-   ops/search_pool2.py), pack the result (K5) and copy it back
-   asynchronously on a side stream into pinned host memory;
+   and the bound thresholds (numpy, ops/prep.py) and one int32 upload
+   blob.  Small genomes: the blob carries the Bi-D composite from the host
+   C++ (map/native_search.py).  Big genomes (int64 index), or
+   MAPAD_HOST_BID=0: the blob carries consts and (class, qual) cells only;
+2. device thread: upload the blob, unpack it (kernel K4; big: K6, then the
+   Bi-D on the card, K7), run the pool search (K2 with K1 inline) and the
+   chain extraction (K3, ops/search_pool2.py), pack the result (K5) and
+   copy it back asynchronously on a side stream into pinned host memory;
 3. caller: wait for the copy, decode the chains into per-read hits and
-   route escalated reads to the exact host C++ searcher.
+   route escalated reads: to a device retry block (MAPAD_RETRY_TIER=1), to
+   a deep block with a larger per-read cap (the deep tier, on by default
+   with a big index), or to the exact host C++ searcher.
 
-Two kernels live in this module, each beside its plain PyTorch version:
+The defaults of big mode (device Bi-D, 4096-read blocks, deep tier on) and
+every tier constant follow mapad_tpu, so both packages route the same reads
+the same way.
+
+Three kernels live in this module, each beside its plain PyTorch version:
 
 - K4 `_unpack_prep_lut` (csrc/unpack_prep.cu) replaces `_unpack_prep_lut`
   and `_unpack_cq10` (mapad_tpu/ops/engine.py:220-288).  Bound: bytes, the
   24 B LUT/Bi-D row written per cell (25 MB at R=8192, M=128).
 - K5 `_pack_result` (csrc/pack_result.cu) replaces `_pack_result`
   (mapad_tpu/ops/engine.py:1589-1634).  Bound: bytes, the C*MW op words
-  read (8.4 MB at C=16384, MW=128).
+  read (8.4 MB at C=16384, MW=128).  int64 fields travel as int32 pairs.
+- K6 `_unpack_prep_full` (csrc/unpack_prep.cu) replaces `_unpack_prep_full`
+  (mapad_tpu/ops/engine.py:291-323).  Bound: bytes, the 28 B of rank,
+  code, four scores and penalty written per cell (14.7 MB at R=4096,
+  M=128).
 
 The wrappers take the plain version for CPU tensors only (the tests); on
 a CUDA tensor they launch the kernel or raise.
 
 Not in this slice (each raises NotImplementedError): the multi-device
-mesh, big (int64) mode with the device Bi-D (K6/K7), the retry and deep
-tiers, in-kernel generations > 1 (K8), the no-hit probe batches, the
-fixed-batch mode (K10) and the hybrid engine.
+mesh (K9), in-kernel generations > 1 (K8, so also a deep tier narrowed
+with MAPAD_DEEP_LANES), the bidirectional search of center-start models,
+the no-hit probe batches, the fixed-batch mode (K10) and the hybrid engine.
 """
 
 from __future__ import annotations
@@ -79,6 +91,36 @@ def _later(what: str):
 # --- K4: unpack the upload blob -----------------------------------------
 
 
+def _consts(blob, R):
+    """The five per-read consts at the head of every upload blob: views."""
+
+    def f32(x):
+        return x.view(torch.float32)
+
+    return (blob[:R], blob[R : 2 * R], f32(blob[2 * R : 3 * R]),
+            f32(blob[3 * R : 4 * R]), f32(blob[4 * R : 5 * R]))
+
+
+def _cq_cells(cqseg, n, off, tab_rows, R, M, Q):
+    """10-bit (class, qual) cells, three per word (`_unpack_cq10` of the JAX
+    package) -> (cls (R*M,), table row index (R*M,)).  Cell j of an n-long
+    read takes row off[n] + (j*5 + cls)*Q + q; padding cells (j >= n) the
+    table's last (all-zero) row.  Gathers clamp like XLA's."""
+    dev = cqseg.device
+    RM = R * M
+    cq = torch.stack(
+        [cqseg & 0x3FF, (cqseg >> 10) & 0x3FF, (cqseg >> 20) & 0x3FF], dim=1
+    ).reshape(-1)[:RM]
+    cls = cq >> 7
+    q = cq & 0x7F
+    j = torch.arange(M, dtype=torch.int32, device=dev).repeat(R)
+    n_rows = n.repeat_interleave(M)
+    last = tab_rows - 1
+    base = off[torch.clamp(n_rows, 0, off.shape[0] - 1).long()]
+    idx = torch.where(j < n_rows, base + (j * 5 + cls) * Q + q, last)
+    return cls, torch.clamp(idx, 0, last).long()
+
+
 def _unpack_prep_lut_plain(blob, tab, off, R, M, Q, rle=False):
     """Plain PyTorch K4: blob -> (n, split, scale, thresh, repr_mm, slut)
     with slut the (R*M, 6) f32 rows [score4 | class | Bi-D]."""
@@ -87,11 +129,7 @@ def _unpack_prep_lut_plain(blob, tab, off, R, M, Q, rle=False):
     def f32(x):
         return x.view(torch.float32)
 
-    n = blob[:R]
-    split = blob[R : 2 * R]
-    scale = f32(blob[2 * R : 3 * R])
-    thresh = f32(blob[3 * R : 4 * R])
-    repr_mm = f32(blob[4 * R : 5 * R])
+    n, split, scale, thresh, repr_mm = _consts(blob, R)
     RM = R * M
     jrow = torch.arange(M, dtype=torch.int32, device=dev)
     if rle:
@@ -111,18 +149,8 @@ def _unpack_prep_lut_plain(blob, tab, off, R, M, Q, rle=False):
     else:
         bid = f32(blob[5 * R : 5 * R + RM])
         cqseg = blob[5 * R + RM :]
-    cq = torch.stack(
-        [cqseg & 0x3FF, (cqseg >> 10) & 0x3FF, (cqseg >> 20) & 0x3FF], dim=1
-    ).reshape(-1)[:RM]
-    cls = cq >> 7
-    q = cq & 0x7F
-    j = jrow.repeat(R)
-    n_rows = n.repeat_interleave(M)
-    last = tab.shape[0] - 1
-    # gathers clamp like XLA's
-    base = off[torch.clamp(n_rows, 0, off.shape[0] - 1).long()]
-    idx = torch.where(j < n_rows, base + (j * 5 + cls) * Q + q, last)
-    score4 = tab[torch.clamp(idx, 0, last).long()]
+    cls, idx = _cq_cells(cqseg, n, off, tab.shape[0], R, M, Q)
+    score4 = tab[idx]
     slut = torch.cat(
         [score4, cls.to(torch.float32)[:, None], bid[:, None]], dim=1
     )
@@ -162,12 +190,7 @@ def _unpack_prep_lut(blob, tab, off, R, M, Q, rle=False):
     check(fn(ctypes.byref(args),
              torch.cuda.current_stream(blob.device).cuda_stream),
           "unpack_prep")
-
-    def f32(x):
-        return x.view(torch.float32)
-
-    return (blob[:R], blob[R : 2 * R], f32(blob[2 * R : 3 * R]),
-            f32(blob[3 * R : 4 * R]), f32(blob[4 * R : 5 * R]), slut)
+    return (*_consts(blob, R), slut)
 
 
 def _unpack_prep(blob, R, M):
@@ -175,12 +198,69 @@ def _unpack_prep(blob, R, M):
     ceiling) into kernel inputs: a reinterpretation of the blob's words,
     no copy and no kernel."""
 
-    def f32(x):
-        return x.view(torch.float32)
+    return (*_consts(blob, R),
+            blob[5 * R :].view(torch.float32).reshape(R * M, 6))
 
-    return (blob[:R], blob[R : 2 * R], f32(blob[2 * R : 3 * R]),
-            f32(blob[3 * R : 4 * R]), f32(blob[4 * R : 5 * R]),
-            f32(blob[5 * R :]).reshape(R * M, 6))
+
+# --- K6: unpack the device-Bi-D blob into dense inputs -----------------
+
+
+def _unpack_prep_full_plain(blob, tab, pen_tab, off, R, M, Q):
+    """Plain PyTorch K6: consts + (class, qual) cells -> (rank, code, n,
+    score_lut, pen, split, scale, thresh, repr_mm), the pool search's dense
+    inputs: rank, code (R, M) i32; score_lut (R, M, 4) f32; pen (R, M)
+    f32."""
+    n, split, scale, thresh, repr_mm = _consts(blob, R)
+    cls, idx = _cq_cells(blob[5 * R :], n, off, tab.shape[0], R, M, Q)
+    score_lut = tab[idx].reshape(R, M, 4)
+    pen = pen_tab[idx].reshape(R, M)
+    code = cls.reshape(R, M)
+    rank = torch.where(cls < 4, cls + 1, 0).to(torch.int32).reshape(R, M)
+    return rank, code, n, score_lut, pen, split, scale, thresh, repr_mm
+
+
+class _UnpackFullArgs(ctypes.Structure):
+    """Mirror of `struct UnpackFullArgs` in csrc/unpack_prep.cu."""
+
+    _fields_ = [
+        ("blob", ctypes.c_void_p), ("tab", ctypes.c_void_p),
+        ("pen_tab", ctypes.c_void_p), ("off", ctypes.c_void_p),
+        ("tab_rows", ctypes.c_int), ("n_off", ctypes.c_int),
+        ("R", ctypes.c_int), ("M", ctypes.c_int), ("Q", ctypes.c_int),
+        ("rank", ctypes.c_void_p), ("code", ctypes.c_void_p),
+        ("score_lut", ctypes.c_void_p), ("pen", ctypes.c_void_p),
+    ]
+
+
+def _unpack_prep_full(blob, tab, pen_tab, off, R, M, Q):
+    """K6 wrapper: the plain version for CPU tensors, the kernel for CUDA
+    tensors (never a fallback)."""
+    if not blob.is_cuda:
+        return _unpack_prep_full_plain(blob, tab, pen_tab, off, R, M, Q)
+    for t, dt in ((blob, torch.int32), (tab, torch.float32),
+                  (pen_tab, torch.float32), (off, torch.int32)):
+        require(t.is_cuda and t.dtype == dt and t.is_contiguous(),
+                "unpack_prep_full takes contiguous CUDA tensors")
+    require(blob.numel() == 5 * R + _cq_words(R * M), "blob size")
+    require(tab.dim() == 2 and tab.shape[1] == 4
+            and pen_tab.shape == (tab.shape[0],), "LUT table shapes")
+    dev = blob.device
+    rank = torch.empty((R, M), dtype=torch.int32, device=dev)
+    code = torch.empty((R, M), dtype=torch.int32, device=dev)
+    score_lut = torch.empty((R, M, 4), dtype=torch.float32, device=dev)
+    pen = torch.empty((R, M), dtype=torch.float32, device=dev)
+    args = _UnpackFullArgs(
+        blob.data_ptr(), tab.data_ptr(), pen_tab.data_ptr(), off.data_ptr(),
+        tab.shape[0], off.shape[0], R, M, Q, rank.data_ptr(),
+        code.data_ptr(), score_lut.data_ptr(), pen.data_ptr(),
+    )
+    fn = cuda_function("unpack_prep", "unpack_prep_full",
+                       [ctypes.POINTER(_UnpackFullArgs), ctypes.c_void_p])
+    LAUNCHES.add("unpack_prep_full")
+    check(fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
+          "unpack_prep_full")
+    n, split, scale, thresh, repr_mm = _consts(blob, R)
+    return rank, code, n, score_lut, pen, split, scale, thresh, repr_mm
 
 
 # --- K5: pack the result --------------------------------------------------
@@ -210,8 +290,9 @@ def _pack_result_plain(res: PoolResult) -> torch.Tensor:
             for k in range(1, K):
                 w64 = w64 | (g[..., k] << (k * opbits))
             a = w64.contiguous().view(torch.int32)
-        elif a.dtype == torch.float32:
-            a = a.view(torch.int32)
+        elif a.dtype in (torch.float32, torch.int64):
+            # int64 fields travel as little-endian int32 pairs
+            a = a.contiguous().view(torch.int32)
         elif a.dtype == torch.bool:
             a = a.to(torch.int32)
         parts.append(a.reshape(-1))
@@ -224,13 +305,13 @@ class _PackArgs(ctypes.Structure):
     _fields_ = [(f, ctypes.c_void_p) for f in PoolResult._fields] + [
         ("C", ctypes.c_int), ("MW", ctypes.c_int), ("L", ctypes.c_int),
         ("R", ctypes.c_int), ("opbits", ctypes.c_int), ("K", ctypes.c_int),
-        ("pb", ctypes.c_int), ("out", ctypes.c_void_p),
+        ("pb", ctypes.c_int), ("big", ctypes.c_int), ("out", ctypes.c_void_p),
     ]
 
 
-def _packed_words(C, MW, L, R) -> int:
+def _packed_words(C, MW, L, R, big=False) -> int:
     _opbits, K, _pb = _wire_opbits(MW)
-    return 7 * C + C * (-(-MW // K)) * 2 + 3 + 2 * L + R
+    return (10 if big else 7) * C + C * (-(-MW // K)) * 2 + 3 + 2 * L + R
 
 
 def _pack_result(res: PoolResult) -> torch.Tensor:
@@ -245,22 +326,25 @@ def _pack_result(res: PoolResult) -> torch.Tensor:
         require(t.is_cuda and t.is_contiguous(),
                 "pack_result takes contiguous CUDA tensors")
     opbits, K, pb = _wire_opbits(MW)
-    total = _packed_words(C, MW, L, R)
+    big = res.c_lower.dtype == torch.int64
+    require(res.c_lrev.dtype == res.c_size.dtype == res.c_lower.dtype,
+            "interval fields must share one type")
+    total = _packed_words(C, MW, L, R, big)
     out = torch.empty(total, dtype=torch.int32, device=res.c_read.device)
     args = _PackArgs(*[t.data_ptr() for t in res], C, MW, L, R, opbits, K,
-                     pb, out.data_ptr())
+                     pb, int(big), out.data_ptr())
     fn = cuda_function("pack_result", "pack_result",
                        [ctypes.POINTER(_PackArgs), ctypes.c_longlong,
                         ctypes.c_void_p])
-    LAUNCHES.add("pack_result")
+    LAUNCHES.add("pack_result_i64" if big else "pack_result")
     check(fn(ctypes.byref(args), total,
              torch.cuda.current_stream(out.device).cuda_stream),
           "pack_result")
     return out
 
 
-_NP_DTYPE = {torch.int32: np.int32, torch.float32: np.float32,
-             torch.bool: np.bool_}
+_NP_DTYPE = {torch.int32: np.int32, torch.int64: np.int64,
+             torch.float32: np.float32, torch.bool: np.bool_}
 
 
 def _result_spec(res: PoolResult) -> PoolResult:
@@ -301,9 +385,9 @@ class DeviceSearchEngine:
             )
         self.config = config
         if pool_config is None:
-            # the production shape: L=512 lanes, S = 512*8192/L steps (the
-            # frame store, L*S blocks, stays constant), per-read cap 3072,
-            # 16384 chains for 8192-read invocations
+            # the production shape of mapad_tpu: L=512 lanes, S =
+            # 512*8192/L steps (the frame store, L*S blocks, stays
+            # constant), per-read cap 3072, 16384 chains an invocation
             pool_lanes = max(8, min(lanes, 512))
             pool_steps = max(2048, (512 * 8192) // pool_lanes)
             if os.environ.get("MAPAD_POOL_STEPS"):
@@ -320,6 +404,10 @@ class DeviceSearchEngine:
             )
         elif pool_config.backward_only and not self._is_backward_only:
             pool_config = pool_config._replace(backward_only=False)
+        if (pool_config.generations > 1
+                and pool_config.read_step_cap + 4 > pool_config.total_steps):
+            # a store boundary could free nothing: one generation
+            pool_config = pool_config._replace(generations=1)
         if pool_config.generations > 1:
             raise _later("in-kernel store generations > 1 (kernel K8)")
         if not pool_config.backward_only:
@@ -327,6 +415,8 @@ class DeviceSearchEngine:
         self.pool_config = pool_config
         # counts, and seconds per stage: prep (prep thread), device (device
         # thread), wait + decode (caller), exact fallback (core-seconds)
+        # (retry and deep blocks count into steps and seconds, not into
+        # device_lanes / escalated / batches)
         self._stats = {"device_lanes": 0, "escalated": 0, "oracle": 0,
                        "batches": 0, "steps": 0, "prep_s": 0.0,
                        "device_s": 0.0, "wait_s": 0.0, "decode_s": 0.0,
@@ -341,16 +431,17 @@ class DeviceSearchEngine:
 
     # --- host-side per-read preparation (exact f32 paths) ---
 
-    def _prepare(self, records, max_len: int, lanes: int | None = None):
-        """Host preparation of one invocation: the C++ Bi-D and one int32
-        upload blob (consts | Bi-D, RLE-coded by default | 10-bit (class,
-        qual) cells; or consts | packed LUT/Bi-D rows when the qualities
-        exceed the device LUT's ceiling).  Returns the blob and the host
-        stash the exact fallback reuses."""
-        from ..map import native_search
+    def _prepare(self, records, max_len: int, lanes: int | None = None,
+                 host_bid: bool = True):
+        """Host preparation of one invocation.
 
-        if not native_search.available():
-            raise _later("the device Bi-D prologue (kernels K6/K7)")
+        host_bid: the C++ Bi-D and one int32 upload blob (consts | Bi-D,
+        RLE-coded by default | 10-bit (class, qual) cells; or consts |
+        packed LUT/Bi-D rows when the qualities exceed the device LUT's
+        ceiling).  Else (big genomes) the Bi-D is left to the card: the blob
+        is consts | (class, qual) cells only (unpacked by K6), or, past the
+        LUT's ceiling, the dense input arrays go up as they are.  Returns
+        the upload and the host stash the exact fallback reuses."""
         L = lanes if lanes is not None else self.lanes
         sdm = self.parameters.difference_model
         mb = self.parameters.mismatch_bound
@@ -405,27 +496,31 @@ class DeviceSearchEngine:
         pen = np.zeros((L, max_len), dtype=np.float32)
         # device-LUT mode: ship consts + Bi-D + (class, qual) cells and
         # gather the score columns on the card from the one-time table
-        dev_lut = (
+        dev_ok = (
             self._lut_cache() is not None
             and max_len % 2 == 0
             and max_len <= self.config.max_len
             and int(quals.max(initial=0)) < _DEV_LUT_Q
         )
+        dev_lut = host_bid and dev_ok
         # Bi-D as a run-length code: reads with more runs than the code
         # carries are neutralized on the card (thresh = +inf) and routed to
         # the host fallback at collect time (stash["pre_escalate"])
         bid_rle = dev_lut and os.environ.get("MAPAD_BID_RLE", "1") != "0"
         RM = L * max_len
         bid_words = (_BID_SEG // 4 + _BID_SEG) * L if bid_rle else RM
-        if not dev_lut:
+        if host_bid and not dev_lut:
             # the score columns are filled straight into the blob
             blob = np.zeros(5 * L + RM * 6, dtype=np.int32)
             packed3 = blob[5 * L :].view(np.float32).reshape(L, max_len, 6)
             score_lut = packed3[:, :, :4]
-        else:
+        elif host_bid:
             blob = np.zeros(5 * L + bid_words + _cq_words(RM),
                             dtype=np.int32)
             packed3 = None
+            score_lut = np.zeros((L, max_len, 4), dtype=np.float32)
+        else:
+            blob = packed3 = None
             score_lut = np.zeros((L, max_len, 4), dtype=np.float32)
         if n_real:
             cache = self._lut_cache()
@@ -450,15 +545,41 @@ class DeviceSearchEngine:
             scale=cutoff_scale, thresh=cutoff_thresh, repr_mm=repr_mm,
             max_len=max_len,
         )
+        # padded/empty reads reject everything at once
+        thresh = cutoff_thresh.copy()
+        thresh[n == 0] = np.float32(np.inf)
+        if not host_bid:
+            # the longest parts of the block bound the card's Bi-D walks
+            bid_steps = (int(split.max(initial=0)),
+                         int((n - split).max(initial=0)))
+            out = dict(L=L, max_len=max_len, bid_steps=bid_steps,
+                       _stash=stash)
+            if dev_ok:
+                blob = np.zeros(5 * L + _cq_words(RM), dtype=np.int32)
+                for k, a in enumerate((n, split, cutoff_scale, thresh,
+                                       repr_mm)):
+                    blob[k * L : (k + 1) * L] = a.view(np.int32)
+                blob[5 * L :] = _pack_cq10(seqs, quals)
+                return dict(out, blob=blob, dev_full=True)
+            return dict(out, dev_full=False, dense=dict(
+                pattern_rank=pattern_rank.astype(np.int32),
+                pattern_code=pattern_code, n=n, score_lut=score_lut,
+                pen=pen, split=split, scale=cutoff_scale, thresh=thresh,
+                repr_mm=repr_mm,
+            ))
+        from ..map import native_search
+
+        if not native_search.available():
+            raise RuntimeError(
+                "the host C++ Bi-D needs a C++ compiler; set "
+                "MAPAD_HOST_BID=0 to compute the Bi-D on the device"
+            )
         # the threaded C++ Bi-D overlaps the blob packing below
         bid_fut = self._bid_exec().submit(
             self._native_bid().compute,
             pattern_rank.astype(np.uint8), pen, n, split,
             max(1, (os.cpu_count() or 2) - 2),
         )
-        # padded/empty reads reject everything at once
-        thresh = cutoff_thresh.copy()
-        thresh[n == 0] = np.float32(np.inf)
         blob[:L] = n.view(np.int32)
         blob[L : 2 * L] = split.view(np.int32)
         blob[2 * L : 3 * L] = cutoff_scale.view(np.int32)
@@ -489,18 +610,42 @@ class DeviceSearchEngine:
         return dict(blob=blob, L=L, max_len=max_len, dev_lut=dev_lut,
                     rle=bid_rle, _stash=stash)
 
-    def _upload(self, prep):
-        """Blob to the card (on the current stream) and its unpack (K4)."""
-        L, M = prep["L"], prep["max_len"]
-        host = torch.from_numpy(prep["blob"])
+    def _to_device(self, array):
+        host = torch.from_numpy(np.ascontiguousarray(array))
         if self.device.type == "cuda":
             host = host.pin_memory()
-        blob = host.to(self.device, non_blocking=True)
+        return host.to(self.device, non_blocking=True)
+
+    def _upload(self, prep):
+        """Upload to the card (on the current stream) and unpack (K4, or K6
+        for the device-Bi-D blob).  Returns the pool search's five consts
+        and its keyword inputs: the packed LUT/Bi-D rows, or the dense
+        arrays with the block's longest parts."""
+        L, M = prep["L"], prep["max_len"]
+        if "dense" in prep:
+            d = {k: self._to_device(v) for k, v in prep["dense"].items()}
+            consts = (d["n"], d["split"], d["scale"], d["thresh"],
+                      d["repr_mm"])
+            dense = (d["pattern_rank"], d["pattern_code"], d["score_lut"],
+                     d["pen"])
+            return consts, dict(dense=dense, bid_steps=prep["bid_steps"])
+        blob = self._to_device(prep["blob"])
+        if prep.get("dev_full"):
+            tab, pen_tab, off = self._device_lut()
+            (rank, code, n, score_lut, pen, split, scale, thresh,
+             repr_mm) = _unpack_prep_full(blob, tab, pen_tab, off, L, M,
+                                          _DEV_LUT_Q)
+            return (n, split, scale, thresh, repr_mm), dict(
+                dense=(rank, code, score_lut, pen),
+                bid_steps=prep["bid_steps"],
+            )
         if prep["dev_lut"]:
-            tab, off = self._device_lut()
-            return _unpack_prep_lut(blob, tab, off, L, M, _DEV_LUT_Q,
-                                    rle=prep["rle"])
-        return _unpack_prep(blob, L, M)
+            tab, _pen_tab, off = self._device_lut()
+            parts = _unpack_prep_lut(blob, tab, off, L, M, _DEV_LUT_Q,
+                                     rle=prep["rle"])
+        else:
+            parts = _unpack_prep(blob, L, M)
+        return parts[:5], dict(slut=parts[5])
 
     def _params(self) -> SearchParams:
         # host scalars: the kernels take them by value
@@ -536,13 +681,16 @@ class DeviceSearchEngine:
 
     @property
     def block_reads(self) -> int:
-        """Device invocation size: 8192 reads (assignable for tests)."""
+        """Device invocation size: 8192 reads, 4096 with a big index (each
+        read of a genome-scale text needs more of the shared step budget),
+        as in mapad_tpu.  Assignable (tests, tuning)."""
         override = getattr(self, "_block_reads", None) or int(
             os.environ.get("MAPAD_BLOCK_READS", 0)
         )
         if override:
             return max(self.pool_config.lanes, override)
-        return max(self.pool_config.lanes, 8192)
+        return max(self.pool_config.lanes,
+                   4096 if self.device_index.big else 8192)
 
     @block_reads.setter
     def block_reads(self, value: int):
@@ -553,18 +701,27 @@ class DeviceSearchEngine:
         """Pipelined block search: yields (key, results) per input block in
         submission order.
 
-        A prep thread builds the next blocks' LUT rows, Bi-D and upload
-        blob while up to `max_in_flight` invocations are queued on the
-        device thread; each invocation's result pack and its copy to the
-        host are enqueued behind its search, so the copy overlaps the next
-        invocation.  Escalated entries come back as Futures resolved on the
-        fallback pool when lazy_fallback."""
+        A prep thread builds the next blocks' LUT rows and upload blob while
+        up to `max_in_flight` invocations are queued on the device thread;
+        each invocation's result pack and its copy to the host are enqueued
+        behind its search, so the copy overlaps the next invocation.
+        Escalated entries come back as Futures when lazy_fallback.
+
+        The tiers of mapad_tpu, with its constants and routing (they need
+        lazy_fallback: results resolve when the later invocation lands):
+
+        - retry (MAPAD_RETRY_TIER=1): reads that merely ran out of the
+          shared step budget of a full block (unfinished early,
+          undispatched, chain overflow) re-run in a block of escalatees at
+          the same shapes, up to MAPAD_RETRY_GENS passes;
+        - deep (MAPAD_DEEP_TIER=1/0, default on with a big index): abandons
+          and reads that spent most of their per-read cap re-run under
+          `_deep_config` (a larger per-read cap) in partially filled
+          blocks; escalatees without any hit go straight to the host
+          (MAPAD_DEEP_NOHIT_HOST=0 keeps them in the tier);
+        - the exact host C++ searcher takes what is left."""
         from collections import deque
 
-        if os.environ.get("MAPAD_RETRY_TIER") == "1":
-            raise _later("the device retry tier")
-        if os.environ.get("MAPAD_DEEP_TIER") == "1":
-            raise _later("the deep tier")
         if os.environ.get("MAPAD_NOHIT_PROBE", "0") == "1":
             raise _later("the batched no-hit probe")
         cfg = self.pool_config
@@ -581,14 +738,87 @@ class DeviceSearchEngine:
         run_q: deque = deque()   # (key, records, launched)
         exhausted = False
 
+        retry_enabled = (lazy_fallback
+                         and os.environ.get("MAPAD_RETRY_TIER") == "1")
+        retry_gens = int(os.environ.get("MAPAD_RETRY_GENS", "2"))
+        # below this, one more device invocation costs more than the host
+        # fallback pool clearing the stragglers
+        retry_min = int(os.environ.get("MAPAD_RETRY_MIN", str(cfg.lanes // 4)))
+        # mid-stream trigger: a retry block launches once this many
+        # escalatees accumulated (small against R, so retries resolve
+        # shortly after their block)
+        retry_block = int(os.environ.get("MAPAD_RETRY_BLOCK", str(R // 8)))
+        retry_buf: list = []  # (Future, record, gen)
+        _RETRY = object()  # sentinel key: internal block, never yielded
+
+        deep_tier = lazy_fallback and self.deep_tier_enabled()
+        # made here, before any block is launched: a deep config that needs
+        # store generations raises now, not in the middle of a stream
+        cfg_deep = self._deep_config(cfg, check=deep_tier)
+        deep_take = int(os.environ.get(
+            "MAPAD_DEEP_BLOCK", str(max(retry_min, R // 8))
+        ))
+        deep_gens = int(os.environ.get("MAPAD_DEEP_GENS", "1"))
+        deep_buf: list = []  # (Future, record, gen)
+        _DEEP = object()  # sentinel key: internal deep block
+        deep_nohit_host = deep_tier and (
+            os.environ.get("MAPAD_DEEP_NOHIT_HOST", "1") == "1"
+        )
+
+        def fb_submit(rec, stash_i, stash, fut=None):
+            f = fb_pool.submit(self._fallback_one, rec,
+                               self._stash_row(stash, stash_i))
+            if fut is None:
+                return f
+
+            # chain the fallback result into the caller-visible future
+            def _done(src, dst=fut):
+                exc = src.exception()
+                if exc is not None:
+                    dst.set_exception(exc)
+                else:
+                    dst.set_result(src.result())
+
+            f.add_done_callback(_done)
+            return fut
+
+        def submit_tier(tag, buf, take_n, tier_cfg, stat):
+            take = buf[:take_n]
+            del buf[:take_n]
+            recs = [t[1] for t in take]
+            prep_q.append(
+                ((tag, take), recs,
+                 self._prep_exec.submit(self._prep_block, recs, R, tier_cfg))
+            )
+            self._stats[stat] = self._stats.get(stat, 0) + len(take)
+
         def refill_prep():
             # one block in prep, the next one queued behind it
             nonlocal exhausted
-            while not exhausted and len(prep_q) < 2:
+            while len(prep_q) < 2:
+                # an accumulated retry/deep block is ready work: prefer it
+                # over new input, and flush stragglers when the input and
+                # the pipeline have drained
+                drained = exhausted and not prep_q and not run_q
+                if retry_enabled and retry_buf and (
+                    len(retry_buf) >= retry_block
+                    or (drained and len(retry_buf) >= retry_min)
+                ):
+                    submit_tier(_RETRY, retry_buf, R, cfg, "retried")
+                    continue
+                if deep_tier and deep_buf and (
+                    len(deep_buf) >= deep_take
+                    or (drained and len(deep_buf) >= retry_min)
+                ):
+                    submit_tier(_DEEP, deep_buf, deep_take, cfg_deep,
+                                "deep_retried")
+                    continue
+                if exhausted:
+                    break
                 nxt = next(it, None)
                 if nxt is None:
                     exhausted = True
-                    break
+                    continue
                 key, recs = nxt
                 prep_q.append(
                     (key, recs,
@@ -603,21 +833,142 @@ class DeviceSearchEngine:
                 run_q.append((key, recs, launched))
                 refill_prep()
             if not run_q:
+                # too few for another device block: host fallback
+                for fut, rec, _gen in retry_buf + deep_buf:
+                    self._stats["oracle"] += 1
+                    fb_submit(rec, None, None, fut)
+                retry_buf.clear()
+                deep_buf.clear()
                 break
             key, recs, launched = run_q.popleft()
             out = [None] * len(recs)
-            escalated = self._collect_pool(recs, launched, out)
+            abandoned: set = set()
+            deep: set = set()
+            nohits: set = set()
+            tier = (
+                key[0] if isinstance(key, tuple) and key
+                and key[0] in (_RETRY, _DEEP) else None
+            )
+            escalated = self._collect_pool(
+                recs, launched, out, abandoned, deep,
+                count_stats=tier is None, nohit_out=nohits,
+            )
             stash = launched[3]
-            for i in escalated:
+
+            def route(i, rec, gen, fut=None):
+                """Send one escalated read to retry/deep/host; returns the
+                future resolving to its (hits, duration)."""
+                fits = 0 < len(rec.sequence) <= cfg.max_len
+                # abandons exhausted their per-read cap and deep reads most
+                # of it (the same config would spend it again): only
+                # budget-starved reads re-run on the retry tier
+                if (retry_enabled and gen < retry_gens and fits
+                        and i not in abandoned and i not in deep):
+                    fut = fut or Future()
+                    retry_buf.append((fut, rec, gen + 1))
+                    return fut
+                nohit = i in nohits
+                if (deep_tier and gen < deep_gens and fits
+                        and not (deep_nohit_host and nohit)):
+                    fut = fut or Future()
+                    deep_buf.append((fut, rec, gen + 1))
+                    return fut
+                if deep_nohit_host and nohit:
+                    self._stats["nohit_host"] = (
+                        self._stats.get("nohit_host", 0) + 1
+                    )
                 self._stats["oracle"] += 1
-                fut = fb_pool.submit(self._fallback_one, recs[i],
-                                     self._stash_row(stash, i))
+                return fb_submit(rec, i, stash, fut)
+
+            if tier is not None:
+                # retry/deep block: resolve the placeholder futures
+                for j, (fut, rec, gen) in enumerate(key[1]):
+                    if j in escalated:
+                        route(j, rec, gen, fut)
+                    else:
+                        fut.set_result(out[j])
+                continue
+            for i in escalated:
+                fut = route(i, recs[i], 0)
                 out[i] = fut if lazy_fallback else fut.result()
             yield key, out
 
+    def deep_tier_enabled(self) -> bool:
+        """Deep tier default: on with a big (int64, genome-scale) index,
+        off with a small one, as in mapad_tpu.  MAPAD_DEEP_TIER=1/0 forces
+        either way."""
+        env = os.environ.get("MAPAD_DEEP_TIER")
+        if env is not None:
+            return env == "1"
+        return bool(self.device_index.big)
+
+    def _deep_config(self, cfg: "PoolConfig | None" = None,
+                     check: bool = False) -> "PoolConfig":
+        """Deep-tier pool config, derived as mapad_tpu derives it: full
+        width (the primary lanes and steps) with the per-read cap raised to
+        min(steps, max(total_steps, lanes * cap / deep lanes)), one
+        generation.  MAPAD_DEEP_LANES narrows it (L/2 lanes -> 2x steps at
+        the same frame store) and then asks for MAPAD_DEEP_KGENS store
+        generations; MAPAD_DEEP_STEPS / MAPAD_DEEP_CAP override directly.
+        `check`: raise if the config needs generations > 1 (kernel K8)."""
+        cfg = cfg or self.pool_config
+        lanes = int(os.environ.get(
+            "MAPAD_DEEP_LANES", str(max(32, cfg.lanes))
+        ))
+        # clamp overrides: no division by zero, no store larger than the
+        # primary's
+        lanes = max(1, min(lanes, cfg.lanes))
+        steps = int(os.environ.get(
+            "MAPAD_DEEP_STEPS",
+            str(cfg.total_steps * max(1, cfg.lanes // lanes)),
+        ))
+        cap_budget = cfg.lanes * cfg.read_step_cap
+        cap = int(os.environ.get(
+            "MAPAD_DEEP_CAP",
+            str(min(steps, max(cfg.total_steps, cap_budget // lanes))),
+        ))
+        kgens = int(os.environ.get("MAPAD_DEEP_KGENS", "4"))
+        if cap + 4 > steps:
+            kgens = 1
+        if check and kgens > 1:
+            raise _later(
+                "a deep tier with in-kernel store generations > 1 (kernel "
+                "K8; leave MAPAD_DEEP_LANES unset or set MAPAD_DEEP_KGENS=1)"
+            )
+        return cfg._replace(
+            lanes=lanes, total_steps=steps, read_step_cap=cap,
+            generations=kgens,
+            min_live=int(os.environ.get("MAPAD_KGENS_MIN_LIVE", "32")),
+            spill_steps=int(os.environ.get("MAPAD_DEEP_SPILL", "0")),
+        )
+
+    def _host_bid_active(self) -> bool:
+        """Host C++ Bi-D with the prepacked LUT/Bi-D rows.  Off by default
+        with a big index (the Bi-D then runs on the card, kernel K7), as in
+        mapad_tpu.  MAPAD_HOST_BID=1/0 forces either way."""
+        from ..map import native_search
+
+        env = os.environ.get("MAPAD_HOST_BID")
+        if env == "0":
+            return False
+        if env is None and self.device_index.big:
+            return False
+        return native_search.available()
+
     def warm(self, records):
-        """Build the kernels and run one block before timing starts."""
+        """Build the kernels and run one block of every config a run can
+        hit before timing starts: the primary one and, when the deep tier
+        is on, the deep one."""
         self.search_chunk(records)
+        if self.deep_tier_enabled():
+            sub = records[: self.block_reads]
+            launched = self._launch_block(
+                self._prep_block(sub, self.block_reads,
+                                 self._deep_config(check=True)),
+                self._params(),
+            )
+            self._collect_pool(sub, launched, [None] * len(sub),
+                               count_stats=False)
 
     def stats(self) -> dict:
         """A copy of the counts and stage seconds of the blocks run so far
@@ -656,7 +1007,7 @@ class DeviceSearchEngine:
         cfg = cfg._replace(max_len=m_fit, track_read_steps=True)
         prep = self._prepare(
             [r if len(r.sequence) <= cfg.max_len else _EMPTY for r in chunk],
-            cfg.max_len, R,
+            cfg.max_len, R, host_bid=self._host_bid_active(),
         )
         self._stats["prep_s"] += time.perf_counter() - t0
         return cfg, prep, t0
@@ -669,23 +1020,24 @@ class DeviceSearchEngine:
         return self._dev_exec
 
     def _run_block(self, cfg, prep, params):
-        """Device thread: upload + K4, K2 + K3, K5 and the async copy of
-        the packed result into pinned host memory on a side stream.
+        """Device thread: upload + K4 (or K6 + K7), K2 + K3, K5 and the
+        async copy of the packed result into pinned host memory on a side
+        stream.
         Returns (result spec, host buffer, copy-done event or None).  The
         step loop polls the card, so this thread's busy time is close to
         the card's time for the invocation (`_stats["device_s"]`)."""
         t0 = time.perf_counter()
         if self.device.type != "cuda":
-            parts = self._upload(prep)
-            res = k_mismatch_search_pool2(self.device_index, *parts[:5],
-                                          params, cfg, parts[5])
+            consts, kw = self._upload(prep)
+            res = k_mismatch_search_pool2(self.device_index, *consts,
+                                          params, cfg, **kw)
             out = _result_spec(res), _pack_result(res).numpy(), None
             self._stats["device_s"] += time.perf_counter() - t0
             return out
         with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            parts = self._upload(prep)
-            res = k_mismatch_search_pool2(self.device_index, *parts[:5],
-                                          params, cfg, parts[5])
+            consts, kw = self._upload(prep)
+            res = k_mismatch_search_pool2(self.device_index, *consts,
+                                          params, cfg, **kw)
             packed = _pack_result(res)
             host = torch.empty(packed.shape, dtype=torch.int32,
                                pin_memory=True)
@@ -712,10 +1064,17 @@ class DeviceSearchEngine:
             host = host.numpy()
         return _unpack_result(spec, host)
 
-    def _collect_pool(self, chunk, launched, out):
+    def _collect_pool(self, chunk, launched, out,
+                      abandoned_out: set | None = None,
+                      deep_out: set | None = None,
+                      count_stats: bool = True,
+                      nohit_out: set | None = None):
         """Wait for one invocation's result, decode its chains into `out`
         and return the set of escalated read indexes (by cause in
-        `_stats["esc_why"]`)."""
+        `_stats["esc_why"]` when count_stats).  For the tiers' routing the
+        optional sets receive: reads abandoned at the per-read cap, reads
+        that spent MAPAD_RETRY_DEEP_FRAC of it, and escalated reads with no
+        hit so far."""
         fut, _, t0, stash = launched
         t_fetch = time.perf_counter()
         result = self._fetch(fut)
@@ -740,13 +1099,13 @@ class DeviceSearchEngine:
             i for i in range(len(chunk))
             if len(chunk[i].sequence) > self.pool_config.max_len
         )
-        esc_why = self._stats.setdefault(
-            "esc_why", {"overlong": 0, "overflow": 0, "unfinished": 0,
-                        "undispatched": 0, "abandon": 0, "bid_rle": 0}
-        )
+        no_causes = {"overlong": 0, "overflow": 0, "unfinished": 0,
+                     "undispatched": 0, "abandon": 0, "bid_rle": 0}
+        esc_why = (self._stats.setdefault("esc_why", no_causes)
+                   if count_stats else no_causes)
         esc_why["overlong"] += len(escalated)
         esc_why["bid_rle"] += _inject_pre_escalate(
-            stash, len(chunk), escalated, None, None
+            stash, len(chunk), escalated, abandoned_out, nohit_out
         )
         n_chains = int(result.n_chains)
         if n_chains > result.c_read.shape[0]:
@@ -774,14 +1133,21 @@ class DeviceSearchEngine:
             valid = (cr >= 0) & (cr < len(chunk))
             ab = result.c_abandon[:n_chains] & valid
             pre = len(escalated)
-            escalated.update(np.unique(cr[ab]).tolist())
+            ab_reads = np.unique(cr[ab]).tolist()
+            escalated.update(ab_reads)
             esc_why["abandon"] += len(escalated) - pre
+            if abandoned_out is not None:
+                abandoned_out.update(int(r) for r in ab_reads)
             idx = np.flatnonzero(valid & ~result.c_abandon[:n_chains])
             ordk = idx[np.lexsort((-result.c_slot[idx], cr[idx]))]
             crs = cr[ordk]
             rid_range = np.arange(len(chunk))
             starts = np.searchsorted(crs, rid_range)
             ends = np.searchsorted(crs, rid_range, side="right")
+            if nohit_out is not None:
+                nohit_out.update(
+                    i for i in escalated if starts[i] == ends[i]
+                )
             if self.packed_hits:
                 from ..map.native_post import _EMPTY_PACKED, PackedHits
 
@@ -816,11 +1182,29 @@ class DeviceSearchEngine:
                     else per_read,
                 )
 
+        if deep_out is not None:
+            # escalated reads that already spent most of their per-read cap
+            # are deep: a same-config retry would spend a full cap again
+            frac = float(os.environ.get("MAPAD_RETRY_DEEP_FRAC", "0.5"))
+            thr = max(1, int(self.pool_config.read_step_cap * frac))
+            if result.read_steps is not None and result.read_steps.size:
+                rs_a = np.asarray(result.read_steps)
+                deep_out.update(
+                    i for i in escalated
+                    if i < rs_a.shape[0] and int(rs_a[i]) >= thr
+                )
+            else:
+                deep_out.update(
+                    int(rid)
+                    for rid in result.lane_read[result.lane_unfinished]
+                    if rid < len(chunk)
+                )
         self._stats["decode_s"] += time.perf_counter() - t_dec
-        self._stats["device_lanes"] += len(chunk)
-        self._stats["escalated"] += len(escalated)
-        self._stats["batches"] += 1
         self._stats["steps"] += int(result.steps)
+        if count_stats:
+            self._stats["device_lanes"] += len(chunk)
+            self._stats["escalated"] += len(escalated)
+            self._stats["batches"] += 1
         return escalated
 
     def _decode_chain(self, result, k, split):
@@ -889,9 +1273,9 @@ class DeviceSearchEngine:
         return cache
 
     def _device_lut(self):
-        """One-time all-length score-LUT table + per-length offsets on the
-        card for K4.  The host build is memoized across engines on the
-        model's scalar parameters."""
+        """One-time all-length score-LUT table, penalty table and
+        per-length offsets on the card for K4 and K6.  The host build is
+        memoized across engines on the model's scalar parameters."""
         ent = getattr(self, "_dev_lut_obj", None)
         if ent is None:
             sdm = self.parameters.difference_model
@@ -919,9 +1303,8 @@ class DeviceSearchEngine:
                     "device LUT table: %d rows built in %.1fs",
                     host[0].shape[0], time.perf_counter() - t0,
                 )
-            ent = self._dev_lut_obj = (
-                torch.from_numpy(host[0]).to(self.device),
-                torch.from_numpy(host[2]).to(self.device),
+            ent = self._dev_lut_obj = tuple(
+                torch.from_numpy(h).to(self.device) for h in host
             )
         return ent
 

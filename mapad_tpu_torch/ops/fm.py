@@ -8,11 +8,20 @@ so one 512 B row answers the rank query for all four DNA symbols (k = 976
 symbols per row).  The rows of the doubled 8 Mbp bench text are ~4.2 MB and
 stay in the H100's 50 MB L2.
 
+Big mode (`big=True`, automatic for texts of 2^31-1 symbols or more, e.g.
+a doubled human reference): the counts need 64 bits, so a row is
+  row[0:6] | row[6:12]   checkpoint counts as int32 lo / hi words
+  row[12:128]            packed symbols (k = 928 per row)
+still one 512 B row per query; `less` and `sentinels` are int64 and every
+interval (lower, lower_rev, size) is int64.
+
 K1 replaces `_row_occ4` / `extend_batch` (mapad_tpu/ops/fm.py:149-229):
 on the card it is the warp-cooperative `__device__` function `occ4_warp` of
 csrc/common.cuh, called inline by the pool search (csrc/pool_search.cu);
 `extend_batch` below launches its thin `__global__` wrapper so the function
-can be checked alone.  Bound on the card: one 512 B row read per interval
+can be checked alone.  Its launch count (`extend_batch`, `extend_batch_i64`)
+takes one for every launch of a kernel that runs it: the thin wrapper here,
+the pool search's lane kernel, the Bi-D walk kernel.  Bound on the card: one 512 B row read per interval
 end (2 per lane) -- bytes, L2-resident; each warp lane counts 4 words with
 SWAR nibble compares, so a query is ~4 dependent loads and a 5-step
 shuffle reduction.
@@ -32,6 +41,8 @@ from .._build import LAUNCHES, check, cuda_function, require
 ROW_WORDS = 128
 N_CP = 6
 OCC_K = (ROW_WORDS - N_CP) * 8  # 976 symbols per fused row
+N_CP_BIG = 12
+OCC_K_BIG = (ROW_WORDS - N_CP_BIG) * 8  # 928 symbols per big-mode row
 
 
 def resolve_device(device) -> torch.device:
@@ -47,39 +58,45 @@ def resolve_device(device) -> torch.device:
 
 
 class DeviceFmIndex(NamedTuple):
-    """FMD-index arrays on the engine's device (small mode: int32)."""
+    """FMD-index arrays on the engine's device (int32 intervals; int64
+    with `big`)."""
 
     rows: torch.Tensor  # (nb, 128) int32 fused occ+bwt rows
-    less: torch.Tensor  # (A,) int32
-    sentinels: torch.Tensor  # (2,) int32
+    less: torch.Tensor  # (A,) int32 / int64
+    sentinels: torch.Tensor  # (2,) int32 / int64
     occ_k: int
     text_len: int
     big: bool = False
+
+    @property
+    def idx_dtype(self) -> torch.dtype:
+        return torch.int64 if self.big else torch.int32
+
+    @property
+    def n_cp_cols(self) -> int:
+        return N_CP_BIG if self.big else N_CP
 
     @classmethod
     def from_numpy(cls, rows, less, sentinels, occ_k: int, text_len: int,
                    big: bool = False, device=None) -> "DeviceFmIndex":
         """Take the arrays of the JAX package's DeviceFmIndex as numpy and
         put them on `device` (default: the card)."""
-        if big:
-            raise NotImplementedError(
-                "big-genome (int64) index mode is a later slice of the port"
-            )
         device = resolve_device(device)
         rows = np.ascontiguousarray(rows, dtype=np.int32)
         require(rows.ndim == 2 and rows.shape[1] == ROW_WORDS,
                 f"fused index rows must be (nb, {ROW_WORDS}) int32")
+        idt = np.int64 if big else np.int32
         return cls(
             rows=torch.from_numpy(rows.copy()).to(device),
             less=torch.from_numpy(
-                np.asarray(less, dtype=np.int64).astype(np.int32)
+                np.asarray(less, dtype=np.int64).astype(idt)
             ).to(device),
             sentinels=torch.from_numpy(
-                np.asarray(sentinels, dtype=np.int64).astype(np.int32)
+                np.asarray(sentinels, dtype=np.int64).astype(idt)
             ).to(device),
             occ_k=int(occ_k),
             text_len=int(text_len),
-            big=False,
+            big=bool(big),
         )
 
     @classmethod
@@ -88,24 +105,23 @@ class DeviceFmIndex(NamedTuple):
                   device=None) -> "DeviceFmIndex":
         """Build from a host FmdIndex (index/fmd.py): the same fused rows as
         mapad_tpu/ops/fm.py:58-136, read from and written to the same
-        `device_rows_k976.npy` cache next to the index bundle, and put them
-        on `device` (default: the card)."""
+        `device_rows_k976.npy` (big: `device_rows_k928_big.npy`) cache next
+        to the index bundle, and put them on `device` (default: the card).
+        `big` defaults to automatic: int64 mode iff the text needs it."""
         from ..index.fmd import compute_occ_checkpoints
 
         n = len(fmd.bwt)
         if big is None:
             big = n >= 2**31 - 1
-        if big:
-            raise NotImplementedError(
-                "big-genome (int64) index mode is a later slice of the port"
-            )
         device = resolve_device(device)
-        k = occ_k or OCC_K
+        k = occ_k or (OCC_K_BIG if big else OCC_K)
         assert k % 8 == 0
         nb = (n + k - 1) // k
         cache_dir = getattr(fmd, "cache_dir", None)
         cache_path = (
-            os.path.join(cache_dir, f"device_rows_k{k}.npy")
+            os.path.join(
+                cache_dir, f"device_rows_k{k}{'_big' if big else ''}.npy"
+            )
             if cache_dir else None
         )
         rows = None
@@ -131,7 +147,12 @@ class DeviceFmIndex(NamedTuple):
             if cp.shape[1] < 6:
                 cp = np.pad(cp, ((0, 0), (0, 6 - cp.shape[1])))
             cp = cp[:, :6]
-            rows = np.concatenate([cp.astype(np.int32), packed], axis=1)
+            if big:
+                cp_lo = (cp & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+                cp_hi = (cp >> 32).astype(np.int32)
+                rows = np.concatenate([cp_lo, cp_hi, packed], axis=1)
+            else:
+                rows = np.concatenate([cp.astype(np.int32), packed], axis=1)
             if cache_path:
                 try:
                     tmp = f"{cache_path}.{os.getpid()}.tmp"
@@ -141,7 +162,7 @@ class DeviceFmIndex(NamedTuple):
                 except OSError:  # read-only bundle: skip the cache
                     pass
         return cls.from_numpy(rows, fmd.less, fmd.sentinel_occ, k, n,
-                              False, device)
+                              big, device)
 
 
 def _row_occ4(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:
@@ -150,12 +171,20 @@ def _row_occ4(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:
     Plain version of K1's rank query.  Row indices clamp to the table like
     XLA's gather does (lanes holding no read may query garbage)."""
     k = index.occ_k
+    nb = index.rows.shape[0]
     r_safe = torch.clamp(r, min=0)
-    blk = torch.clamp(r_safe // k, max=index.rows.shape[0] - 1).long()
-    off = r_safe % k
+    # the block number is an int32 (a garbage int64 position wraps), a
+    # negative one counts from the end, and the gather clamps
+    blk = (r_safe // k).to(torch.int32)
+    blk = torch.clamp(torch.where(blk < 0, blk + nb, blk), 0, nb - 1).long()
+    off = (r_safe % k).to(torch.int32)
     rows = index.rows[blk]
-    cp = rows[:, 1:5]
-    words = rows[:, N_CP:]
+    if index.big:
+        cp = ((rows[:, 1:5].long() & 0xFFFFFFFF)
+              | (rows[:, 7:11].long() << 32))
+    else:
+        cp = rows[:, 1:5]
+    words = rows[:, index.n_cp_cols:]
     shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=r.device)
     symbols = ((words[:, :, None] >> shifts) & 0xF).reshape(rows.shape[0], -1)
     pos = torch.arange(symbols.shape[1], dtype=torch.int32, device=r.device)
@@ -165,7 +194,8 @@ def _row_occ4(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:
          for c in (1, 2, 3, 4)],
         dim=1,
     )
-    return torch.where(r[:, None] >= 0, counts + cp, torch.zeros_like(cp))
+    return torch.where(r[:, None] >= 0, counts.to(index.idx_dtype) + cp,
+                       torch.zeros_like(cp))
 
 
 def sentinel_count(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:
@@ -177,8 +207,9 @@ def sentinel_count(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:
 def extend_batch_plain(index: DeviceFmIndex, lower, lower_rev, size):
     """Plain PyTorch K1: the 4-symbol backward-extension sweep.
 
-    (L,) int32 inputs -> (child_lower, child_lower_rev, child_size), each
-    (L, 4) in sweep slot order [T, G, C, A] (ranks 4, 3, 2, 1)."""
+    (L,) int32 (big: int64) inputs -> (child_lower, child_lower_rev,
+    child_size), each (L, 4) in sweep slot order [T, G, C, A] (ranks 4, 3,
+    2, 1)."""
     L = lower.shape[0]
     r1 = lower - 1
     r2 = lower + size - 1
@@ -208,22 +239,25 @@ def extend_batch(index: DeviceFmIndex, lower, lower_rev, size):
     if not lower.is_cuda:
         return extend_batch_plain(index, lower, lower_rev, size)
     L = lower.shape[0]
-    for t in (lower, lower_rev, size, index.rows, index.less,
-              index.sentinels):
-        require(t.is_cuda and t.dtype == torch.int32 and t.is_contiguous(),
-                "extend_batch takes contiguous int32 CUDA tensors")
+    idt = index.idx_dtype
+    require(index.rows.is_cuda and index.rows.dtype == torch.int32
+            and index.rows.is_contiguous(), "index rows must be int32 CUDA")
+    for t in (lower, lower_rev, size, index.less, index.sentinels):
+        require(t.is_cuda and t.dtype == idt and t.is_contiguous(),
+                f"extend_batch takes contiguous {idt} CUDA tensors")
     require(lower_rev.shape == size.shape == (L,), "extend_batch shapes")
-    outs = [torch.empty((L, 4), dtype=torch.int32, device=lower.device)
+    outs = [torch.empty((L, 4), dtype=idt, device=lower.device)
             for _ in range(3)]
     fn = cuda_function(
         "pool_search", "k1_extend_batch",
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
         + [ctypes.c_int, ctypes.c_void_p],
     )
-    LAUNCHES.add("extend_batch")
+    LAUNCHES.add("extend_batch_i64" if index.big else "extend_batch")
     check(fn(
         index.rows.data_ptr(), index.less.data_ptr(),
         index.sentinels.data_ptr(), index.rows.shape[0], index.occ_k,
+        int(index.big),
         lower.data_ptr(), lower_rev.data_ptr(), size.data_ptr(),
         outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), L,
         torch.cuda.current_stream(lower.device).cuda_stream,

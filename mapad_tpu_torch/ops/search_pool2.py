@@ -1,11 +1,19 @@
 """Persistent best-first pool search (kernel K2) and chain extraction (K3).
 
 Counterpart of mapad_tpu/ops/search_pool2.py (generations == 1, backward-only
-extension, host-packed LUT/Bi-D rows): the same pop order (max monotone
-key, then minimum ring age = LIFO, then the first max candidate of the
-block), the same f32 operation order, the same store slot numbering (the
-block of step s is block S-1-s, its 9 candidates stored in reverse), so
-`PoolResult` matches the JAX function field for field.
+extension): the same pop order (max monotone key, then minimum ring age =
+LIFO, then the first max candidate of the block), the same f32 operation
+order, the same store slot numbering (the block of step s is block S-1-s,
+its 9 candidates stored in reverse), so `PoolResult` matches the JAX
+function field for field.
+
+Two entries, as in the JAX function: host-packed LUT/Bi-D rows (`slut`, the
+small-genome default: Bi-D from the host C++), or the dense per-read inputs
+(`dense`, the big-genome default), from which the Bi-D composite is
+computed on the card first (kernel K7, ops/bi_d.py) and the rows
+[score4 | code | Bi-D] are assembled there.  With a big (int64) index the
+intervals, `best_size` and `c_lower` / `c_lrev` / `c_size` are int64; a
+stored frame then carries three more words (the high halves).
 
 Two implementations of each kernel live here:
 
@@ -44,6 +52,7 @@ import ctypes
 import torch
 
 from .._build import LAUNCHES, check, cuda_function, require
+from .bi_d import compute_bi_d
 from .fm import DeviceFmIndex, extend_batch_plain
 from .search import (
     CANDS,
@@ -112,6 +121,10 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
     `_extract_chains_plain` reads."""
     dev = n.device
     i32 = torch.int32
+    # the store holds whole frames in the interval type: with a big index
+    # the int32 fields ride sign-extended in int64 words (the layout of the
+    # store is free; PoolResult is what matches)
+    idt = index.idx_dtype
     R = n.shape[0]
     M = config.max_len
     L = config.lanes
@@ -139,7 +152,7 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
     bm_key = torch.full((L, RB), INT_MIN, dtype=i32, device=dev)
     lane_start = torch.zeros(L, dtype=i32, device=dev)
     # block b holds slots b*9..b*9+8; block S is the all-zero ROOT block
-    store = torch.zeros((L, S + 1, CANDS, NF), dtype=i32, device=dev)
+    store = torch.zeros((L, S + 1, CANDS, NF), dtype=idt, device=dev)
 
     read_id = torch.where(lanes < R, lanes, R).to(i32)
     fresh = read_id < R
@@ -153,7 +166,7 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
     c_repr = row0[:, 4].view(torch.float32)
     best_score = torch.full((L,), float("-inf"), dtype=torch.float32,
                             device=dev)
-    best_size = torch.zeros(L, dtype=i32, device=dev)
+    best_size = torch.zeros(L, dtype=idt, device=dev)
     hcount = torch.zeros(L, dtype=i32, device=dev)
     fin_log = torch.full((L, S if config.track_read_steps else 1), -1,
                          dtype=i32, device=dev)
@@ -187,11 +200,12 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
         # --- the popped block's 9 stored candidates ---
         blk_full = torch.clamp(S - 1 - pstep, 0, S - 1)
         rows9 = store[lanes, blk_full.long()]  # (L, 9, NF)
-        op9s = rows9[:, :, F_OP]
+        op9s = rows9[:, :, F_OP].to(i32)
         live9 = ((op9s & OP_PUSHED_BIT) != 0) & (
             ((cword[:, None] >> cand_iota) & 1) == 0
         )
-        key9 = torch.where(live9, _mono_bits(rows9[:, :, F_SCOREBITS]),
+        key9 = torch.where(live9,
+                           _mono_bits(rows9[:, :, F_SCOREBITS].to(i32)),
                            INT_MIN)
         off = torch.argmax(key9, dim=1).to(i32)  # first max
         f_mono = key9.max(dim=1).values
@@ -209,12 +223,15 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
         f_score = torch.where(fresh, torch.zeros_like(best_score),
                               _mono_inv(f_mono))
         zero = torch.zeros_like(read_id)
-        f_lower = torch.where(fresh, zero, frame[:, F_LOWER])
-        f_lrev = torch.where(fresh, zero, frame[:, F_LREV])
-        f_size = torch.where(fresh, zero + index.text_len, frame[:, F_SIZE])
-        f_start = torch.where(fresh, c_split, frame[:, F_STARTLEN] >> 16)
-        f_len = torch.where(fresh, zero, frame[:, F_STARTLEN] & 0xFFFF)
-        gaps = torch.where(fresh, zero, frame[:, F_GAPS])
+        zero_i = torch.zeros(L, dtype=idt, device=dev)
+        f_lower = torch.where(fresh, zero_i, frame[:, F_LOWER])
+        f_lrev = torch.where(fresh, zero_i, frame[:, F_LREV])
+        f_size = torch.where(fresh, zero_i + index.text_len,
+                             frame[:, F_SIZE])
+        startlen = frame[:, F_STARTLEN].to(i32)
+        f_start = torch.where(fresh, c_split, startlen >> 16)
+        f_len = torch.where(fresh, zero, startlen & 0xFFFF)
+        gaps = torch.where(fresh, zero, frame[:, F_GAPS].to(i32))
         parent = torch.where(fresh, zero + ROOT, sel)
         f_gapb = gaps & 3
         f_gapf = (gaps >> 2) & 3
@@ -320,11 +337,12 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
         gaps9 = torch.stack(c_gaps, dim=1)
         gaps9 = torch.where(record9, read_id[:, None], gaps9)
         pack9 = torch.stack(
-            [torch.stack(cl_lower, 1), torch.stack(cl_lrev, 1), size9,
-             parent[:, None].expand(L, CANDS), startlen9, gaps9, op9,
-             score9.view(i32)],
+            [f.to(idt) for f in (
+                torch.stack(cl_lower, 1), torch.stack(cl_lrev, 1), size9,
+                parent[:, None].expand(L, CANDS), startlen9, gaps9, op9,
+                score9.view(i32))],
             dim=2,
-        ).to(i32)
+        )
         store[:, S - 1 - step] = pack9.flip(1)
         mono9 = torch.where(push9, _mono(score9), INT_MIN).flip(1)
         ring_slot = step % RB
@@ -355,7 +373,7 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
         lane_start = torch.where(finish, step + 1, lane_start).to(i32)
         lane_age = torch.where(finish, 0, lane_age + act).to(i32)
         best_score = torch.where(finish, NEG_INF, best_score)
-        best_size = torch.where(finish, 0, best_size).to(i32)
+        best_size = torch.where(finish, 0, best_size).to(idt)
         hcount = torch.where(finish, 0, hcount).to(i32)
         nc = win[rank.long()]
         c_n = torch.where(finish, nc[:, 0], c_n)
@@ -397,7 +415,7 @@ def _extract_chains_plain(store, fin_log, read_id, lane_unfinished,
     c_slot[:k] = idx[:k, 1] * CANDS + idx[:k, 2]
     valid = torch.arange(C, device=dev) < k
     rows_c = store[c_lane, c_slot // CANDS, c_slot % CANDS]  # (C, NF)
-    e_op = rows_c[:, F_OP]
+    e_op = rows_c[:, F_OP].to(i32)
     c_abandon = ((e_op & OP_ABANDON_BIT) != 0) & valid
     c_read = torch.where(valid, rows_c[:, F_GAPS], -1).to(i32)
     walk_valid = valid & ~c_abandon
@@ -427,7 +445,8 @@ def _extract_chains_plain(store, fin_log, read_id, lane_unfinished,
         c_lower=rows_c[:, F_LOWER].contiguous(),
         c_lrev=rows_c[:, F_LREV].contiguous(),
         c_size=rows_c[:, F_SIZE].contiguous(),
-        c_score=rows_c[:, F_SCOREBITS].contiguous().view(torch.float32),
+        c_score=rows_c[:, F_SCOREBITS].to(i32).contiguous().view(
+            torch.float32),
         c_ops=c_ops, n_chains=n_chains,
         lane_read=read_id.to(i32), lane_unfinished=lane_unfinished,
         next_read=torch.tensor(next_read, dtype=i32, device=dev),
@@ -440,7 +459,8 @@ def _extract_chains_plain(store, fin_log, read_id, lane_unfinished,
 
 # lane-state rows of the (N_LANE_STATE, L) int32 state tensor; the order
 # is shared with csrc/common.cuh
-N_LANE_STATE = 15
+N_LANE_STATE = 16
+NFP_BIG = NF + 3  # words of a stored frame with int64 intervals
 
 
 class _PoolArgs(ctypes.Structure):
@@ -449,7 +469,8 @@ class _PoolArgs(ctypes.Structure):
     _fields_ = [
         ("rows", ctypes.c_void_p), ("less", ctypes.c_void_p),
         ("sent", ctypes.c_void_p), ("nb", ctypes.c_int),
-        ("occ_k", ctypes.c_int), ("text_len", ctypes.c_int),
+        ("occ_k", ctypes.c_int), ("big", ctypes.c_int),
+        ("text_len", ctypes.c_longlong),
         ("slut", ctypes.c_void_p), ("n", ctypes.c_void_p),
         ("split", ctypes.c_void_p), ("scale", ctypes.c_void_p),
         ("thresh", ctypes.c_void_p), ("repr", ctypes.c_void_p),
@@ -474,6 +495,7 @@ class _ExtractArgs(ctypes.Structure):
         ("fin_log", ctypes.c_void_p),
         ("R", ctypes.c_int), ("L", ctypes.c_int), ("S", ctypes.c_int),
         ("C", ctypes.c_int), ("MW", ctypes.c_int), ("track", ctypes.c_int),
+        ("big", ctypes.c_int),
         ("lane_cnt", ctypes.c_void_p), ("lane_off", ctypes.c_void_p),
         ("lane_first", ctypes.c_void_p), ("c_lane", ctypes.c_void_p),
         ("pad", ctypes.c_void_p),
@@ -501,12 +523,15 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
     L = config.lanes
     S = config.total_steps
     RB = min(S, config.read_step_cap + 1)
+    big = bool(index.big)
+    rec = CANDS * (NFP_BIG if big else NF)
     require(1 <= L <= 1024, "the refill kernel scans at most 1024 lanes")
     require(R >= 1 and slut.shape == (R * M, 6), "pool search shapes")
     for t, dt in ((n, i32), (split, i32), (cutoff_scale, torch.float32),
                   (cutoff_thresh, torch.float32), (repr_mm, torch.float32),
                   (slut, torch.float32), (index.rows, i32),
-                  (index.less, i32), (index.sentinels, i32)):
+                  (index.less, index.idx_dtype),
+                  (index.sentinels, index.idx_dtype)):
         require(t.is_cuda and t.dtype == dt and t.is_contiguous(),
                 "the pool search takes contiguous CUDA tensors")
     require(all(t.shape == (R,) for t in (split, cutoff_scale,
@@ -517,7 +542,7 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
     def empty(*shape, dtype=i32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    store = empty(L, S + 1, CANDS, NF)
+    store = empty(L, S + 1, rec)
     bmask = empty(L, S)
     consumed = empty(L, RB)
     bm_key = empty(L, RB)
@@ -527,7 +552,8 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
     args = _PoolArgs(
         index.rows.data_ptr(), index.less.data_ptr(),
         index.sentinels.data_ptr(), index.rows.shape[0], index.occ_k,
-        index.text_len, slut.data_ptr(), n.data_ptr(), split.data_ptr(),
+        int(big), index.text_len, slut.data_ptr(), n.data_ptr(),
+        split.data_ptr(),
         cutoff_scale.data_ptr(), cutoff_thresh.data_ptr(),
         repr_mm.data_ptr(), R, M, L, S, config.read_step_cap, RB,
         int(track), float(params.pgo_pge), float(params.pge),
@@ -542,7 +568,9 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
                               [P, ctypes.c_void_p])
     pool_steps = cuda_function("pool_search", "pool_steps",
                                [P, ctypes.c_int, ctypes.c_void_p])
-    LAUNCHES.add("pool_search")
+    name = "pool_search_i64" if big else "pool_search"
+    k1_name = "extend_batch_i64" if big else "extend_batch"
+    LAUNCHES.add(name)
     check(pool_init(ctypes.byref(args), stream.cuda_stream), "pool_init")
     # launch POLL_STEPS steps at a time; read the done flag of the batch
     # before last (the copy is queued behind it), so the queue never drains.
@@ -552,7 +580,8 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
     events = [torch.cuda.Event(), torch.cuda.Event()]
     batch = 0
     while True:
-        LAUNCHES.add("pool_search", 2 * POLL_STEPS)
+        LAUNCHES.add(name, 2 * POLL_STEPS)
+        LAUNCHES.add(k1_name, POLL_STEPS)  # K1 runs inline in the lane kernel
         check(pool_steps(ctypes.byref(args), POLL_STEPS, stream.cuda_stream),
               "pool_steps")
         flags[batch % 2].copy_(glob, non_blocking=True)
@@ -565,22 +594,23 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
                 break
         batch += 1
         assert batch <= S // POLL_STEPS + 2
-    return store, bmask, lane, glob, fin_log, R
+    return store, bmask, lane, glob, fin_log, R, big
 
 
-def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, config):
+def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, config):
     """K3 wrapper: compaction, ancestor walk and step fold on the card."""
     dev = store.device
     L, C = config.lanes, config.max_chains
     MW = config.max_len + 16
+    idt = torch.int64 if big else torch.int32
 
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     out = dict(
         c_read=empty(C), c_slot=empty(C),
-        c_abandon=empty(C, dtype=torch.bool), c_lower=empty(C),
-        c_lrev=empty(C), c_size=empty(C),
+        c_abandon=empty(C, dtype=torch.bool), c_lower=empty(C, dtype=idt),
+        c_lrev=empty(C, dtype=idt), c_size=empty(C, dtype=idt),
         c_score=empty(C, dtype=torch.float32), c_ops=empty(C, MW),
         n_chains=empty(), lane_read=empty(L),
         lane_unfinished=empty(L, dtype=torch.bool), next_read=empty(),
@@ -591,7 +621,7 @@ def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, config):
         store.data_ptr(), bmask.data_ptr(), lane.data_ptr(),
         glob.data_ptr(), fin_log.data_ptr() if fin_log is not None else None,
         R, L, config.total_steps, C, MW,
-        int(fin_log is not None),
+        int(fin_log is not None), int(big),
         *[scratch[k:].data_ptr() for k in (0, L, 2 * L, 3 * L, 3 * L + C)],
         *[out[k].data_ptr() for k in (
             "c_read", "c_slot", "c_abandon", "c_lower", "c_lrev", "c_size",
@@ -601,23 +631,54 @@ def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, config):
     fn = cuda_function("extract_chains", "extract_chains",
                        [ctypes.POINTER(_ExtractArgs), ctypes.c_void_p])
     # count, compaction scan, emit, ancestor walk, fold init (+ step fold)
-    LAUNCHES.add("extract_chains", 5 + int(fin_log is not None))
+    LAUNCHES.add("extract_chains_i64" if big else "extract_chains",
+                 5 + int(fin_log is not None))
     check(fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
           "extract_chains")
     out["read_steps"] = out["read_steps"][:R]
     return PoolResult(**out)
 
 
+def _dense_slut(index: DeviceFmIndex, dense, n, split, config: PoolConfig,
+                bid_steps=None):
+    """The dense-input entry's prologue (search_pool2.py:159-171 of the JAX
+    package): Bi-D composite from the pattern and penalty rows (K7), then
+    the (R*M, 6) f32 rows [score4 | code | Bi-D]."""
+    pattern_rank, pattern_code, score_lut, pen = dense
+    R, M = pattern_rank.shape
+    require(M == config.max_len and score_lut.shape == (R, M, 4)
+            and pattern_code.shape == pen.shape == (R, M),
+            "dense pool search inputs must be (R, max_len)")
+    bid = compute_bi_d(index, pattern_rank, pen, n, split,
+                       compute_forward_part=config.compute_forward_part,
+                       steps=bid_steps)
+    return torch.cat(
+        [score_lut.reshape(R * M, 4),
+         pattern_code.reshape(R * M, 1).to(torch.float32),
+         bid.reshape(R * M, 1)],
+        dim=1,
+    )
+
+
 def k_mismatch_search_pool2(index: DeviceFmIndex, n, split, cutoff_scale,
                             cutoff_thresh, repr_mm, params: SearchParams,
-                            config: PoolConfig, slut) -> PoolResult:
+                            config: PoolConfig, slut=None, dense=None,
+                            bid_steps=None) -> PoolResult:
     """One pool invocation over R reads: K2 then K3.
 
-    Inputs are the unpacked prep arrays (ops/engine.py `unpack_prep`):
-    n, split (R,) i32; cutoff_scale, cutoff_thresh, repr_mm (R,) f32; slut
-    (R*M, 6) f32 rows [score4 | code | Bi-D] with M = config.max_len.
-    CPU tensors take the plain version, CUDA tensors the kernels."""
+    Inputs are the unpacked prep arrays (ops/engine.py): n, split (R,) i32;
+    cutoff_scale, cutoff_thresh, repr_mm (R,) f32; and either `slut`, the
+    (R*M, 6) f32 rows [score4 | code | Bi-D] with M = config.max_len, or
+    `dense` = (pattern_rank (R, M) i32, pattern_code (R, M) i32, score_lut
+    (R, M, 4) f32, pen (R, M) f32), from which the rows are made on the
+    device (K7); `bid_steps` then carries the host-known longest parts
+    (ops/bi_d.py).  CPU tensors take the plain versions, CUDA tensors the
+    kernels."""
     _check_config(config, n.shape[0])
+    require((slut is None) != (dense is None),
+            "pass either the packed LUT/Bi-D rows or the dense inputs")
+    if dense is not None:
+        slut = _dense_slut(index, dense, n, split, config, bid_steps)
     args = (index, n, split, cutoff_scale, cutoff_thresh, repr_mm, params,
             config, slut)
     if not n.is_cuda:

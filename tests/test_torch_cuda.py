@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card, at small shapes that reach the edge cases (abandon markers, chain
-log overflow, an exhausted step budget, the RLE and raw Bi-D blobs).
+log overflow, an exhausted step budget, the RLE and raw Bi-D blobs), with
+int32 intervals and with the int64 intervals of big mode.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  On the card:
 
@@ -49,15 +50,17 @@ def _equal(got, want, what):
         assert torch.equal(g, w), (what, k, int((g != w).sum()))
 
 
-def _prepped(fmd, cuda, cfg_kw, seed, rle=True, monkeypatch=None):
+def _prepped(fmd, cuda, cfg_kw, seed, rle=True, monkeypatch=None, big=False,
+             qual=40):
     from mapad_tpu_torch.ops.engine import DeviceSearchEngine
     from mapad_tpu_torch.ops.search_pool import PoolConfig
 
     if not rle:
         monkeypatch.setenv("MAPAD_BID_RLE", "0")
     eng = DeviceSearchEngine(fmd, adna_params("mapad_tpu_torch"),
-                             pool_config=PoolConfig(**cfg_kw), device=cuda)
-    recs = records("mapad_tpu_torch", bench_reads(seed=seed))
+                             pool_config=PoolConfig(**cfg_kw), device=cuda,
+                             big=big)
+    recs = records("mapad_tpu_torch", bench_reads(seed=seed), qual)
     cfg, prep, _ = eng._prep_block(recs, 48, eng.pool_config)
     return eng, cfg, prep
 
@@ -71,26 +74,100 @@ def test_unpack_prep_kernel(fmd, cuda, rle, monkeypatch):
                                1, rle, monkeypatch)
     assert prep["rle"] == rle
     blob = torch.from_numpy(prep["blob"]).to(cuda)
-    tab, off = eng._device_lut()
+    tab, _pen_tab, off = eng._device_lut()
     R, M = prep["L"], prep["max_len"]
     got = teng._unpack_prep_lut(blob, tab, off, R, M, _DEV_LUT_Q, rle)
     want = teng._unpack_prep_lut_plain(blob, tab, off, R, M, _DEV_LUT_Q, rle)
     _equal(got, want, "unpack_prep")
 
 
-def test_extend_batch_kernel(fmd, cuda):
+def test_unpack_prep_full_kernel(fmd, cuda):
+    """K6: the small blob of big mode -> the nine dense inputs."""
+    from mapad_tpu_torch.ops import engine as teng
+    from mapad_tpu_torch.ops.prep import _DEV_LUT_Q
+
+    eng, _cfg, prep = _prepped(fmd, cuda, dict(lanes=8, total_steps=256), 1,
+                               big=True)
+    assert prep["dev_full"]
+    blob = torch.from_numpy(prep["blob"]).to(cuda)
+    tab, pen_tab, off = eng._device_lut()
+    R, M = prep["L"], prep["max_len"]
+    got = teng._unpack_prep_full(blob, tab, pen_tab, off, R, M, _DEV_LUT_Q)
+    want = teng._unpack_prep_full_plain(blob, tab, pen_tab, off, R, M,
+                                        _DEV_LUT_Q)
+    _equal(got, want, "unpack_prep_full")
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_extend_batch_kernel(fmd, cuda, big):
     from mapad_tpu_torch.ops import fm
 
-    idx = fm.DeviceFmIndex.from_host(fmd, device=cuda)
+    idx = fm.DeviceFmIndex.from_host(fmd, big=big, device=cuda)
+    idt = np.int64 if big else np.int32
     rng = np.random.default_rng(3)
     n = idx.text_len
-    lower = rng.integers(0, n, size=300).astype(np.int32)
-    size = np.minimum(rng.integers(0, 50, size=300), n - lower).astype(np.int32)
+    lower = rng.integers(0, n, size=300).astype(idt)
+    size = np.minimum(rng.integers(0, 50, size=300), n - lower).astype(idt)
     lower[:5] = 0
     size[:3] = n
-    lrev = rng.integers(0, n, size=300).astype(np.int32)
+    lrev = rng.integers(0, n, size=300).astype(idt)
     t = [torch.from_numpy(a).to(cuda) for a in (lower, lrev, size)]
     _equal(fm.extend_batch(idx, *t), fm.extend_batch_plain(idx, *t), "K1")
+    # intervals no read holds: garbage wraps and clamps as in the plain
+    # version
+    info = np.iinfo(idt)
+    g = [torch.from_numpy(rng.integers(info.min, info.max, size=64,
+                                       dtype=idt)).to(cuda)
+         for _ in range(3)]
+    _equal(fm.extend_batch(idx, *g), fm.extend_batch_plain(idx, *g),
+           "K1 garbage")
+    if big:
+        # counts above 2^32: nonzero checkpoint high words
+        rows = idx.rows.clone()
+        cp = ((rows[:, 0:6].long() & 0xFFFFFFFF)
+              | (rows[:, 6:12].long() << 32)) + ((3 << 32) + 12345)
+        rows[:, 0:6] = (cp & 0xFFFFFFFF).to(torch.int32)
+        rows[:, 6:12] = (cp >> 32).to(torch.int32)
+        shifted = idx._replace(rows=rows, less=idx.less + ((5 << 32) + 999))
+        got = fm.extend_batch(shifted, *t)
+        _equal(got, fm.extend_batch_plain(shifted, *t), "K1 above 2^32")
+        assert int(got[0].min()) > 2**32
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("forward_part", [False, True])
+@pytest.mark.parametrize("longest", [100, 37])
+def test_bi_d_kernel(fmd, cuda, big, forward_part, longest):
+    """K7 against its plain version: both index widths, with and without
+    the forward part, and a block whose longest read is shorter than the
+    pattern axis (the padding columns)."""
+    from mapad_tpu_torch.ops import bi_d, fm
+
+    idx = fm.DeviceFmIndex.from_host(fmd, big=big, device=cuda)
+    ref = bench_ref()
+    rng = np.random.default_rng(longest)
+    L, M = 70, 112
+    n = rng.integers(0, longest + 1, size=L).astype(np.int32)
+    n[0], n[1] = 0, longest
+    split = (n * rng.uniform(0.3, 1, size=L)).astype(np.int32)
+    split[1], split[2] = n[1], 0
+    rank = np.zeros((L, M), np.int32)
+    pen = np.zeros((L, M), np.float32)
+    for i in range(L):
+        st = int(rng.integers(0, len(ref) - M))
+        rank[i, : n[i]] = [b"ACGT".index(c) + 1
+                           for c in ref[st : st + n[i]]]
+        for _ in range(3):
+            if n[i]:
+                rank[i, rng.integers(0, n[i])] = rng.integers(0, 5)
+        pen[i, : n[i]] = -rng.uniform(0.1, 5, size=n[i]).astype(np.float32)
+    t = [torch.from_numpy(a).to(cuda) for a in (rank, pen, n, split)]
+    steps = (int(split.max()), int((n - split).max()))
+    for st in (steps, None):
+        got = bi_d.compute_bi_d(idx, *t, forward_part, st)
+        want = bi_d.compute_bi_d_plain(idx, *t, forward_part, st)
+        _equal((got,), (want,), ("bi_d", st))
+    assert bool((got != 0).any())
 
 
 CASES = {
@@ -109,15 +186,23 @@ CASES = {
 
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("track", [True, False])
-def test_pool_search_and_pack_kernels(fmd, cuda, case, track):
+@pytest.mark.parametrize("big", [False, True])
+def test_pool_search_and_pack_kernels(fmd, cuda, case, track, big):
+    """K2 + K3 + K5; with `big` the int64 forms behind K6 and K7 (the small
+    blob unpacked and the Bi-D computed on the card)."""
     from mapad_tpu_torch.ops import engine as teng
     from mapad_tpu_torch.ops import search_pool2 as sp2
 
-    eng, cfg, prep = _prepped(fmd, cuda, CASES[case], seed=len(case))
+    eng, cfg, prep = _prepped(fmd, cuda, CASES[case], seed=len(case),
+                              big=big)
     cfg = cfg._replace(track_read_steps=track)
     with torch.cuda.device(cuda):
-        parts = eng._upload(prep)
-        args = (eng.device_index, *parts[:5], eng._params(), cfg, parts[5])
+        consts, kw = eng._upload(prep)
+        slut = kw["slut"] if "slut" in kw else sp2._dense_slut(
+            eng.device_index, kw["dense"], consts[0], consts[1], cfg,
+            kw["bid_steps"])
+        assert ("dense" in kw) == big
+        args = (eng.device_index, *consts, eng._params(), cfg, slut)
         got = sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*args), cfg)
         want = sp2._extract_chains_plain(*sp2._pool_loop_plain(*args), cfg)
         torch.cuda.synchronize()
@@ -126,32 +211,43 @@ def test_pool_search_and_pack_kernels(fmd, cuda, case, track):
            "pack_result")
 
 
-def test_engine_on_the_card_equals_plain(fmd, cuda):
-    """The whole device path (upload, K4, K2+K3, K5, the pinned copy on
-    the side stream) against the same engine on the CPU's plain versions,
-    over several streamed blocks."""
+@pytest.mark.parametrize("big,qual", [(False, 40), (True, 40), (True, 100)])
+def test_engine_on_the_card_equals_plain(fmd, cuda, big, qual, monkeypatch):
+    """The whole device path (upload, K4 or K6 + K7, K2+K3, K5, the pinned
+    copy on the side stream) against the same engine on the CPU's plain
+    versions, over several streamed blocks; with `big`, the deep tier runs
+    (a starved per-read cap), and past the LUT's quality ceiling the dense
+    arrays go up as they are."""
     from concurrent.futures import Future
 
     from mapad_tpu_torch.ops.engine import DeviceSearchEngine
     from mapad_tpu_torch.ops.search_pool import PoolConfig
     from torch_port_helpers import packed_equal
 
-    cfg = PoolConfig(lanes=16, total_steps=1024, read_step_cap=256,
-                     max_chains=256)
-    reads = records("mapad_tpu_torch", bench_reads(seed=4, n_random=60))
+    for name in ("MAPAD_DEEP_TIER", "MAPAD_HOST_BID", "MAPAD_RETRY_TIER"):
+        monkeypatch.delenv(name, raising=False)
+    if big:
+        monkeypatch.setenv("MAPAD_DEEP_NOHIT_HOST", "0")
+    cfg = PoolConfig(lanes=16, total_steps=1024,
+                     read_step_cap=48 if big else 256, max_chains=256)
+    reads = records("mapad_tpu_torch", bench_reads(seed=4, n_random=60),
+                    qual)
     outs = []
     for dev in (cuda, "cpu"):
         eng = DeviceSearchEngine(fmd, adna_params("mapad_tpu_torch"),
                                  pool_config=cfg, packed_hits=True,
-                                 device=dev)
+                                 device=dev, big=big)
         eng.block_reads = 32
         res = eng.search_chunk(reads, lazy_fallback=True)
         outs.append(({i for i, r in enumerate(res) if isinstance(r, Future)},
                      [(r.result() if isinstance(r, Future) else r)[0]
-                      for r in res], eng._stats["esc_why"]))
-    (esc_g, hits_g, why_g), (esc_c, hits_c, why_c) = outs
-    assert esc_g == esc_c and why_g == why_c
+                      for r in res], eng._stats["esc_why"],
+                     eng._stats.get("deep_retried", 0)))
+    (esc_g, hits_g, why_g, deep_g), (esc_c, hits_c, why_c, deep_c) = outs
+    assert esc_g == esc_c and why_g == why_c and deep_g == deep_c
     assert all(packed_equal(a, b) for a, b in zip(hits_g, hits_c))
+    if big:
+        assert deep_g > 0
 
 
 def test_profile_trace_shows_the_kernels(cuda, tmp_path, monkeypatch):

@@ -99,6 +99,50 @@ def test_port_streaming_map_passes_goldens(tmp_path):
     assert _header_without_cl(got[0]) == _header_without_cl(want[0])
 
 
+def test_port_big_mode_streaming_map_equals_jax(tmp_path, monkeypatch):
+    """big=True through `pipeline.run` with big mode's defaults (Bi-D on
+    the device, deep tier on, int64 intervals through the native BAM
+    conversion): the goldens pass and the BAM equals the JAX package's
+    big-mode BAM record for record."""
+    from mapad_tpu.index.runtime import load_index as j_load_index
+    from mapad_tpu.ops.engine import DeviceSearchEngine as JEngine
+    from mapad_tpu.ops.search_pool import PoolConfig as JPoolConfig
+
+    for name in ("MAPAD_DEEP_TIER", "MAPAD_HOST_BID", "MAPAD_RETRY_TIER"):
+        monkeypatch.delenv(name, raising=False)
+    genome, input_bam, jparams = prepare(tmp_path)
+    params = _port_params(jparams)
+    # a per-read cap of 48: some reads abandon and take the deep tier
+    shape = dict(max_len=64, lanes=8, total_steps=8192, read_step_cap=48,
+                 max_chains=256)
+    index = load_index(str(genome))
+    engine = DeviceSearchEngine(index.fmd, params, big=True,
+                                pool_config=PoolConfig(**shape),
+                                packed_hits=True, device="cpu")
+    assert engine.device_index.big and engine.deep_tier_enabled()
+    engine.block_reads = 8
+    out = tmp_path / "port_big.bam"
+    t_run(str(input_bam), str(genome), str(out), False, params, None,
+          engine=engine, cmdline="mapad map", index=index)
+    _check_results(out)
+
+    jindex = j_load_index(str(genome))
+    jengine = JEngine(jindex.fmd, jparams, mode="pool", big=True,
+                      pool_config=JPoolConfig(compute_forward_part=False,
+                                              **shape),
+                      packed_hits=True)
+    jengine.block_reads = 8
+    ref_out = tmp_path / "jax_big.bam"
+    j_run(str(input_bam), str(genome), str(ref_out), False, jparams, None,
+          engine=jengine, cmdline="mapad map", index=jindex)
+    got, want = _records(out), _records(ref_out)
+    assert got[1] == want[1]
+    assert _header_without_cl(got[0]) == _header_without_cl(want[0])
+    for name in ("escalated", "oracle", "deep_retried", "nohit_host"):
+        assert engine._stats.get(name, 0) == jengine._stats.get(name, 0), name
+    assert engine._stats["esc_why"] == jengine._stats["esc_why"]
+
+
 def test_port_cli_equals_jax_cli(tmp_path, monkeypatch):
     genome, input_bam, _ = prepare(tmp_path)
     flags = ["-r", str(input_bam), "-g", str(genome), "-p", "0.03", "-l",

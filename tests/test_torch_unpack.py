@@ -1,5 +1,7 @@
 """Kernel K4's plain version (`_unpack_prep_lut_plain`) against the JAX
-package's `_unpack_prep_lut`, bit for bit, with and without the Bi-D RLE."""
+package's `_unpack_prep_lut`, bit for bit, with and without the Bi-D RLE,
+and kernel K6's (`_unpack_prep_full_plain`) against `_unpack_prep_full`,
+all nine outputs."""
 
 import numpy as np
 import pytest
@@ -76,3 +78,56 @@ def test_unpack_prep_full_blob_is_a_view():
     got = teng._unpack_prep(torch.from_numpy(blob), R, M)
     for w, g in zip(want, got):
         assert_bits_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("seed,m", [(21, 64), (22, 34), (23, 16)])
+def test_unpack_prep_full_plain_equals_jax(seed, m):
+    """K6: consts + (class, qual) cells -> the nine dense inputs; reads of
+    length 0, odd lengths, non-ACGT bytes, and a pattern axis that is not a
+    multiple of three cells."""
+    rng = np.random.default_rng(seed)
+    p = adna_params("mapad_tpu_torch")
+    tab, pen_tab, off = prep._build_all_lut(p.difference_model, p, M)
+    n = rng.integers(1, m + 1, size=R).astype(np.int32)
+    n[3] = 0
+    n[4] = m
+    n[5] = 7
+    seqs = np.zeros((R, m), np.uint8)
+    quals = np.zeros((R, m), np.uint8)
+    for i, ln in enumerate(n):
+        seqs[i, :ln] = rng.choice(np.frombuffer(b"ACGTNacgtRY", np.uint8),
+                                  size=ln)
+        quals[i, :ln] = rng.integers(0, prep._DEV_LUT_Q, size=ln)
+    consts = [n, (n // 2).astype(np.int32),
+              rng.uniform(0.5, 2, R).astype(np.float32),
+              rng.uniform(-9, -1, R).astype(np.float32),
+              rng.uniform(-3, -1, R).astype(np.float32)]
+    blob = np.concatenate(
+        [c.view(np.int32) for c in consts] + [prep._pack_cq10(seqs, quals)]
+    ).astype(np.int32)
+    assert blob.size == 5 * R + prep._cq_words(R * m)
+    want = jeng._unpack_prep_full(
+        jnp.asarray(blob), jnp.asarray(tab), jnp.asarray(pen_tab),
+        jnp.asarray(off), R, m, prep._DEV_LUT_Q,
+    )
+    got = teng._unpack_prep_full(
+        torch.from_numpy(blob), torch.from_numpy(tab),
+        torch.from_numpy(pen_tab), torch.from_numpy(off), R, m,
+        prep._DEV_LUT_Q,
+    )
+    names = ("rank", "code", "n", "score_lut", "pen", "split", "scale",
+             "thresh", "repr_mm")
+    assert len(want) == len(got) == 9
+    for name, w, g in zip(names, want, got):
+        assert_bits_equal(np.asarray(w), g.numpy(), name)
+    assert (got[0] == 0).any() and (got[4] != 0).any()
+
+
+def test_all_length_tables_equal_jax():
+    """The one-time tables K4 and K6 gather from: score rows, penalty
+    elements and per-length offsets, equal to the JAX package's."""
+    jp, tp = adna_params("mapad_tpu"), adna_params("mapad_tpu_torch")
+    want = jeng._build_all_lut(jp.difference_model, jp, 24)
+    got = prep._build_all_lut(tp.difference_model, tp, 24)
+    for name, w, g in zip(("tab", "pen_tab", "off"), want, got):
+        assert_bits_equal(w, g, name)

@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
-the card at its path's shapes, then drives two paths:
+the card at its path's shapes, then drives five paths:
 
   path 1 (small genome, int32): generate a 4 Mbp repeat-rich genome and
   16,384 aDNA-damaged reads from a seed (bench.py's generators, copied) ->
@@ -18,10 +18,35 @@ the card at its path's shapes, then drives two paths:
   big-mode defaults (Bi-D on the card, 4096-read blocks, deep tier on, full
   width; kernels K6, K7 and the int64 forms of K1, K2, K3, K5).
 
-Each path's reads are mapped again with `map --engine native` (the exact
-host C++ search); the two BAMs must be equal record for record except XD (a
-timing).  The launch counts are set to 0 just before each path is driven
-and read just after.
+  path 3 (the default engine): `map` with no `--engine` on path 1's
+  workload: the hybrid engine, the device stream on the head of each block
+  and the host C++ searcher on its tail (timed once more with two native
+  threads);
+
+  path 4 (store generations, kernel K8): `map --engine device` on path 1's
+  workload with MAPAD_KGENS=4 and MAPAD_KGENS_MIN_LIVE=1; then one 4096-read
+  block of path 2's workload in big mode with the deep tier narrowed
+  (MAPAD_DEEP_LANES=128: 32,768 steps, cap 12,288, 4 generations;
+  MAPAD_RETRY_MIN=32 so that one block's escalatees fill a deep block), once
+  more with the batched no-hit probe (MAPAD_NOHIT_PROBE=1), and once with
+  store generations on a primary config starved to 4,096 steps;
+
+  path 5 (the bidirectional search): 2,048 reads of path 1's workload under
+  a center-start model (VindijaPwm) through `DeviceSearchEngine`, with
+  int32 and with int64 intervals.
+
+Before the paths, K8 runs against its plain version at full width with a
+step budget just above the per-read cap, so that the check's reads force
+store boundaries whose moved window overlaps itself (uncapped and capped
+spill, both interval widths), and at a shape where it does not, as on the
+main path; the K8 launches of every run are counted and held against the
+boundaries it fired.  Then the bidirectional K2 against its plain version.
+
+Paths 1 and 2 map their reads again with `map --engine native` (the exact
+host C++ search); the BAMs of paths 1, 3 and 4 equal path 1's native BAM
+and path 2's its own, record for record except XD (a timing); the blocks of
+paths 4 and 5 equal the native engine's hits.  The launch counts are set to
+0 just before each path is driven and read just after.
 
 Prints the card's name and power limit, each kernel's time beside its plain
 version's and its bound, reads/s, stage seconds, escalations by cause, the
@@ -51,6 +76,23 @@ CHECK_READS = 1024
 GENOME2_SIZE = 64_000_000
 BLOCK2_READS = 4096  # big mode's invocation size
 CHECK2_READS = 512
+# the K8 check: S = CAP + this, so 1,024 reads (about 3,400 steps in one
+# generation) force two store boundaries or more; and its capped spill
+K8_MARGIN = 128
+K8_SPILL = 64
+# and a (CAP, S) whose window does not overlap itself when it moves
+K8_FLAT_CAP = 256
+K8_FLAT_READS = 2048
+K8_READS = 1024
+BIDIR_READS = 512   # the bidirectional K2 check
+PATH5_READS = 2048
+PATH4_BIG_STEPS = 4096  # path 4, last run: a primary store of 4,096 steps
+# path 4: the narrow deep config (lanes, steps, per-read cap, generations)
+DEEP_LANES = 128
+DEEP_SHAPE = (128, 32768, 12288, 4)
+# one block escalates about 100 reads with hits: fewer than the least size
+# of a tier block (a quarter of the lanes), so that is lowered for path 4
+DEEP_MIN = "32"
 MAP_FLAGS = ["-p", "0.03", "-l", "single_stranded", "-f", "0.6", "-t",
              "0.55", "-d", "0.01", "-s", "1.0", "-i", "0.001"]
 
@@ -162,6 +204,11 @@ class _StatsTap(logging.Handler):
             self.stats = record.search_stats
 
 
+def median(values):
+    v = sorted(values)
+    return (v[(len(v) - 1) // 2] + v[len(v) // 2]) / 2
+
+
 def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
@@ -251,15 +298,9 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
     L = cfg.lanes
     n_ext = min(int(res.n_chains), cfg.max_chains)
     walked = int((res.c_ops[:n_ext] != 0).sum())
-    # K2 must read the index rows, the LUT/Bi-D rows and the consts once,
-    # write the frame store blocks (9 frames of 8 words, 11 with int64
-    # intervals), masks and finish log of its steps, and in every step read
-    # each lane's ring of pop keys (4 B per ring slot) to find the best entry
     frame_words = 11 if big else 8
-    RB = min(cfg.total_steps, cfg.read_step_cap + 1)
-    ring_bytes = steps * L * 4 * RB
-    k2_bytes = (nbytes(idx_d.rows, *consts, slut)
-                + steps * L * (9 * frame_words + 1 + 1) * 4 + ring_bytes)
+    k2_bytes, ring_bytes = pool_search_bytes(idx_d, consts, slut, cfg, steps,
+                                             big)
     # K3 reads the masks, finish log and the frame records it walks, and
     # writes the PoolResult
     k3_bytes = steps * L * 8 + walked * frame_words * 4 + nbytes(*res)
@@ -300,6 +341,237 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
         f"{rows['pack_result' + sfx]['ms']:.4f} ms (plain "
         f"{rows['pack_result' + sfx]['plain_ms']:.4f} ms)")
     return rows
+
+
+def pool_search_bytes(idx_d, consts, slut, cfg, steps, big):
+    """Bytes K2 must move for `steps` steps -> (all, the ring scans' share).
+    It reads the index rows, the LUT/Bi-D rows and the consts once, writes
+    the frame store blocks (9 frames of 8 words, 11 with int64 intervals),
+    masks and finish log of its steps, and in every step reads each lane's
+    ring of pop keys (4 B per ring slot) to find the best entry."""
+    frame_words = 11 if big else 8
+    L = cfg.lanes
+    RB = min(cfg.total_steps, cfg.read_step_cap + 1)
+    ring_bytes = steps * L * 4 * RB
+    return (nbytes(idx_d.rows, *consts, slut)
+            + steps * L * (9 * frame_words + 1 + 1) * 4 + ring_bytes,
+            ring_bytes)
+
+
+def compact_bytes(cfg, big):
+    """Bytes one K8 boundary must move: the window of the last CAP steps
+    read once and written once, both rings read and written, lane_start."""
+    L, CAP = cfg.lanes, cfg.read_step_cap
+    RB = min(cfg.total_steps, CAP + 1)
+    block = 9 * (11 if big else 8) * 4
+    return 2 * L * CAP * block + 4 * L * RB * 4 + 2 * L * 4
+
+
+def compact_launches(cfg):
+    """The `__global__` launches one K8 boundary should make: the window
+    moves in chunks of delta = S - CAP blocks, then one launch for rings
+    and counters.  The counts taken in the run are held against it."""
+    delta = cfg.total_steps - cfg.read_step_cap
+    return -(-cfg.read_step_cap // delta) + 1
+
+
+def launches_per_boundary(launches, cfgs, what):
+    """The K8 launches counted over a run, held against what its boundaries
+    (`cfgs`: the config of each) should make -> launches of one boundary,
+    by config shape."""
+    want = sum(compact_launches(c) for c in cfgs)
+    if not cfgs or launches != want:
+        raise AssertionError(f"{what}: {launches} K8 launches counted over "
+                             f"{len(cfgs)} boundaries, {want} expected")
+    per = {(c.total_steps, c.read_step_cap): compact_launches(c)
+           for c in cfgs}
+    return per.popitem()[1] if len(per) == 1 else per
+
+
+def compact_check(torch, sp2, idx_d, params, cfg, big, main):
+    """K8 at full width, with K3 at the boundaries and K2 going on behind
+    them, against the plain generations loop.  On the first K8_READS reads
+    with a step budget of CAP + K8_MARGIN, so the reads force store
+    boundaries and the moved window overlaps itself (many launches a
+    boundary), once with an uncapped and once with a capped spill; then on
+    K8_FLAT_READS reads with a per-read cap of K8_FLAT_CAP and a store of
+    more than twice that, where the window does not overlap itself (one
+    launch for it, the branch the main path's shapes take); every
+    PoolResult field bit for bit.  `main`: (consts, slut, config) of a
+    whole block at a shape of the main path, run on the card alone to time
+    a boundary there.  Returns the kernel-table row."""
+    from mapad_tpu_torch._build import LAUNCHES
+
+    sfx = "_i64" if big else ""
+    k8 = "pool_compact" + sfx
+    gens = dict(generations=4, min_live=1)
+    m_consts, m_slut, m_cfg = main
+
+    def head(r):
+        return (tuple(p[:r].contiguous() for p in m_consts),
+                m_slut[: r * cfg.max_len].contiguous())
+
+    tight = cfg._replace(total_steps=cfg.read_step_cap + K8_MARGIN, **gens)
+    # the no-overlap shape: a store three quarters of the steps these reads
+    # take in one generation (so a boundary fires), at least twice the cap
+    flat = cfg._replace(read_step_cap=K8_FLAT_CAP, spill_steps=0)
+    f_consts, f_slut = head(K8_FLAT_READS)
+    once = int(sp2._extract_chains_cuda(*sp2._pool_loop_cuda(
+        idx_d, *f_consts, params, flat, f_slut), flat).steps)
+    flat = flat._replace(total_steps=max(2 * K8_FLAT_CAP, once * 3 // 4),
+                         generations=2, min_live=1)
+    err, ms, plain_s, fired, per = 0.0, [], [], [], []
+    for c, (consts, slut) in (
+            (tight._replace(spill_steps=0), head(K8_READS)),
+            (tight._replace(spill_steps=K8_SPILL), head(K8_READS)),
+            (flat, (f_consts, f_slut))):
+        args = (idx_d, *consts, params, c, slut)
+        ev, plog = [], []
+        LAUNCHES.reset()
+        state = sp2._pool_loop_cuda(*args, boundary_log=ev)
+        counted = LAUNCHES.get(k8)
+        res = sp2._extract_chains_cuda(*state, c)
+        torch.cuda.synchronize()
+        pres = sp2._extract_chains_plain(
+            *sp2._pool_loop_plain(*args, boundary_log=plog), c)
+        what = (f"{k8} (S={c.total_steps} CAP={c.read_step_cap} spill "
+                f"{c.spill_steps})")
+        err = max(err, compare(torch, tuple(res), tuple(pres), what))
+        if not ev or len(ev) != len(plog):
+            raise AssertionError(f"{what}: {len(ev)} boundaries on the card, "
+                                 f"{len(plog)} in the plain version"
+                                 + (f" ({once} steps in one generation)"
+                                    if c is flat else ""))
+        per.append(launches_per_boundary(counted, [c] * len(ev), what))
+        fired.append(len(ev))
+        times = [a.elapsed_time(b) for a, b in ev]
+        if c is not flat:
+            ms += times
+            plain_s += plog
+        log(f"K8 {what} L={c.lanes} on {consts[0].shape[0]} reads: "
+            f"bit-exact over {len(ev)} boundaries of {per[-1]} launches "
+            f"(counted), {int(res.steps)} steps, {int(res.n_chains)} "
+            f"chains, {int(res.lane_unfinished.sum())} lanes unfinished; ms "
+            f"a boundary {', '.join(f'{x:.4f}' for x in times)}")
+    if fired[0] < 2:
+        raise AssertionError(f"{k8}: the uncapped run fired {fired[0]} "
+                             f"boundaries, fewer than 2")
+    row = dict(
+        route="cuda", source="mapad_tpu_torch/csrc/pool_compact.cu",
+        replaces="mapad_tpu/ops/search_pool2.py:812", max_abs_err=err,
+        # medians: the first boundary of a process also loads the library
+        ms=median(ms), plain_ms=median(plain_s) * 1e3,
+        bound_ms=bound_ms(compact_bytes(tight, big)), bound_by="bytes",
+        library_ms=None, boundaries=sum(fired),
+        launches_per_boundary=per[0],
+    )
+    log(f"K8 {k8}: {row['ms']:.4f} ms a boundary at S={tight.total_steps} "
+        f"CAP={tight.read_step_cap} (median of {len(ms)}) in "
+        f"{row['launches_per_boundary']} launches (plain "
+        f"{row['plain_ms']:.1f} ms, bound {row['bound_ms']:.4f} ms)")
+    m_cfg = m_cfg._replace(spill_steps=0, **gens)
+    ev = []
+    LAUNCHES.reset()
+    state = sp2._pool_loop_cuda(idx_d, *m_consts, params, m_cfg, m_slut,
+                                boundary_log=ev)
+    counted = LAUNCHES.get(k8)
+    steps = int(sp2._extract_chains_cuda(*state, m_cfg).steps)
+    torch.cuda.synchronize()
+    if not ev:
+        raise AssertionError(f"{k8}: no boundary at "
+                             f"S={m_cfg.total_steps}")
+    row.update(
+        main_shape=f"L={m_cfg.lanes} S={m_cfg.total_steps} "
+                   f"CAP={m_cfg.read_step_cap}",
+        main_ms=median([a.elapsed_time(b) for a, b in ev]),
+        main_bound_ms=bound_ms(compact_bytes(m_cfg, big)),
+        main_launches_per_boundary=launches_per_boundary(
+            counted, [m_cfg] * len(ev), f"{k8} at S={m_cfg.total_steps}"),
+    )
+    log(f"K8 {k8} at {row['main_shape']} on "
+        f"{m_consts[0].shape[0]} reads (card only): {len(ev)} "
+        f"boundaries, {steps} steps, {row['main_ms']:.4f} ms a boundary "
+        f"in {row['main_launches_per_boundary']} launches (counted; "
+        f"bound {row['main_bound_ms']:.4f} ms)")
+    return row
+
+
+class _BoundaryTap:
+    """While it is entered, every K8 call of the engine's pool loop leaves
+    its config and its pair of CUDA events in `events` (from the loop's own
+    `boundary_log`)."""
+
+    def __init__(self, sp2):
+        self.sp2, self.events = sp2, []
+
+    def __enter__(self):
+        self.loop = loop = self.sp2._pool_loop_cuda
+        self.sp2._pool_loop_cuda = self._run
+        return self
+
+    def _run(self, *args):
+        ev = []
+        out = self.loop(*args, boundary_log=ev)
+        self.events += [(args[7], pair) for pair in ev]  # args[7]: config
+        return out
+
+    def __exit__(self, *exc):
+        self.sp2._pool_loop_cuda = self.loop
+
+    def take(self):
+        """The boundaries since the last take."""
+        out, self.events[:] = list(self.events), []
+        return out
+
+
+def bidir_check(torch, sp2, engine, reads, big):
+    """K2 in its bidirectional form (a center-start model, `engine`'s)
+    against its plain version at full width.  Returns the kernel-table
+    row."""
+    from mapad_tpu_torch.map.record import Record
+
+    sfx = "_i64" if big else ""
+    recs = [Record(sequence=s, base_qualities=q)
+            for s, q in reads[:BIDIR_READS]]
+    cfg, prep, _t0 = engine._prep_block(recs, BIDIR_READS,
+                                        engine.pool_config)
+    assert not cfg.backward_only and bool(engine.device_index.big) == big
+    with torch.cuda.device(engine.device):
+        consts, kw = engine._upload(prep)
+        slut = kw["slut"] if "slut" in kw else sp2._dense_slut(
+            engine.device_index, kw["dense"], consts[0], consts[1], cfg,
+            kw["bid_steps"])
+    args = (engine.device_index, *consts, engine._params(), cfg, slut)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = sp2._pool_loop_cuda(*args)
+    torch.cuda.synchronize()
+    k2_ms = (time.perf_counter() - t) * 1e3
+    res = sp2._extract_chains_cuda(*state, cfg)
+    t = time.perf_counter()
+    pstate = sp2._pool_loop_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    pres = sp2._extract_chains_plain(*pstate, cfg)
+    err = compare(torch, tuple(res), tuple(pres), "pool_search_bidir" + sfx)
+    steps = int(res.steps)
+    n_ext = min(int(res.n_chains), cfg.max_chains)
+    hits = int((~res.c_abandon[:n_ext]).sum())
+    if not hits:
+        raise AssertionError("the bidirectional check found no hit")
+    k2_bytes, _ring = pool_search_bytes(engine.device_index, consts, slut,
+                                        cfg, steps, big)
+    log(f"K2 pool_search_bidir{sfx} (VindijaPwm) L={cfg.lanes} "
+        f"S={cfg.total_steps} CAP={cfg.read_step_cap} M={cfg.max_len} on "
+        f"{BIDIR_READS} reads: bit-exact; {steps} steps, {hits} hits; "
+        f"{k2_ms:.1f} ms ({k2_ms * 1e3 / max(steps, 1):.2f} us/step), plain "
+        f"{plain_ms:.1f} ms")
+    return dict(
+        route="cuda", source="mapad_tpu_torch/csrc/pool_search.cu",
+        replaces="mapad_tpu/ops/search_pool2.py:311", max_abs_err=err,
+        ms=k2_ms, plain_ms=plain_ms, bound_ms=bound_ms(k2_bytes),
+        bound_by="bytes", library_ms=None, steps=steps,
+    )
 
 
 def table_rows_touched(torch, blob, cls, off, tab_rows, R, M, Q):
@@ -370,6 +642,11 @@ def check_kernels(torch, np, engine, reads):
         torch, sp2, eng, idx_d, tuple(p[:r] for p in parts[:5]),
         parts[5][: r * M], engine._params(), cfg, M, False,
     ))
+    # K8 on K8_READS reads, then timed on the whole block at path 4's shape
+    rows["pool_compact"] = compact_check(
+        torch, sp2, idx_d, engine._params(), cfg, False,
+        main=(parts[:5], parts[5], cfg),
+    )
     return rows
 
 
@@ -479,11 +756,17 @@ def check_kernels_big(torch, np, engine, reads):
     r = CHECK2_READS
     slut = sp2._dense_slut(idx_d, (rank, code, score_lut, pen), n, split,
                            cfg, steps)
+    consts = (n, split, scale, thresh, repr_mm)
     rows.update(pool_check(
-        torch, sp2, eng, idx_d,
-        tuple(p[:r].contiguous() for p in (n, split, scale, thresh, repr_mm)),
+        torch, sp2, eng, idx_d, tuple(p[:r].contiguous() for p in consts),
         slut[: r * M].contiguous(), engine._params(), cfg, M, True,
     ))
+    # K8 in int64 on K8_READS reads, then timed on the whole block at the
+    # starved primary shape of path 4's last run (4,096 steps)
+    rows["pool_compact_i64"] = compact_check(
+        torch, sp2, idx_d, engine._params(), cfg, True,
+        main=(consts, slut, cfg._replace(total_steps=PATH4_BIG_STEPS)),
+    )
     return rows
 
 
@@ -532,6 +815,11 @@ def native_map_and_compare(cli, fastq, fasta, dev_bam, nat_bam, what):
                  *MAP_FLAGS]) != 0:
         raise SystemExit("native map failed")
     log(f"{what}: map --engine native {time.perf_counter() - t:.2f} s")
+    bam_compare(dev_bam, nat_bam, what)
+
+
+def bam_compare(dev_bam, nat_bam, what):
+    """The BAM of a path against the native engine's, record for record."""
     dh, dr = bam_records(dev_bam)
     nh, nr = bam_records(nat_bam)
     assert len(dr) == N_READS, len(dr)
@@ -545,6 +833,64 @@ def native_map_and_compare(cli, fastq, fasta, dev_bam, nat_bam, what):
     log(f"{what}: BAM of {len(dr)} records equal to --engine native (XD "
         f"aside), {mapped} mapped")
     assert mapped > N_READS // 2, mapped
+
+
+class _Env:
+    """Environment variables set for one call and restored after."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def packed_same(np, a, b):
+    """Two packed hit sets hold the same hits bit for bit (the device pads a
+    read's op words to its block's width, the host searcher to the read's
+    own)."""
+    if len(a) != len(b):
+        return False
+    if not len(a):
+        return True
+    ao, bo = np.asarray(a.ops), np.asarray(b.ops)
+    w = max(ao.shape[1], bo.shape[1])
+    ao = np.pad(ao, ((0, 0), (0, w - ao.shape[1])))
+    bo = np.pad(bo, ((0, 0), (0, w - bo.shape[1])))
+    return (np.array_equal(np.asarray(a.ivals), np.asarray(b.ivals))
+            and np.array_equal(np.asarray(a.scores).view(np.int32),
+                               np.asarray(b.scores).view(np.int32))
+            and np.array_equal(ao, bo) and int(a.split) == int(b.split))
+
+
+def block_against_native(np, engine, recs, want, what):
+    """`engine.search_chunk(recs)` against the native engine's hits."""
+    t0 = time.perf_counter()
+    out = engine.search_chunk(recs)
+    secs = time.perf_counter() - t0
+    bad = [i for i, ((got, _), (exp, _)) in enumerate(zip(out, want))
+           if not packed_same(np, got, exp)]
+    if len(out) != len(recs) or bad:
+        raise AssertionError(f"{what}: {len(bad)} reads' hits differ from "
+                             f"the native searcher's, first at {bad[:5]}")
+    stats = engine.stats()
+    with_hits = sum(1 for hits, _ in out if len(hits))
+    log(f"{what}: {len(recs)} reads in {secs:.2f} s, hits of every read "
+        f"equal to the native searcher's ({with_hits} reads with hits)")
+    log(f"  steps {stats['steps']}, escalated {stats['escalated']} by cause "
+        f"{stats.get('esc_why')}, host searches {stats['oracle']}, "
+        f"deep_retried {stats.get('deep_retried', 0)}, nohit_host "
+        f"{stats.get('nohit_host', 0)}, probe_empty "
+        f"{stats.get('probe_empty', 0)}")
+    return stats
 
 
 def main() -> int:
@@ -616,7 +962,7 @@ def main() -> int:
         raise SystemExit("device map failed")
     torch.cuda.synchronize()
     dev_s = time.perf_counter() - t
-    launches = {k: LAUNCHES.get(k) for k in rows}
+    launches = {k: LAUNCHES.get(k) for k in rows if k != "pool_compact"}
     stats = tap.stats
     if stats is None:
         raise AssertionError("the device map logged no search stats")
@@ -654,7 +1000,8 @@ def main() -> int:
                  index=index2)
     torch.cuda.synchronize()
     dev_s = time.perf_counter() - t
-    launches2 = {k: LAUNCHES.get(k) for k in rows2}
+    launches2 = {k: LAUNCHES.get(k) for k in rows2
+                 if k != "pool_compact_i64"}
     stats2 = engine2.stats()
     rows["pool_search_i64"]["steps"] = stats2["steps"]
     report_run("path 2, pipeline.run big=True", card, dev_s, stats2,
@@ -680,16 +1027,182 @@ def main() -> int:
     if not deep_blocks:
         raise AssertionError("no deep block ran on path 2")
 
+    from mapad_tpu_torch.map.native_search import NativeSearchEngine
+    from mapad_tpu_torch.map.record import Record
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+
+    native_bam = os.path.join(WORK, "native.bam")
+    path1 = [k for k, v in path_of.items() if v == 1 and k != "pool_compact"]
+    map_argv = ["--threads", "0", "map", "-r", fastq, "-g", fasta,
+                "--force_overwrite", *MAP_FLAGS]
+
+    # --- path 3: the default engine (hybrid) on path 1's workload ---
+    hyb_bam = os.path.join(WORK, "hybrid.bam")
+    tap.stats = None
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if cli.main([*map_argv, "-o", hyb_bam]) != 0:
+        raise SystemExit("hybrid map failed")
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t
+    stats3 = tap.stats
+    if stats3 is None or "device_fraction" not in stats3:
+        raise AssertionError("map with no --engine did not run the hybrid "
+                             "engine")
+    report_run("path 3, map (default engine: hybrid)", card, dev_s, stats3,
+               {k: LAUNCHES.get(k) for k in path1})
+    log(f"  device fraction at the end {stats3['device_fraction']:.3f}; "
+        f"reads searched by the device engine "
+        f"{stats3['hybrid_device_reads']}, by the native engine "
+        f"{stats3['hybrid_native_reads']}")
+    if not stats3["hybrid_native_reads"]:
+        raise AssertionError("the hybrid engine gave the host no reads")
+    bam_compare(hyb_bam, native_bam, "path 3")
+    # the same with two native threads instead of all cores but two: does
+    # the native pool take the cores the device side's prep needs?
+    tap.stats = None
+    t = time.perf_counter()
+    if cli.main(["--threads", "2", *map_argv[2:], "-o", hyb_bam]) != 0:
+        raise SystemExit("hybrid map with two threads failed")
+    dev_s2 = time.perf_counter() - t
+    st = tap.stats
+    log(f"path 3 with --threads 2: {N_READS / dev_s2:.1f} reads/s "
+        f"({N_READS / dev_s:.1f} with --threads 0 just before), prep_s "
+        f"{st['prep_s']:.3f} ({stats3['prep_s']:.3f}), device_s "
+        f"{st['device_s']:.3f} ({stats3['device_s']:.3f}), fraction "
+        f"{st['device_fraction']:.3f}, native reads "
+        f"{st['hybrid_native_reads']}")
+    bam_compare(hyb_bam, native_bam, "path 3 with --threads 2")
+
+    # --- path 4: store generations (K8) on the main path ---
+    gen_bam = os.path.join(WORK, "generations.bam")
+    tap.stats = None
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with _Env(MAPAD_KGENS="4", MAPAD_KGENS_MIN_LIVE="1"), \
+            _BoundaryTap(sp2) as k8_tap:
+        if cli.main([*map_argv, "-o", gen_bam, "--engine", "device"]) != 0:
+            raise SystemExit("device map with store generations failed")
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t
+    stats4 = tap.stats
+    launches4 = {k: LAUNCHES.get(k) for k in [*path1, "pool_compact"]}
+    report_run("path 4, map --engine device, MAPAD_KGENS=4 "
+               "MAPAD_KGENS_MIN_LIVE=1 (MAPAD_SPILL 768)", card, dev_s,
+               stats4, launches4)
+    ev4 = k8_tap.take()
+    per = launches_per_boundary(launches4["pool_compact"],
+                                [c for c, _ in ev4], "path 4")
+    log(f"  K8 ran {len(ev4)} boundaries ({per} launches each, counted; "
+        f"{median([a.elapsed_time(b) for _, (a, b) in ev4]):.4f} ms a "
+        f"boundary); unfinished {stats4['esc_why']['unfinished']} "
+        f"(path 1: {stats['esc_why']['unfinished']}), steps "
+        f"{stats4['steps']} (path 1: {stats['steps']})")
+    bam_compare(gen_bam, native_bam, "path 4")
+    launches["pool_compact"] = launches4["pool_compact"]
+    path_of["pool_compact"] = 4
+
+    # one 4096-read block of path 2's workload in big mode
+    recs2 = [Record(sequence=s, base_qualities=q)
+             for s, q in reads2[:BLOCK2_READS]]
+    t = time.perf_counter()
+    want2 = NativeSearchEngine(index2.fmd, params,
+                               packed_hits=True).search_chunk(recs2)
+    log(f"path 4: native engine on {len(recs2)} reads of workload 2 "
+        f"{time.perf_counter() - t:.2f} s")
+    LAUNCHES.reset()
+    with _Env(MAPAD_DEEP_LANES=str(DEEP_LANES), MAPAD_RETRY_MIN=DEEP_MIN), \
+            _BoundaryTap(sp2) as k8_tap:
+        eng = big_engine()
+        deep = eng._deep_config()
+        assert (deep.lanes, deep.total_steps, deep.read_step_cap,
+                deep.generations) == DEEP_SHAPE, deep
+        st = block_against_native(
+            np, eng, recs2, want2,
+            f"path 4, big mode, MAPAD_DEEP_LANES={DEEP_LANES} "
+            f"MAPAD_RETRY_MIN={DEEP_MIN}")
+    if not st.get("deep_retried"):
+        raise AssertionError("path 4: no read took the narrow deep config")
+    log(f"  the narrow deep blocks (L, S, CAP, generations = {DEEP_SHAPE}) "
+        f"ran {len(k8_tap.take())} boundaries "
+        f"({LAUNCHES.get('pool_compact_i64')} K8 launches)")
+    with _Env(MAPAD_DEEP_LANES=str(DEEP_LANES), MAPAD_RETRY_MIN=DEEP_MIN,
+              MAPAD_NOHIT_PROBE="1"):
+        st = block_against_native(
+            np, big_engine(), recs2, want2,
+            f"path 4, big mode, MAPAD_DEEP_LANES={DEEP_LANES} "
+            f"MAPAD_NOHIT_PROBE=1")
+    log(f"  probe_empty {st.get('probe_empty', 0)} of nohit_host "
+        f"{st.get('nohit_host', 0)}")
+    if not st.get("nohit_host"):
+        raise AssertionError("path 4: the no-hit probe saw no read")
+    deep_launches = LAUNCHES.get("pool_compact_i64")
+    with _Env(MAPAD_KGENS="4", MAPAD_KGENS_MIN_LIVE="1",
+              MAPAD_POOL_STEPS=str(PATH4_BIG_STEPS),
+              MAPAD_RETRY_MIN=DEEP_MIN), _BoundaryTap(sp2) as k8_tap:
+        eng = big_engine()
+        assert eng.pool_config.generations == 4
+        block_against_native(
+            np, eng, recs2, want2,
+            f"path 4, big mode, MAPAD_KGENS=4 MAPAD_KGENS_MIN_LIVE=1 "
+            f"MAPAD_POOL_STEPS={PATH4_BIG_STEPS}")
+    launches["pool_compact_i64"] = LAUNCHES.get("pool_compact_i64")
+    path_of["pool_compact_i64"] = 4
+    ev4b = k8_tap.take()
+    per = launches_per_boundary(
+        launches["pool_compact_i64"] - deep_launches, [c for c, _ in ev4b],
+        "path 4, big mode")
+    log(f"  K8 launches in int64 on path 4: {launches['pool_compact_i64']} "
+        f"({deep_launches} of them in the narrow deep blocks): {len(ev4b)} "
+        f"boundaries of {per} launches (counted)")
+    del index2, want2
+
+    # --- path 5: the bidirectional search (a center-start model) ---
+    import dataclasses
+
+    from mapad_tpu_torch.models import Discrete, VindijaPwm
+
+    pwm = VindijaPwm()
+    vparams = dataclasses.replace(
+        params, difference_model=pwm, mismatch_bound=Discrete(
+            args.poisson_prob, np.float32(args.divergence),
+            pwm.get_representative_mismatch_penalty()))
+    index1 = load_index(fasta)
+    recs5 = [Record(sequence=s, base_qualities=q)
+             for s, q in reads[:PATH5_READS]]
+    want5 = NativeSearchEngine(index1.fmd, vparams,
+                               packed_hits=True).search_chunk(recs5)
+    for big in (False, True):
+        name = "pool_search_bidir" + ("_i64" if big else "")
+        eng = DeviceSearchEngine(index1.fmd, vparams, lanes=args.lanes,
+                                 big=big, packed_hits=True)
+        rows[name] = bidir_check(torch, sp2, eng, reads, big)
+        LAUNCHES.reset()
+        st = block_against_native(
+            np, eng, recs5, want5,
+            f"path 5, VindijaPwm, {'int64' if big else 'int32'} intervals")
+        launches[name] = LAUNCHES.get(name)
+        rows[name]["steps"] = st["steps"]
+        path_of[name] = 5
+        log(f"  kernel launches on this path: {name} {launches[name]}")
+        if not launches[name]:
+            raise AssertionError(f"path 5: {name} did not launch")
+
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # `path`: the run whose launches the row counts; pool_search rows also
     # carry `steps`, the pool steps that run took (their launches are two
-    # per step queued, plus one per invocation)
+    # per step queued, plus one per invocation); pool_compact rows the
+    # boundaries of their check, the launches of one boundary, and their
+    # time at a shape of the main path
+    more = ("steps", "boundaries", "launches_per_boundary", "main_shape",
+            "main_ms", "main_bound_ms", "main_launches_per_boundary")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},
-         "path": path_of[name],
-         **({"steps": row["steps"]} if "steps" in row else {})}
+         "path": path_of[name], **{k: row[k] for k in more if k in row}}
         for name, row in rows.items()
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")

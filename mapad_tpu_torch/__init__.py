@@ -10,9 +10,11 @@ Layer map:
   cli          -- `mapad-tpu-torch {index,map}` command line
   index        -- index construction (SAIS, BWT, Occ, sampled SA) + loaders
   models       -- sequence difference models + mismatch bounds
-  ops          -- device compute: FMD rank queries, pool search, chain
-                  extraction, prep unpack, result pack (CUDA + plain torch)
-  map          -- mapping pipeline, host C++ search/postprocess bindings
+  ops          -- device compute: FMD rank queries, pool search with store
+                  generations, chain extraction, prep unpack, Bi-D, result
+                  pack (CUDA + plain torch); the device and hybrid engines
+  map          -- mapping pipeline, host C++ search/postprocess bindings,
+                  the sequential Python search and BAM conversion
   io           -- FASTA/FASTQ/BAM/BGZF readers and writers
 """
 

@@ -38,8 +38,8 @@ NVCC_FLAGS = [
 ]
 # one library per source (K1 is a device function of common.cuh, inline in
 # pool_search.cu and bi_d.cu; unpack_prep.cu holds K4 and K6)
-CUDA_SOURCES = ("pool_search", "extract_chains", "unpack_prep", "pack_result",
-                "bi_d")
+CUDA_SOURCES = ("pool_search", "pool_compact", "extract_chains",
+                "unpack_prep", "pack_result", "bi_d")
 
 _lock = threading.Lock()
 _loaded: dict = {}

@@ -1,11 +1,13 @@
 """mapAD-compatible command line interface of the PyTorch + CUDA port.
 
 Counterpart of mapad_tpu/cli.py (reference src/main.rs): the same flag
-names and defaults (main.rs:30-303), plus --engine and --lanes.  This slice
-runs `index` and `map` with `--engine device` (the default: the pool search
-on one GPU) or `--engine native` (the exact host C++ search); `hybrid`,
-`oracle`, `--dispatcher` and `worker` are later slices and exit with a
-message saying so.
+names and defaults (main.rs:30-303), plus --engine and --lanes.  `index`
+and `map` run with every engine of the reference: `--engine hybrid` (the
+default: the pool search on one GPU for the head of every block, the exact
+host C++ search for its tail), `device` (the pool search alone), `native`
+(the host C++ search alone) and `oracle` (the sequential Python search).
+`index --mapad_format`, `map --dispatcher` and `worker` are not ported yet
+and exit with a message saying so.
 """
 
 from __future__ import annotations
@@ -109,17 +111,17 @@ def build_parser() -> argparse.ArgumentParser:
                             "(e.g. '@RG\\tID:identifier1\\tSM:sample2')")
     p_map.add_argument("--engine",
                        choices=["hybrid", "device", "native", "oracle"],
-                       default="device",
-                       help="Search engine: the pool search on the GPU "
-                            "(device, default) or multi-core host C++ "
-                            "(native); hybrid and oracle are not yet in "
-                            "this port")
+                       default="hybrid",
+                       help="Search engine: GPU + host cores concurrently "
+                            "(hybrid, default), the pool search on the GPU "
+                            "only (device), multi-core host C++ (native), "
+                            "or sequential Python (oracle)")
     p_map.add_argument("--lanes", type=int, default=2048,
                        help="Device batch width (reads per device step)")
     p_map.add_argument("--device", default="cuda",
-                       help="torch device of the device engine: cuda[:N], "
-                            "or cpu to run the plain PyTorch versions of "
-                            "the kernels")
+                       help="torch device of the hybrid and device engines: "
+                            "cuda[:N], or cpu to run the plain PyTorch "
+                            "versions of the kernels")
     p_map.add_argument("--profile", metavar="DIR", default=None,
                        help="Write a torch.profiler trace of the mapping "
                             "run to DIR (Chrome trace format)")
@@ -231,8 +233,6 @@ def _dispatch(args):
     if args.command == "map":
         if args.dispatcher:
             return _not_yet("distributed mode (--dispatcher)")
-        if args.engine in ("hybrid", "oracle"):
-            return _not_yet(f"--engine {args.engine}")
         params = build_alignment_parameters(args)
         read_group = parse_read_group(args.read_group) if args.read_group else None
         cmdline = " ".join(sys.argv)
@@ -247,13 +247,21 @@ def _dispatch(args):
         )
         threads = args.num_threads if args.num_threads > 0 else None
         index = load_index(args.reference)
+        engine = None  # oracle: `run` makes the sequential Python engine
         if args.engine == "native":
             from .map.native_search import NativeSearchEngine
 
             engine = NativeSearchEngine(
                 index.fmd, params, threads=threads, packed_hits=packed,
             )
-        else:
+        elif args.engine == "hybrid":
+            from .ops.engine import HybridSearchEngine
+
+            engine = HybridSearchEngine(
+                index.fmd, params, lanes=args.lanes, threads=threads,
+                packed_hits=packed, device=args.device,
+            )
+        elif args.engine == "device":
             from .ops.engine import DeviceSearchEngine
 
             engine = DeviceSearchEngine(

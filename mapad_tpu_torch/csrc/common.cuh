@@ -66,8 +66,16 @@ enum LaneState {
   LS_SCALE, LS_THRESH, LS_REPR, LS_BEST, LS_BEST_SIZE, LS_HCOUNT,
   LS_FINISH, LS_ACTIVE, LS_BEST_SIZE_HI, N_LANE_STATE
 };
-// glob[]: device-side loop counters
-enum Glob { G_STEP = 0, G_NEXT_READ = 1, G_DONE = 2 };
+// glob[]: device-side loop counters (ops/search_pool2.py reads the first
+// five from the host).  G_LIMIT: the step at which this store generation
+// stops (S, or less under a capped spill); G_LIVE: lanes not yet done;
+// G_BASE: the first step whose marks and finish events K3 has not seen;
+// G_CUM: steps compacted away by K8 so far; G_ACC_N / G_ACC_NCH: chains
+// K3 appended and counted at the boundaries so far.
+enum Glob {
+  G_STEP = 0, G_NEXT_READ = 1, G_DONE = 2, G_LIMIT = 3, G_LIVE = 4,
+  G_BASE = 5, G_CUM = 6, G_ACC_N = 7, G_ACC_NCH = 8, N_GLOB = 12
+};
 
 struct PoolArgs {
   const int* rows;
@@ -89,22 +97,42 @@ struct PoolArgs {
   int* consumed;  // (L, RB)
   int* bm_key;    // (L, RB)
   int* lane;      // (N_LANE_STATE, L)
-  int* glob;      // (4,)
+  int* glob;      // (N_GLOB,)
   int* fin_log;   // (L, S) or null
+  int bidir;      // bidirectional extension (center-start models)
+};
+
+// K8 (csrc/pool_compact.cu): what one store boundary reads and rewrites
+struct CompactArgs {
+  int* store;          // (L, S+1, 9, NFW)
+  const int* consumed; // (L, RB) the rings as the step kernels left them
+  const int* bm_key;
+  int* consumed_next;  // (L, RB) the buffers the rotation writes
+  int* bm_key_next;
+  int* lane;           // (N_LANE_STATE, L)
+  int* glob;           // (N_GLOB,)
+  int L, S, CAP, RB;
+  int spill;  // step cap of a generation after a boundary, 0 = none
+  int big;
 };
 
 struct ExtractArgs {
   const int* store;
   const int* bmask;
   const int* lane;
-  const int* glob;
+  int* glob;  // K3 at a store boundary adds to G_ACC_N / G_ACC_NCH
   const int* fin_log;
   int R, L, S, C, MW, track, big;
+  int first;  // no store boundary before this extraction
+  int final;  // the extraction after the loop (else: at a store boundary)
   int* lane_cnt;    // (L,) scratch: marked entries per lane
   int* lane_off;    // (L,) scratch: lane-order exclusive prefix sum
   int* lane_first;  // (L,) scratch: first marked block per lane (or S)
   int* c_lane;      // (C,) scratch: lane of each compacted entry
-  int* pad;         // (2,) scratch: lane and block of the first mark
+  int* e_slot;      // (C,) scratch: its in-store slot
+  // (4,) scratch: lane and block of the first mark, the offset at which
+  // this extraction appends, and how many entries it appends
+  int* pad;
   int* c_read;
   int* c_slot;
   uint8_t* c_abandon;

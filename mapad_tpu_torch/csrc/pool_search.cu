@@ -2,11 +2,16 @@
 // with K1 (occ4_warp, common.cuh) inline.
 //
 // Replaces mapad_tpu/ops/search_pool2.py `k_mismatch_search_pool2` setup
-// and loop body (lines 99-612; generations == 1, backward-only; the
-// LUT/Bi-D rows come packed from the host or are assembled on the card
-// after K7).  Plain version: ops/search_pool2.py `_pool_loop_plain`.
+// and loop body (lines 99-612; the LUT/Bi-D rows come packed from the host
+// or are assembled on the card after K7).  Plain version:
+// ops/search_pool2.py `_pool_loop_plain`.
 // Every kernel is a template on the interval type (common.cuh): int32, or
-// int64 for a big index, whose frames carry three high words.
+// int64 for a big index, whose frames carry three high words.  The lane
+// kernel is also a template on the extension mode: backward-only (the aDNA
+// model; one LUT row per step, no direction selects), or bidirectional
+// (center-start models: the side with the shorter remainder is extended,
+// which swaps the interval's two ends around K1 and takes the Bi-D bound
+// from two more LUT rows).
 //
 // Design: the JAX loop carries every lane in lock step; here the step is a
 // launch of `pool_lane_kernel` (one block per lane) followed by
@@ -16,7 +21,8 @@
 // Both kernels return at once when the device done flag is set or the step
 // budget is spent, so the host may queue steps ahead and poll the flag
 // rarely; the step counter then stops exactly where the JAX while_loop
-// stops (`step < S && !all(lane_done)`).
+// stops (`step < limit && !all(lane_done)`; the limit is S, or what K8 set
+// for a capped spill generation, csrc/pool_compact.cu).
 //
 // Bound on the card: the pop scan reads the lane's bm_key ring, 4 x RB
 // bytes per lane per step (6.3 MB per step at L=512, CAP=3072, ~1.9 us at
@@ -64,7 +70,9 @@ static __global__ void pool_init_kernel(PoolArgs a) {
     a.glob[G_STEP] = 0;
     a.glob[G_NEXT_READ] = a.L < a.R ? a.L : a.R;
     a.glob[G_DONE] = a.R == 0;
-    a.glob[3] = 0;
+    a.glob[G_LIMIT] = a.S;
+    a.glob[G_LIVE] = a.L < a.R ? a.L : a.R;
+    for (int k = G_BASE; k < N_GLOB; ++k) a.glob[k] = 0;
   }
 }
 
@@ -85,13 +93,13 @@ static __device__ __forceinline__ void best_size_put(int* ls, int L, int lane,
   ls[LS_BEST_SIZE_HI * L + lane] = (int)(uint32_t)(u >> 32);
 }
 
-template <typename I>
+template <typename I, bool BIDIR>
 static __global__ void __launch_bounds__(LANE_THREADS)
 pool_lane_kernel(PoolArgs a) {
   constexpr int NFW = Idx<I>::NFW;
   constexpr int REC = CANDS * NFW;  // int32 words per store block
   const int step = a.glob[G_STEP];
-  if (a.glob[G_DONE] || step >= a.S) return;
+  if (a.glob[G_DONE] || step >= a.glob[G_LIMIT]) return;
   const int lane = blockIdx.x;
   const int tid = threadIdx.x;
   const int L = a.L, S = a.S, RB = a.RB, M = a.M, R = a.R;
@@ -131,7 +139,8 @@ pool_lane_kernel(PoolArgs a) {
   bool popped = false, working = false, do_pop = false, finish_empty = false;
   float f_score = 0.f;
   I f_lower = 0, f_lrev = 0, f_size = 0;
-  int f_start = 0, f_len = 0, gaps = 0, parent = 0;
+  int f_start = 0, f_len = 0, gaps = 0, parent = 0, c_split = 0;
+  bool fwd = false;  // bidirectional: extend forward (always false else)
   if (tid < 64) {
     unsigned long long b = red[0];
     for (int w = 1; w < LANE_THREADS / 32; ++w) b = red[w] > b ? red[w] : b;
@@ -146,7 +155,7 @@ pool_lane_kernel(PoolArgs a) {
     active = !ls[LS_DONE * L + lane];
     lane_age = ls[LS_AGE * L + lane];
     c_n = ls[LS_N * L + lane];
-    const int c_split = ls[LS_SPLIT * L + lane];
+    c_split = ls[LS_SPLIT * L + lane];
     c_scale = __int_as_float(ls[LS_SCALE * L + lane]);
     c_thresh = __int_as_float(ls[LS_THRESH * L + lane]);
     c_repr = __int_as_float(ls[LS_REPR * L + lane]);
@@ -191,9 +200,12 @@ pool_lane_kernel(PoolArgs a) {
     f_len = fresh ? 0 : (fr[F_STARTLEN] & 0xFFFF);
     gaps = fresh ? 0 : fr[F_GAPS];
     parent = fresh ? S * CANDS : blk_full * CANDS + off;
+    // a forward extension is a backward one of the reverse interval
+    if (BIDIR) fwd = f_start <= c_n - f_start - f_len;
+    const I ext_lower = fwd ? f_lrev : f_lower;
     // K1: warp 0 ranks the interval's lower end, warp 1 its upper end
-    const I r1q = occ_query_lower<I>(f_lower);
-    const I r2q = occ_query_upper<I>(f_lower, f_size);
+    const I r1q = occ_query_lower<I>(ext_lower);
+    const I r2q = occ_query_upper<I>(ext_lower, f_size);
     I occ[4];
     occ4_warp<I>(a.rows, a.nb, a.occ_k, tid < 32 ? r1q : r2q, occ);
     if ((tid & 31) == 0) {
@@ -212,9 +224,9 @@ pool_lane_kernel(PoolArgs a) {
     const int f_gapb = gaps & 3, f_gapf = (gaps >> 2) & 3,
               f_ngaps = (gaps >> 4) & 0xFF;
     const int nn = c_n;
-    const int j = f_start - 1;
-    const int d_k = f_start - 1;
-    const int gap_state = f_gapb;
+    const int j = fwd ? f_start + f_len : f_start - 1;
+    const int d_k = fwd ? f_start : f_start - 1;
+    const int gap_state = fwd ? f_gapf : f_gapb;
     const float ins_score =
         (gap_state == GAP_INSERTION ? a.pge : a.pgo_pge) + f_score;
     const float del_score =
@@ -224,8 +236,24 @@ pool_lane_kernel(PoolArgs a) {
     int rid_c = read_id < 0 ? 0 : (read_id > R - 1 ? R - 1 : read_id);
     const int j_c = j < 0 ? 0 : (j > M - 1 ? M - 1 : j);
     const float* row_j = a.slut + ((size_t)rid_c * M + j_c) * 6;
-    const float d_rev = (d_k >= 0 && d_k < nn) ? row_j[5] : 0.0f;
-    const float lb = d_rev + 0.0f;  // + d_fwd, identically 0 backward-only
+    float d_rev, d_fwd;
+    if (BIDIR) {
+      // the Bi-D bound of both remainders: rows d_k and t + split
+      const int d_l = fwd ? f_start + f_len : f_start + f_len - 1;
+      const int bk = d_k < 0 ? 0 : (d_k > M - 1 ? M - 1 : d_k);
+      const int t = nn - (1 + d_l);
+      int ci = t + c_split;
+      ci = ci < 0 ? 0 : (ci > M - 1 ? M - 1 : ci);
+      const float* rows_r = a.slut + (size_t)rid_c * M * 6;
+      d_rev = (d_k >= 0 && d_k < nn) ? rows_r[(size_t)bk * 6 + 5] : 0.0f;
+      d_fwd = (t >= 0 && t + c_split < nn) ? rows_r[(size_t)ci * 6 + 5]
+                                            : 0.0f;
+    } else {
+      // d_k == j, and split == n makes the forward bound identically 0
+      d_rev = (d_k >= 0 && d_k < nn) ? row_j[5] : 0.0f;
+      d_fwd = 0.0f;
+    }
+    const float lb = d_rev + d_fwd;
     const float Sj[4] = {row_j[0], row_j[1], row_j[2], row_j[3]};
     const int pat_j = (int)row_j[4];
 
@@ -241,14 +269,21 @@ pool_lane_kernel(PoolArgs a) {
       occ2[c] = sh_occ[4 + c];
     }
     I ch_lower[4], ch_lrev[4], ch_size[4];
-    extend_from_occ<I>((const I*)a.less, (const I*)a.sent, f_lower, f_lrev,
-                       f_size, occ1, occ2, ch_lower, ch_lrev, ch_size);
+    extend_from_occ<I>((const I*)a.less, (const I*)a.sent,
+                       fwd ? f_lrev : f_lower, fwd ? f_lower : f_lrev, f_size,
+                       occ1, occ2, ch_lower, ch_lrev, ch_size);
 
     const int gde = a.gap_dist_ends;
     const bool ins_allowed = min(j, nn - j - 1) >= gde;
-    const int d5 = j + 1;
+    const int d5 = fwd ? j : j + 1;
     const bool del_allowed = min(d5, nn - d5) >= gde;
-    const int next_start = f_start - 1;
+    const int next_start = fwd ? f_start : f_start - 1;
+    // the gap state of the side not extended rides along unchanged
+    const int keep_b = fwd ? f_gapb : -1, keep_f = fwd ? -1 : f_gapf;
+    auto gaps_word = [&](int state, int ng) {
+      return (keep_b >= 0 ? keep_b : state) |
+             ((keep_f >= 0 ? keep_f : state) << 2) | wshl(ng, 4);
+    };
     const bool del_rej = ((del_score + lb) / c_scale) < c_thresh;
     const bool ins_rej = ((ins_score + lb) / c_scale) < c_thresh;
     const bool gaps_ok = ngaps_inc <= a.max_gaps;
@@ -263,28 +298,28 @@ pool_lane_kernel(PoolArgs a) {
     lr[0] = f_lrev;
     sz[0] = f_size;
     sl[0] = wshl(next_start, 16) | (f_len + 1);
-    gp[0] = GAP_INSERTION | (f_gapf << 2) | wshl(ngaps_inc, 4);
+    gp[0] = gaps_word(GAP_INSERTION, ngaps_inc);
     op[0] = OP_VALID_BIT | (OP_INSERTION << 17) | (j_c << 2);
 #pragma unroll
     for (int slot = 0; slot < 4; ++slot) {
-      const int code = 3 - slot;
+      const int code = fwd ? slot : 3 - slot;
       const bool nonzero = ch_size[slot] >= 1;
       const float mm_score = Sj[code] + f_score;
       const int kd = 1 + 2 * slot, km = 2 + 2 * slot;
       ok[kd] = still && nonzero && !del_rej && del_allowed && gaps_ok;
       score[kd] = del_score;
       sl[kd] = wshl(f_start, 16) | f_len;
-      gp[kd] = GAP_DELETION | (f_gapf << 2) | wshl(ngaps_inc, 4);
+      gp[kd] = gaps_word(GAP_DELETION, ngaps_inc);
       op[kd] = OP_VALID_BIT | (OP_DELETION << 17) | (j_c << 2) | code;
       ok[km] = still && nonzero && !(((mm_score + lb) / c_scale) < c_thresh);
       score[km] = mm_score;
       sl[km] = wshl(next_start, 16) | (f_len + 1);
-      gp[km] = GAP_CLOSED | (f_gapf << 2) | wshl(f_ngaps, 4);
+      gp[km] = gaps_word(GAP_CLOSED, f_ngaps);
       op[km] = OP_VALID_BIT |
                ((code == pat_j ? OP_MATCH : OP_MISMATCH) << 17) |
                (j_c << 2) | code;
-      lo[kd] = lo[km] = ch_lower[slot];
-      lr[kd] = lr[km] = ch_lrev[slot];
+      lo[kd] = lo[km] = fwd ? ch_lrev[slot] : ch_lower[slot];
+      lr[kd] = lr[km] = fwd ? ch_lower[slot] : ch_lrev[slot];
       sz[kd] = sz[km] = ch_size[slot];
     }
 
@@ -354,7 +389,7 @@ constexpr int REFILL_THREADS = 1024;
 static __global__ void __launch_bounds__(REFILL_THREADS)
 pool_refill_kernel(PoolArgs a) {
   const int step = a.glob[G_STEP];
-  if (a.glob[G_DONE] || step >= a.S) return;
+  if (a.glob[G_DONE] || step >= a.glob[G_LIMIT]) return;
   __shared__ int scan[REFILL_THREADS];
   const int t = threadIdx.x, L = a.L, R = a.R;
   int* ls = a.lane;
@@ -405,12 +440,13 @@ pool_refill_kernel(PoolArgs a) {
     ls[LS_DONE * L + t] = lane_done;
     done_l = lane_done;
   }
-  const int all_done = __syncthreads_and(done_l);
+  const int live = __syncthreads_count(!done_l);
   if (t == 0) {
     const int nr = next_read + total;
     a.glob[G_NEXT_READ] = nr < R ? nr : R;
     a.glob[G_STEP] = step + 1;
-    if (all_done) a.glob[G_DONE] = 1;
+    a.glob[G_LIVE] = live;
+    if (live == 0) a.glob[G_DONE] = 1;
   }
 }
 
@@ -454,11 +490,13 @@ extern "C" int pool_init(const PoolArgs* a, cudaStream_t stream) {
 
 extern "C" int pool_steps(const PoolArgs* a, int nsteps,
                           cudaStream_t stream) {
+  void (*lane_kernel)(PoolArgs) =
+      a->big ? (a->bidir ? pool_lane_kernel<int64_t, true>
+                         : pool_lane_kernel<int64_t, false>)
+             : (a->bidir ? pool_lane_kernel<int32_t, true>
+                         : pool_lane_kernel<int32_t, false>);
   for (int i = 0; i < nsteps; ++i) {
-    if (a->big)
-      LAUNCH(pool_lane_kernel<int64_t>, a->L, LANE_THREADS, stream, *a);
-    else
-      LAUNCH(pool_lane_kernel<int32_t>, a->L, LANE_THREADS, stream, *a);
+    LAUNCH(lane_kernel, a->L, LANE_THREADS, stream, *a);
     CHECK_LAUNCH();
     LAUNCH(pool_refill_kernel, 1, REFILL_THREADS, stream, *a);
     CHECK_LAUNCH();

@@ -1,7 +1,10 @@
-"""Device search engine: batches reads onto the card and reconstructs hits.
+"""Search engines on the card: `DeviceSearchEngine` batches reads onto
+the card and reconstructs hits; `HybridSearchEngine` runs it on the head of
+every block and the exact host C++ searcher on the tail.
 
-Counterpart of mapad_tpu/ops/engine.py (`DeviceSearchEngine`, pool mode,
-one device).  Per block of up to `block_reads` reads:
+Counterpart of mapad_tpu/ops/engine.py (`DeviceSearchEngine` in pool mode
+on one device, `HybridSearchEngine`).  Per block of up to `block_reads`
+reads:
 
 1. prep thread (host): pad the reads, build the score LUT / penalty rows
    and the bound thresholds (numpy, ops/prep.py) and one int32 upload
@@ -15,7 +18,14 @@ one device).  Per block of up to `block_reads` reads:
 3. caller: wait for the copy, decode the chains into per-read hits and
    route escalated reads: to a device retry block (MAPAD_RETRY_TIER=1), to
    a deep block with a larger per-read cap (the deep tier, on by default
-   with a big index), or to the exact host C++ searcher.
+   with a big index), or to the exact host C++ searcher (escalatees without
+   any hit first through batched exhaustion probes, MAPAD_NOHIT_PROBE=1).
+
+The pool search runs store generations (kernel K8, ops/search_pool2.py)
+when asked: MAPAD_KGENS (with MAPAD_KGENS_MIN_LIVE and MAPAD_SPILL) for the
+primary config, MAPAD_DEEP_KGENS for a deep config narrowed with
+MAPAD_DEEP_LANES.  Models whose alignment starts inside the read run the
+bidirectional form of the search.
 
 The defaults of big mode (device Bi-D, 4096-read blocks, deep tier on) and
 every tier constant follow mapad_tpu, so both packages route the same reads
@@ -37,10 +47,9 @@ Three kernels live in this module, each beside its plain PyTorch version:
 The wrappers take the plain version for CPU tensors only (the tests); on
 a CUDA tensor they launch the kernel or raise.
 
-Not in this slice (each raises NotImplementedError): the multi-device
-mesh (K9), in-kernel generations > 1 (K8, so also a deep tier narrowed
-with MAPAD_DEEP_LANES), the bidirectional search of center-start models,
-the no-hit probe batches, the fixed-batch mode (K10) and the hybrid engine.
+Not ported yet (each raises NotImplementedError when the engine is made):
+the multi-device mesh (K9, MAPAD_SHARD=1) and the fixed-batch mode (K10,
+mode="batch").
 """
 
 from __future__ import annotations
@@ -392,15 +401,23 @@ class DeviceSearchEngine:
             pool_steps = max(2048, (512 * 8192) // pool_lanes)
             if os.environ.get("MAPAD_POOL_STEPS"):
                 pool_steps = int(os.environ["MAPAD_POOL_STEPS"])
+            cap_env = int(os.environ.get("MAPAD_POOL_CAP", 0))
             pool_config = PoolConfig(
                 max_len=config.max_len,
                 lanes=pool_lanes,
                 total_steps=pool_steps,
                 max_chains=16384,
-                read_step_cap=min(3072, pool_steps),
+                read_step_cap=min(cap_env or 3072, pool_steps),
                 compute_forward_part=config.compute_forward_part,
                 backward_only=self._is_backward_only,
+                # store generations: unfinished and undispatched reads
+                # resume after an in-place store compaction (K8) instead of
+                # escalating; one generation unless asked for
                 generations=int(os.environ.get("MAPAD_KGENS", "1")),
+                # below this many live lanes the host clears the stragglers
+                min_live=int(os.environ.get("MAPAD_KGENS_MIN_LIVE", "32")),
+                # a generation after a boundary runs at most this many steps
+                spill_steps=int(os.environ.get("MAPAD_SPILL", "768")),
             )
         elif pool_config.backward_only and not self._is_backward_only:
             pool_config = pool_config._replace(backward_only=False)
@@ -408,10 +425,6 @@ class DeviceSearchEngine:
                 and pool_config.read_step_cap + 4 > pool_config.total_steps):
             # a store boundary could free nothing: one generation
             pool_config = pool_config._replace(generations=1)
-        if pool_config.generations > 1:
-            raise _later("in-kernel store generations > 1 (kernel K8)")
-        if not pool_config.backward_only:
-            raise _later("the bidirectional pool search (center-start models)")
         self.pool_config = pool_config
         # counts, and seconds per stage: prep (prep thread), device (device
         # thread), wait + decode (caller), exact fallback (core-seconds)
@@ -722,8 +735,6 @@ class DeviceSearchEngine:
         - the exact host C++ searcher takes what is left."""
         from collections import deque
 
-        if os.environ.get("MAPAD_NOHIT_PROBE", "0") == "1":
-            raise _later("the batched no-hit probe")
         cfg = self.pool_config
         R = self.block_reads
         params = self._params()
@@ -752,9 +763,7 @@ class DeviceSearchEngine:
         _RETRY = object()  # sentinel key: internal block, never yielded
 
         deep_tier = lazy_fallback and self.deep_tier_enabled()
-        # made here, before any block is launched: a deep config that needs
-        # store generations raises now, not in the middle of a stream
-        cfg_deep = self._deep_config(cfg, check=deep_tier)
+        cfg_deep = self._deep_config(cfg)
         deep_take = int(os.environ.get(
             "MAPAD_DEEP_BLOCK", str(max(retry_min, R // 8))
         ))
@@ -764,6 +773,7 @@ class DeviceSearchEngine:
         deep_nohit_host = deep_tier and (
             os.environ.get("MAPAD_DEEP_NOHIT_HOST", "1") == "1"
         )
+        nohit_probe = os.environ.get("MAPAD_NOHIT_PROBE", "0") == "1"
 
         def fb_submit(rec, stash_i, stash, fut=None):
             f = fb_pool.submit(self._fallback_one, rec,
@@ -845,6 +855,7 @@ class DeviceSearchEngine:
             abandoned: set = set()
             deep: set = set()
             nohits: set = set()
+            nohit_pend: list = []  # (fut, rec, i) for the batched probe
             tier = (
                 key[0] if isinstance(key, tuple) and key
                 and key[0] in (_RETRY, _DEEP) else None
@@ -878,7 +889,24 @@ class DeviceSearchEngine:
                         self._stats.get("nohit_host", 0) + 1
                     )
                 self._stats["oracle"] += 1
+                if nohit and nohit_probe and lazy_fallback:
+                    # no-hit escalatees batch into interleaved exhaustion
+                    # probes at block flush: most are proven hitless at a
+                    # fraction of the exact search's memory stalls, the
+                    # rest fall through to the exact search inside the
+                    # same fallback task
+                    fut = fut or Future()
+                    nohit_pend.append((fut, rec, i))
+                    return fut
                 return fb_submit(rec, i, stash, fut)
+
+            def flush_nohit():
+                # one fallback-pool task per probe batch
+                pb = int(os.environ.get("MAPAD_PROBE_BATCH", "16"))
+                while nohit_pend:
+                    chunk = nohit_pend[:pb]
+                    del nohit_pend[:pb]
+                    fb_pool.submit(self._probe_batch_entries, chunk, stash)
 
             if tier is not None:
                 # retry/deep block: resolve the placeholder futures
@@ -887,10 +915,12 @@ class DeviceSearchEngine:
                         route(j, rec, gen, fut)
                     else:
                         fut.set_result(out[j])
+                flush_nohit()
                 continue
             for i in escalated:
                 fut = route(i, recs[i], 0)
                 out[i] = fut if lazy_fallback else fut.result()
+            flush_nohit()
             yield key, out
 
     def deep_tier_enabled(self) -> bool:
@@ -902,15 +932,15 @@ class DeviceSearchEngine:
             return env == "1"
         return bool(self.device_index.big)
 
-    def _deep_config(self, cfg: "PoolConfig | None" = None,
-                     check: bool = False) -> "PoolConfig":
+    def _deep_config(self, cfg: "PoolConfig | None" = None) -> "PoolConfig":
         """Deep-tier pool config, derived as mapad_tpu derives it: full
         width (the primary lanes and steps) with the per-read cap raised to
         min(steps, max(total_steps, lanes * cap / deep lanes)), one
         generation.  MAPAD_DEEP_LANES narrows it (L/2 lanes -> 2x steps at
         the same frame store) and then asks for MAPAD_DEEP_KGENS store
-        generations; MAPAD_DEEP_STEPS / MAPAD_DEEP_CAP override directly.
-        `check`: raise if the config needs generations > 1 (kernel K8)."""
+        generations (kernel K8; uncapped spill unless MAPAD_DEEP_SPILL), so a
+        heavy read keeps its frontier across store fills up to its cap;
+        MAPAD_DEEP_STEPS / MAPAD_DEEP_CAP override directly."""
         cfg = cfg or self.pool_config
         lanes = int(os.environ.get(
             "MAPAD_DEEP_LANES", str(max(32, cfg.lanes))
@@ -930,11 +960,6 @@ class DeviceSearchEngine:
         kgens = int(os.environ.get("MAPAD_DEEP_KGENS", "4"))
         if cap + 4 > steps:
             kgens = 1
-        if check and kgens > 1:
-            raise _later(
-                "a deep tier with in-kernel store generations > 1 (kernel "
-                "K8; leave MAPAD_DEEP_LANES unset or set MAPAD_DEEP_KGENS=1)"
-            )
         return cfg._replace(
             lanes=lanes, total_steps=steps, read_step_cap=cap,
             generations=kgens,
@@ -964,7 +989,7 @@ class DeviceSearchEngine:
             sub = records[: self.block_reads]
             launched = self._launch_block(
                 self._prep_block(sub, self.block_reads,
-                                 self._deep_config(check=True)),
+                                 self._deep_config()),
                 self._params(),
             )
             self._collect_pool(sub, launched, [None] * len(sub),
@@ -995,6 +1020,67 @@ class DeviceSearchEngine:
             repr_mm=stash["repr_mm"][i : i + 1],
             max_len=stash["max_len"],
         )
+
+    def _probe_batch_entries(self, entries, stash):
+        """Fallback-pool task: interleaved no-hit exhaustion probes over
+        one block's no-hit escalatees (`exhaust_probe_batch` of the host
+        C++ searcher), then the exact search for every read the probe could
+        not prove hitless.  entries: [(Future, record, block index)]."""
+        t0 = time.perf_counter()
+        try:
+            searcher = self._ensure_native()
+            batch, singles = [], []
+            for e in entries:
+                _, rec, i = e
+                ln = len(rec.sequence)
+                if (
+                    searcher is not None
+                    and stash is not None
+                    and 0 < ln <= stash["max_len"]
+                    and i < len(stash["n"])
+                    and int(stash["n"][i]) == ln
+                ):
+                    batch.append(e)
+                else:
+                    singles.append(e)
+            if batch:
+                rows = [i for _, _, i in batch]
+                verdicts = searcher.probe_batch(
+                    stash["pattern_rank"][rows],
+                    stash["pattern_code"][rows],
+                    stash["n"][rows], stash["score_lut"][rows],
+                    stash["pen"][rows], stash["split"][rows],
+                    stash["scale"][rows], stash["thresh"][rows],
+                    self.parameters,
+                    interleave=int(os.environ.get("MAPAD_PROBE_K", "4")),
+                )
+                probe_dt = time.perf_counter() - t0
+                share = probe_dt / len(batch)
+                if self.packed_hits:
+                    from ..map.native_post import _EMPTY_PACKED
+
+                    empty = _EMPTY_PACKED
+                else:
+                    empty = []
+                n_empty = sum(1 for v in verdicts if v == 0)
+                with self._stats_lock:
+                    self._stats["fb_secs"] += probe_dt
+                    self._stats["probe_empty"] = (
+                        self._stats.get("probe_empty", 0) + n_empty
+                    )
+                for (fut, rec, i), v in zip(batch, verdicts):
+                    if v == 0:
+                        fut.set_result((empty, share))
+                    else:
+                        fut.set_result(self._fallback_one(
+                            rec, self._stash_row(stash, i)))
+            for fut, rec, i in singles:
+                fut.set_result(self._fallback_one(
+                    rec, self._stash_row(stash, i)))
+        except Exception as e:  # a hung future would stall the stream
+            for fut, _, _ in entries:
+                if not fut.done():
+                    fut.set_exception(e)
 
     def _prep_block(self, chunk, R, cfg):
         """Host-side preparation of one pool invocation (prep thread)."""
@@ -1317,7 +1403,11 @@ class DeviceSearchEngine:
         if ln == 0:
             hits = []
         elif searcher is None:
-            raise _later("the Python oracle fallback (no C++ compiler)")
+            # no C++ compiler: the sequential Python search
+            from ..map.oracle import k_mismatch_search
+
+            hits = k_mismatch_search(record.sequence, record.base_qualities,
+                                     self.parameters, self.fmd)
         elif (
             stash is not None
             and ln <= stash["max_len"]
@@ -1362,3 +1452,161 @@ class DeviceSearchEngine:
             scale, thresh, repr_mm, self.parameters,
             packed=self.packed_hits,
         )
+
+
+class HybridSearchEngine:
+    """Device pool + host native threads working each chunk concurrently
+    (`HybridSearchEngine` of mapad_tpu, the default engine of `map`).
+
+    The card runs the pool search on the head of every block while the host
+    cores run the exact native searcher on its tail.  The split fraction
+    adapts to the measured throughputs of the two sides, so they finish
+    together whatever the balance of the hardware.  Both sides are exact,
+    so the merged output is too.  `device_kw` goes to the
+    `DeviceSearchEngine` (mode, pool_config, big, device, ...).
+    """
+
+    def __init__(self, fmd_index, parameters, lanes: int = 2048,
+                 threads: int | None = None, device_fraction: float = 0.6,
+                 packed_hits: bool = False, **device_kw):
+        from ..map import native_search
+
+        self.device = DeviceSearchEngine(
+            fmd_index, parameters, lanes=lanes, packed_hits=packed_hits,
+            **device_kw
+        )
+        self.packed_hits = packed_hits
+        self.native = None
+        if native_search.available():
+            # leave cores free for the device pipeline's host side (LUT
+            # prep, result collection, escalation fallbacks): saturating
+            # every core with native search starves the card
+            if threads is None:
+                threads = max(1, (os.cpu_count() or 2) - 2)
+            self.native = native_search.NativeSearchEngine(
+                fmd_index, parameters, threads=threads,
+                packed_hits=packed_hits,
+            )
+        else:
+            logger.warning(
+                "native searcher unavailable; hybrid engine runs device-only"
+            )
+        self._p = device_fraction
+        self._stats = self.device._stats
+        # reads each side searched (search_stream and search_chunk)
+        self._stats.update(hybrid_device_reads=0, hybrid_native_reads=0)
+
+    @property
+    def block_reads(self) -> int:
+        return self.device.block_reads
+
+    def warm(self, records):
+        self.device.warm(records)
+
+    def stats(self) -> dict:
+        """The device engine's counts and stage seconds, the reads each
+        side searched and the device fraction reached."""
+        return dict(self.device.stats(), device_fraction=self._p)
+
+    def search_stream(self, blocks, lazy_fallback: bool = False):
+        """Streaming hybrid: each block's tail (the 1-p fraction) runs on
+        the native host engine concurrently with the device stream handling
+        the head; p adapts to the measured per-side throughputs: the device
+        side runs the whole wall clock (cumulative device reads / wall
+        seconds) while the native side's capacity is its completed reads
+        over its busy seconds, so a poor initial device_fraction corrects
+        toward the ratio that makes both sides finish together."""
+        if self.native is None:
+            yield from self.device.search_stream(
+                blocks, lazy_fallback=lazy_fallback
+            )
+            return
+        nat_pool = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="hybrid-native"
+        )
+        pending: dict = {}
+        done = {"dev": 0, "nat": 0}
+        nat_busy = [0.0]
+        t_start = time.perf_counter()
+
+        def _hashable(k):
+            try:
+                hash(k)
+                return True
+            except TypeError:
+                return False
+
+        def nat_search(recs):
+            t0 = time.perf_counter()
+            out = self.native.search_chunk(recs)
+            nat_busy[0] += time.perf_counter() - t0
+            return out
+
+        def split():
+            for key, recs in blocks:
+                n = len(recs)
+                k = n if n < 256 else max(1, min(n, int(n * self._p)))
+                fut = nat_pool.submit(nat_search, recs[k:]) if k < n else None
+                pending[id(key) if not _hashable(key) else key] = (k, fut)
+                yield key, recs[:k]
+
+        try:
+            for key, dev_out in self.device.search_stream(
+                split(), lazy_fallback=lazy_fallback
+            ):
+                k, fut = pending.pop(
+                    id(key) if not _hashable(key) else key
+                )
+                done["dev"] += k
+                self._stats["hybrid_device_reads"] += k
+                if fut is None:
+                    yield key, dev_out
+                    continue
+                nres = fut.result()
+                done["nat"] += len(nres)
+                self._stats["hybrid_native_reads"] += len(nres)
+                wall = time.perf_counter() - t_start
+                if done["dev"] + done["nat"] >= 1024 and nat_busy[0] > 0.05:
+                    rate_dev = done["dev"] / wall
+                    rate_nat = done["nat"] / nat_busy[0]
+                    p_obs = rate_dev / max(rate_dev + rate_nat, 1e-9)
+                    self._p = min(0.95, max(0.05, 0.5 * self._p + 0.5 * p_obs))
+                    logger.debug(
+                        "hybrid stream: device %.0f r/s, native %.0f r/s "
+                        "(busy %.1fs of %.1fs), p -> %.2f",
+                        rate_dev, rate_nat, nat_busy[0], wall, self._p,
+                    )
+                yield key, list(dev_out) + list(nres)
+        finally:
+            nat_pool.shutdown(wait=False)
+
+    def search_chunk(self, records, lazy_fallback: bool = False):
+        n = len(records)
+        if self.native is None or n < 256:
+            self._stats["hybrid_device_reads"] += n
+            return self.device.search_chunk(records, lazy_fallback)
+        k = max(1, min(n - 1, int(n * self._p)))
+        dev_part, nat_part = records[:k], records[k:]
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            t0 = time.perf_counter()
+            fut = ex.submit(self._timed, self.native.search_chunk, nat_part)
+            dres = self.device.search_chunk(dev_part, lazy_fallback)
+            dev_dt = time.perf_counter() - t0
+            nres, nat_dt = fut.result()
+        self._stats["hybrid_device_reads"] += k
+        self._stats["hybrid_native_reads"] += n - k
+        rd = k / max(dev_dt, 1e-6)
+        rn = (n - k) / max(nat_dt, 1e-6)
+        new_p = rd / (rd + rn)
+        self._p = min(0.95, max(0.05, 0.5 * self._p + 0.5 * new_p))
+        logger.debug(
+            "hybrid split: device %d@%.0f r/s, native %d@%.0f r/s, p -> %.2f",
+            k, rd, n - k, rn, self._p,
+        )
+        return list(dres) + list(nres)
+
+    @staticmethod
+    def _timed(fn, part):
+        t0 = time.perf_counter()
+        out = fn(part)
+        return out, time.perf_counter() - t0

@@ -25,16 +25,25 @@ class PoolConfig(NamedTuple):
     compute_forward_part: bool = False
     # With backward-only models (find_alignment_start == len, the production
     # aDNA model) start+len == n is invariant, so the extension direction is
-    # always Backward.  The port's kernel implements this mode only
-    # (bidirectional search is a later slice).
+    # always Backward: the kernel then runs its cheaper backward-only form
+    # (one LUT row per step, no per-lane direction selects).  False runs
+    # the bidirectional form that center-start models need.
     backward_only: bool = True
     # Per-read device step accounting for per-read XD timing: logs
     # (read_id, steps consumed) at each lane refill.
     track_read_steps: bool = False
-    # In-kernel store generations (> 1: compaction and resume when the
-    # store fills).  The port runs generation 1 only; more is a later slice.
+    # In-kernel store generations.  1: the invocation ends when the store
+    # (total_steps blocks) is full, reads left over escalate.  > 1: at a
+    # full store with lanes still live the finished chains are extracted,
+    # the live window (the last read_step_cap steps) moves to the top of
+    # the store and the loop goes on, so unfinished and undispatched reads
+    # resume with their frontier intact; at most generations - 1 such
+    # boundaries.  Needs read_step_cap + 4 <= total_steps.
     generations: int = 1
+    # no further generation when fewer lanes than this are still live
     min_live: int = 1
+    # > 0: a generation after a boundary runs at most this many steps
+    # (capped spill); 0: until the store is full again
     spill_steps: int = 0
 
 

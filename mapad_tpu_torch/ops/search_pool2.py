@@ -1,11 +1,12 @@
-"""Persistent best-first pool search (kernel K2) and chain extraction (K3).
+"""Persistent best-first pool search (kernel K2), chain extraction (K3)
+and the store compaction between store generations (K8).
 
-Counterpart of mapad_tpu/ops/search_pool2.py (generations == 1, backward-only
-extension): the same pop order (max monotone key, then minimum ring age =
-LIFO, then the first max candidate of the block), the same f32 operation
-order, the same store slot numbering (the block of step s is block S-1-s,
-its 9 candidates stored in reverse), so `PoolResult` matches the JAX
-function field for field.
+Counterpart of mapad_tpu/ops/search_pool2.py: the same pop order (max
+monotone key, then minimum ring age = LIFO, then the first max candidate of
+the block), the same f32 operation order, the same store slot numbering
+(the block of step s is block S-1-s, its 9 candidates stored in reverse),
+so `PoolResult` matches the JAX function field for field: backward-only or
+bidirectional (center-start models), with one store generation or several.
 
 Two entries, as in the JAX function: host-packed LUT/Bi-D rows (`slut`, the
 small-genome default: Bi-D from the host C++), or the dense per-read inputs
@@ -17,11 +18,12 @@ stored frame then carries three more words (the high halves).
 
 Two implementations of each kernel live here:
 
-- `_pool_loop_plain` / `_extract_chains_plain`: plain PyTorch, a line by
-  line transcription of the JAX loop body.  The wrappers take them for CPU
-  tensors only (the tests) and `chip_smoke.py` holds the kernels against
-  them on the card.
-- the CUDA kernels of csrc/pool_search.cu and csrc/extract_chains.cu.
+- `_pool_loop_plain` (with its `boundary`) / `_extract_chains_plain`: plain
+  PyTorch, a line by line transcription of the JAX loop body and of its
+  generations loop.  The wrappers take them for CPU tensors only (the
+  tests) and `chip_smoke.py` holds the kernels against them on the card.
+- the CUDA kernels of csrc/pool_search.cu, csrc/extract_chains.cu and
+  csrc/pool_compact.cu.
 
 K2 (`pool_search`, replaces `k_mismatch_search_pool2` setup + `body`,
 search_pool2.py:99-612): one lane kernel launch per step (one block per
@@ -43,11 +45,35 @@ negated keys does), an in-order emit per lane, then one thread per chain
 gathers its fields and walks MW-1 ancestors into `c_ops`; the per-read
 step fold is an exact `atomicMax`.  Bound: bytes -- the block masks
 (4 B per lane per executed step) plus ~MW dependent 32 B reads per chain.
+With store generations K3 also runs at every boundary: it then scans only
+the steps run since the last boundary, writes its chains behind the
+earlier ones (offset min(chains so far, C), entries past C dropped) with
+slots made global (minus 9 x the steps compacted away), and the step fold
+accumulates.
+
+K8 (`pool_compact`, replaces the `boundary` of the generations > 1 branch,
+search_pool2.py:739-919): when the store is full (step == S) with at least
+`min_live` lanes live and a generation left, the host runs K3 and then K8:
+the blocks of the last CAP steps (every live frame lies there: a read is
+abandoned after CAP pops) move up by delta = S - CAP blocks, every moved
+frame's parent slot grows by 9 x delta (ROOT stays) and its completion /
+abandon marks are cleared, the two pop rings rotate by delta mod RB into a
+second pair of buffers, lane_start and the step counter drop by delta, and
+the step limit of the next generation is set (capped spill).  The move is
+in place: source and destination overlap when CAP > S/2, so it runs in
+chunks of delta blocks from the top of the store down, one launch each
+(one launch at the production shapes).  The masks K3 reads do not move:
+K3 is told the first step it has not seen.  Bound: bytes, the window read
+once and written once (2 x L x CAP x 288 B, 396 B with int64 intervals)
+plus the rings.  The step loop learns of a boundary from the flags it polls
+anyway: one host read per boundary.
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
+import time
 
 import torch
 
@@ -86,19 +112,16 @@ POLL_STEPS = 64
 
 
 def _check_config(config: PoolConfig, R: int):
-    if not config.backward_only:
-        raise NotImplementedError(
-            "bidirectional pool search (center-start models) is a later "
-            "slice of the port"
-        )
-    if config.generations != 1:
-        raise NotImplementedError(
-            "in-kernel store generations > 1 (K8) are a later slice"
-        )
     S = config.total_steps
     require(config.lanes * (S * CANDS + 1) < 2**31,
             "store slot numbers exceed int32")
     require(config.max_len + 16 <= 1 << 15, "op positions exceed 15 bits")
+    if config.generations > 1:
+        # a boundary frees S - CAP steps; without the margin it could free
+        # none and the loop would stand still
+        require(config.read_step_cap + 4 <= S,
+                f"generations>1 needs read_step_cap + 4 <= total_steps "
+                f"(got cap={config.read_step_cap}, steps={S})")
 
 
 def _mono(f: torch.Tensor) -> torch.Tensor:
@@ -116,9 +139,11 @@ def _mono_inv(k: torch.Tensor) -> torch.Tensor:
 
 def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
                      cutoff_thresh, repr_mm, params: SearchParams,
-                     config: PoolConfig, slut):
-    """Plain PyTorch K2: the lock-step pool loop.  Returns the loop state
-    `_extract_chains_plain` reads."""
+                     config: PoolConfig, slut, boundary_log=None):
+    """Plain PyTorch K2 and K8: the lock-step pool loop and, with store
+    generations, the loop over them (extraction, chain log and store compaction at
+    every boundary).  Returns the loop state `_extract_chains_plain` reads.
+    `boundary_log`: a list that receives the seconds of every compaction."""
     dev = n.device
     i32 = torch.int32
     # the store holds whole frames in the interval type: with a big index
@@ -132,6 +157,7 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
     ROOT = S * CANDS
     CAP = config.read_step_cap
     RB = min(S, CAP + 1)
+    bidir = not config.backward_only
     lanes = torch.arange(L, device=dev)
     cand_iota = torch.arange(CANDS, dtype=i32, device=dev)[None, :]
     slot_iota = torch.arange(RB, dtype=i32, device=dev)[None, :]
@@ -170,12 +196,19 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
     hcount = torch.zeros(L, dtype=i32, device=dev)
     fin_log = torch.full((L, S if config.track_read_steps else 1), -1,
                          dtype=i32, device=dev)
+    step = 0
 
     def reject(v):
         return (v / c_scale) < c_thresh
 
-    step = 0
-    while step < S and not bool(lane_done.all()):
+    def gaps_word(gb, gf, ng):
+        return gb | (gf << 2) | (ng << 4)
+
+    def body():
+        """One step of every lane (`body` of the JAX package)."""
+        nonlocal consumed, bm_key, lane_start, read_id, fresh, lane_done
+        nonlocal next_read, lane_age, c_n, c_split, c_scale, c_thresh
+        nonlocal c_repr, best_score, best_size, hcount, step
         active = ~lane_done
         # --- pop: dense ring scan (key max, then LIFO = min ring age) ---
         age = torch.remainder(step - 1 - slot_iota, RB)
@@ -239,9 +272,27 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
         fresh = torch.zeros_like(fresh)
 
         nn = c_n
-        j = f_start - 1
-        d_k = f_start - 1
-        gap_state = f_gapb
+        if bidir:
+            # the side with the shorter remainder is extended next
+            fwd = f_start <= nn - f_start - f_len
+            j = torch.where(fwd, f_start + f_len, f_start - 1)
+            d_k = torch.where(fwd, f_start, f_start - 1)
+            d_l = torch.where(fwd, f_start + f_len, f_start + f_len - 1)
+            ext_lower = torch.where(fwd, f_lrev, f_lower)
+            ext_lrev = torch.where(fwd, f_lower, f_lrev)
+            gap_state = torch.where(fwd, f_gapf, f_gapb)
+
+            def pick(fv, bv):
+                return torch.where(fwd, fv, bv)
+        else:
+            j = f_start - 1
+            d_k = f_start - 1
+            ext_lower, ext_lrev = f_lower, f_lrev
+            gap_state = f_gapb
+
+            def pick(fv, bv):
+                return bv
+
         ins_score = torch.where(gap_state == GAP_INSERTION, pge,
                                 pgo_pge) + f_score
         del_score = torch.where(gap_state == GAP_DELETION, pge,
@@ -251,10 +302,23 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
 
         rid_c = torch.clamp(read_id, 0, R - 1)
         j_c = torch.clamp(j, 0, M - 1)
-        row_j = slut[(rid_c * M + j_c).long()]  # (L, 6)
-        d_rev = torch.where((d_k >= 0) & (d_k < nn), row_j[:, 5],
-                            torch.zeros_like(f_score))
-        lb = d_rev + 0.0  # + d_fwd (identically 0 backward-only)
+        base = rid_c * M
+        row_j = slut[(base + j_c).long()]  # (L, 6)
+        no_bound = torch.zeros_like(f_score)
+        if bidir:
+            bk = torch.clamp(d_k, 0, M - 1)
+            t = nn - (1 + d_l)
+            ci = torch.clamp(t + c_split, 0, M - 1)
+            d_rev = torch.where((d_k >= 0) & (d_k < nn),
+                                slut[(base + bk).long(), 5], no_bound)
+            d_fwd = torch.where((t >= 0) & (t + c_split < nn),
+                                slut[(base + ci).long(), 5], no_bound)
+            lb = d_rev + d_fwd
+        else:
+            # bk == j_c, and split == n makes the forward bound 0
+            d_rev = torch.where((d_k >= 0) & (d_k < nn), row_j[:, 5],
+                                no_bound)
+            lb = d_rev + 0.0
         Sj = row_j[:, :4]
         pat_j = row_j[:, 4].to(i32)
 
@@ -264,48 +328,63 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
         still = working & ~stop & ~abandon
 
         ch_lower, ch_lrev, ch_size = extend_batch_plain(
-            index, f_lower, f_lrev, f_size
+            index, ext_lower, ext_lrev, f_size
         )
+        if bidir:
+            out_lower = torch.where(fwd[:, None], ch_lrev, ch_lower)
+            out_lrev = torch.where(fwd[:, None], ch_lower, ch_lrev)
+        else:
+            out_lower, out_lrev = ch_lower, ch_lrev
         ins_allowed = torch.minimum(j, nn - j - 1) >= gde
-        d5 = j + 1
+        d5 = pick(j, j + 1)
         del_allowed = torch.minimum(d5, nn - d5) >= gde
-        next_start = f_start - 1
+        next_start = pick(f_start, f_start - 1)
         del_rej = reject(del_score + lb)
         ins_rej = reject(ins_score + lb)
 
-        def gaps_word(gb, gf, ng):
-            return gb | (gf << 2) | (ng << 4)
+        def full(v):
+            return torch.as_tensor(v, dtype=i32, device=dev).expand(L)
 
         c_ok = [still & ~ins_rej & ins_allowed & (ngaps_inc <= max_gaps)]
         c_score = [ins_score]
         cl_lower, cl_lrev, cl_size = [f_lower], [f_lrev], [f_size]
         c_startlen = [(next_start << 16) | (f_len + 1)]
-        c_gaps = [gaps_word(GAP_INSERTION, f_gapf, ngaps_inc)]
-        c_op = [pack_op(OP_INSERTION, j_c, 0)]
+        c_gaps = [gaps_word(pick(f_gapb, GAP_INSERTION),
+                            pick(GAP_INSERTION, f_gapf), ngaps_inc)]
+        c_op = [full(pack_op(OP_INSERTION, j_c, 0))]
         for slot in range(4):
             s_size = ch_size[:, slot]
             nonzero = s_size >= 1
-            code = 3 - slot
-            mm_score = Sj[:, code] + f_score
+            if bidir:
+                code = torch.where(fwd, slot, 3 - slot).to(i32)
+                # the JAX package sums a one-hot select of Sj; a score is
+                # never -0.0 (sums starting at +0.0), so the gather agrees
+                sj_c = Sj.gather(1, code[:, None].long())[:, 0]
+            else:
+                code = 3 - slot
+                sj_c = Sj[:, code]
+            mm_score = sj_c + f_score
             c_ok.append(still & nonzero & ~del_rej & del_allowed
                         & (ngaps_inc <= max_gaps))
             c_score.append(del_score)
-            cl_lower.append(ch_lower[:, slot])
-            cl_lrev.append(ch_lrev[:, slot])
+            cl_lower.append(out_lower[:, slot])
+            cl_lrev.append(out_lrev[:, slot])
             cl_size.append(s_size)
             c_startlen.append((f_start << 16) | f_len)
-            c_gaps.append(gaps_word(GAP_DELETION, f_gapf, ngaps_inc))
-            c_op.append(pack_op(OP_DELETION, j_c, code))
+            c_gaps.append(gaps_word(pick(f_gapb, GAP_DELETION),
+                                    pick(GAP_DELETION, f_gapf), ngaps_inc))
+            c_op.append(full(pack_op(OP_DELETION, j_c, code)))
 
             c_ok.append(still & nonzero & ~reject(mm_score + lb))
             c_score.append(mm_score)
-            cl_lower.append(ch_lower[:, slot])
-            cl_lrev.append(ch_lrev[:, slot])
+            cl_lower.append(out_lower[:, slot])
+            cl_lrev.append(out_lrev[:, slot])
             cl_size.append(s_size)
             c_startlen.append((next_start << 16) | (f_len + 1))
-            c_gaps.append(gaps_word(GAP_CLOSED, f_gapf, f_ngaps))
+            c_gaps.append(gaps_word(pick(f_gapb, GAP_CLOSED),
+                                    pick(GAP_CLOSED, f_gapf), f_ngaps))
             kind = torch.where(pat_j == code, OP_MATCH, OP_MISMATCH)
-            c_op.append(pack_op(kind, j_c, code))
+            c_op.append(full(pack_op(kind, j_c, code)))
 
         score9 = torch.stack(c_score, dim=1)
         size9 = torch.stack(cl_size, dim=1)
@@ -326,8 +405,7 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
         comp9 = torch.stack(comp_cols, dim=1)
         push9 = ok9 & ~comp9
 
-        op9 = (torch.stack([torch.as_tensor(o, dtype=i32, device=dev)
-                            .expand(L) for o in c_op], dim=1)
+        op9 = (torch.stack(c_op, dim=1)
                | torch.where(comp9, OP_COMP_BIT, 0)
                | torch.where(push9, OP_PUSHED_BIT, 0)).to(i32)
         op9[:, 0] = torch.where(abandon, OP_VALID_BIT | OP_ABANDON_BIT,
@@ -384,15 +462,75 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
         c_repr = torch.where(finish, nc[:, 4].view(torch.float32), c_repr)
         step += 1
 
+    # --- the generations loop (search_pool2.py:739-919 of the JAX
+    # package; with one generation the loop below runs once) ---
+    GENS = max(1, int(config.generations))
+    MIN_LIVE = max(1, int(config.min_live))
+    SPILL = max(0, int(config.spill_steps))
+    delta = S - CAP  # every live frame is at most CAP steps old
+    acc = _ChainLog(config, idt, dev)
+    acc_rs = torch.full((R + 1,), -1, dtype=i32, device=dev)
+    cum_shift = 0
+    gen_limit = S
+
+    def boundary():
+        """Plain PyTorch K8 (after the extraction): move the window of the
+        last CAP steps to the top of the store, remap parents, clear the
+        marks, rotate the rings, roll the step counters back."""
+        nonlocal store, consumed, bm_key, lane_start, step
+        shifted = torch.zeros_like(store)
+        shifted[:, delta:S] = store[:, : S - delta]
+        ops_f = shifted[..., F_OP]
+        par_f = shifted[..., F_PARENT]
+        shifted[..., F_PARENT] = torch.where(
+            ((ops_f & OP_VALID_BIT) != 0) & (par_f != ROOT),
+            par_f + CANDS * delta, par_f,
+        )
+        shifted[..., F_OP] = ops_f & ~(OP_COMP_BIT | OP_ABANDON_BIT)
+        store = shifted
+        # ring slot s holds step t with t = s (mod RB); steps drop by delta
+        consumed = torch.roll(consumed, -(delta % RB), dims=1)
+        bm_key = torch.roll(bm_key, -(delta % RB), dims=1)
+        lane_start = torch.clamp(lane_start - delta, min=0)
+        step -= delta
+
+    gen = 0
+    while gen == 0 or (gen < GENS and step < gen_limit
+                       and not bool(lane_done.all())):
+        while step < gen_limit and not bool(lane_done.all()):
+            body()
+        live = int((~lane_done).sum())
+        if step >= S and live >= MIN_LIVE and gen + 1 < GENS:
+            acc.append(*_extract_plain(store, config, cum_shift * CANDS))
+            if config.track_read_steps:
+                _fold_read_steps(fin_log, acc_rs, R)
+                fin_log.fill_(-1)
+            # capped spill: this generation runs at most SPILL more steps
+            gen_limit = min(S, step - delta + SPILL) if SPILL else S
+            timing = boundary_log is not None and dev.type == "cuda"
+            if timing:
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            boundary()
+            if timing:
+                torch.cuda.synchronize(dev)
+            if boundary_log is not None:
+                boundary_log.append(time.perf_counter() - t0)
+            cum_shift += delta
+        gen += 1
+
     lane_unfinished = ~lane_done & (read_id < R)
     return (store, fin_log, read_id, lane_unfinished, lane_age, next_read,
-            step, R)
+            step, R, cum_shift, acc, acc_rs)
 
 
-def _extract_chains_plain(store, fin_log, read_id, lane_unfinished,
-                          lane_age, next_read, steps, R, config):
-    """Plain PyTorch K3: compaction of completion/abandon entries (first C
-    in ascending (lane, slot) order), ancestor walk, per-read step fold."""
+def _extract_plain(store, config, slot_shift=0):
+    """Plain PyTorch extraction of one store: the first C completion /
+    abandon entries in ascending (lane, slot) order, their fields and
+    ancestor walks (`extract_chains` of the JAX package).  `slot_shift`
+    (9 x the steps compacted away so far) makes the slots global, so a
+    read's hits keep their completion order over a store boundary.
+    Returns (n_ext, n_chains, fields) with every field C long."""
     dev = store.device
     i32 = torch.int32
     S = config.total_steps
@@ -426,31 +564,93 @@ def _extract_chains_plain(store, fin_log, read_id, lane_unfinished,
         r = store[c_lane, node // CANDS, node % CANDS]
         words.append(torch.where(at_root, 0, r[:, F_OP]).to(i32))
         node = torch.where(at_root, ROOT, r[:, F_PARENT].long())
-    c_ops = torch.stack(words, dim=1)
+    fields = dict(
+        read=c_read, slot=(c_slot - slot_shift).to(i32), ab=c_abandon,
+        lower=rows_c[:, F_LOWER].contiguous(),
+        lrev=rows_c[:, F_LREV].contiguous(),
+        size=rows_c[:, F_SIZE].contiguous(),
+        score=rows_c[:, F_SCOREBITS].to(i32).contiguous().view(
+            torch.float32),
+        ops=torch.stack(words, dim=1),
+    )
+    return k, n_chains, fields
 
+
+def _fold_read_steps(fin_log, acc_rs, R):
+    """Max-reduce the finish log's (read, steps) events into the (R+1,)
+    per-read step accumulator (`fold_read_steps` of the JAX package)."""
+    ev = fin_log.reshape(-1)
+    rid = torch.where(ev >= 0, torch.div(ev, 4096, rounding_mode="floor"),
+                      R).long()
+    acc_rs.scatter_reduce_(0, rid, torch.remainder(ev, 4096), "amax")
+
+
+class _ChainLog:
+    """The chain accumulator of the generations loop (`acc0` /
+    `append_acc` of the JAX package): a 2C window, every extraction written
+    whole at offset min(chains so far, C), the result its first C entries.
+    With one generation it holds the one extraction."""
+
+    def __init__(self, config, idt, dev):
+        C2 = 2 * config.max_chains
+        MW = config.max_len + 16
+        i32 = torch.int32
+        self.C = config.max_chains
+        self.n = 0
+        self.nch = torch.zeros((), dtype=i32, device=dev)
+        self.f = dict(
+            read=torch.full((C2,), -1, dtype=i32, device=dev),
+            slot=torch.zeros(C2, dtype=i32, device=dev),
+            ab=torch.zeros(C2, dtype=torch.bool, device=dev),
+            lower=torch.zeros(C2, dtype=idt, device=dev),
+            lrev=torch.zeros(C2, dtype=idt, device=dev),
+            size=torch.zeros(C2, dtype=idt, device=dev),
+            score=torch.zeros(C2, dtype=torch.float32, device=dev),
+            ops=torch.zeros((C2, MW), dtype=i32, device=dev),
+        )
+
+    def append(self, n_ext, n_chains, fields):
+        wr = min(self.n, self.C)
+        for name, val in fields.items():
+            self.f[name][wr : wr + self.C] = val
+        self.n += n_ext
+        self.nch = self.nch + n_chains
+
+    def clone(self):
+        other = copy.copy(self)
+        other.f = {name: val.clone() for name, val in self.f.items()}
+        return other
+
+
+def _extract_chains_plain(store, fin_log, read_id, lane_unfinished,
+                          lane_age, next_read, steps, R, cum_shift, acc,
+                          acc_rs, config):
+    """Plain PyTorch K3 after the loop: the last extraction appended to the
+    chain log, the per-read step fold and the PoolResult tail."""
+    dev = store.device
+    i32 = torch.int32
+    C = config.max_chains
+    # the loop state stays as it is: the extraction can be repeated
+    acc, acc_rs = acc.clone(), acc_rs.clone()
+    acc.append(*_extract_plain(store, config, cum_shift * CANDS))
     if config.track_read_steps:
-        ev = fin_log.reshape(-1)
-        rid = torch.where(ev >= 0, torch.div(ev, 4096, rounding_mode="floor"),
-                          R).long()
-        acc = torch.full((R + 1,), -1, dtype=i32, device=dev)
-        acc.scatter_reduce_(0, rid, torch.remainder(ev, 4096), "amax")
+        _fold_read_steps(fin_log, acc_rs, R)
+        # unfinished lanes report the steps their held read consumed so far
         ur = torch.where(lane_unfinished, torch.clamp(read_id, 0, R),
                          R).long()
-        acc.scatter_reduce_(0, ur, lane_age, "amax")
-        read_steps = acc[:R]
+        acc_rs.scatter_reduce_(0, ur, lane_age, "amax")
+        read_steps = acc_rs[:R]
     else:
         read_steps = torch.full((R,), -1, dtype=i32, device=dev)
+    f = acc.f
     return PoolResult(
-        c_read=c_read, c_slot=c_slot.to(i32), c_abandon=c_abandon,
-        c_lower=rows_c[:, F_LOWER].contiguous(),
-        c_lrev=rows_c[:, F_LREV].contiguous(),
-        c_size=rows_c[:, F_SIZE].contiguous(),
-        c_score=rows_c[:, F_SCOREBITS].to(i32).contiguous().view(
-            torch.float32),
-        c_ops=c_ops, n_chains=n_chains,
+        c_read=f["read"][:C], c_slot=f["slot"][:C], c_abandon=f["ab"][:C],
+        c_lower=f["lower"][:C], c_lrev=f["lrev"][:C], c_size=f["size"][:C],
+        c_score=f["score"][:C], c_ops=f["ops"][:C], n_chains=acc.nch,
         lane_read=read_id.to(i32), lane_unfinished=lane_unfinished,
         next_read=torch.tensor(next_read, dtype=i32, device=dev),
-        steps=torch.tensor(steps, dtype=i32, device=dev),
+        # every step run, over all generations
+        steps=torch.tensor(steps + cum_shift, dtype=i32, device=dev),
         read_steps=read_steps,
     )
 
@@ -461,6 +661,9 @@ def _extract_chains_plain(store, fin_log, read_id, lane_unfinished,
 # is shared with csrc/common.cuh
 N_LANE_STATE = 16
 NFP_BIG = NF + 3  # words of a stored frame with int64 intervals
+# glob[]: the device-side loop counters (enum Glob of csrc/common.cuh)
+G_STEP, G_NEXT_READ, G_DONE, G_LIMIT, G_LIVE = 0, 1, 2, 3, 4
+N_GLOB = 12
 
 
 class _PoolArgs(ctypes.Structure):
@@ -483,6 +686,20 @@ class _PoolArgs(ctypes.Structure):
         ("consumed", ctypes.c_void_p), ("bm_key", ctypes.c_void_p),
         ("lane", ctypes.c_void_p), ("glob", ctypes.c_void_p),
         ("fin_log", ctypes.c_void_p),
+        ("bidir", ctypes.c_int),
+    ]
+
+
+class _CompactArgs(ctypes.Structure):
+    """Mirror of `struct CompactArgs` in csrc/common.cuh."""
+
+    _fields_ = [
+        ("store", ctypes.c_void_p),
+        ("consumed", ctypes.c_void_p), ("bm_key", ctypes.c_void_p),
+        ("consumed_next", ctypes.c_void_p), ("bm_key_next", ctypes.c_void_p),
+        ("lane", ctypes.c_void_p), ("glob", ctypes.c_void_p),
+        ("L", ctypes.c_int), ("S", ctypes.c_int), ("CAP", ctypes.c_int),
+        ("RB", ctypes.c_int), ("spill", ctypes.c_int), ("big", ctypes.c_int),
     ]
 
 
@@ -495,10 +712,11 @@ class _ExtractArgs(ctypes.Structure):
         ("fin_log", ctypes.c_void_p),
         ("R", ctypes.c_int), ("L", ctypes.c_int), ("S", ctypes.c_int),
         ("C", ctypes.c_int), ("MW", ctypes.c_int), ("track", ctypes.c_int),
-        ("big", ctypes.c_int),
+        ("big", ctypes.c_int), ("first", ctypes.c_int),
+        ("final", ctypes.c_int),
         ("lane_cnt", ctypes.c_void_p), ("lane_off", ctypes.c_void_p),
         ("lane_first", ctypes.c_void_p), ("c_lane", ctypes.c_void_p),
-        ("pad", ctypes.c_void_p),
+        ("e_slot", ctypes.c_void_p), ("pad", ctypes.c_void_p),
         ("c_read", ctypes.c_void_p), ("c_slot", ctypes.c_void_p),
         ("c_abandon", ctypes.c_void_p), ("c_lower", ctypes.c_void_p),
         ("c_lrev", ctypes.c_void_p), ("c_size", ctypes.c_void_p),
@@ -512,10 +730,12 @@ class _ExtractArgs(ctypes.Structure):
 
 def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
                     cutoff_thresh, repr_mm, params: SearchParams,
-                    config: PoolConfig, slut):
-    """K2 wrapper: launch the step kernels until the device done flag is
-    set or the step budget is spent.  Returns the loop state
-    `_extract_chains_cuda` reads."""
+                    config: PoolConfig, slut, boundary_log=None):
+    """K2 and K8 wrapper: launch the step kernels until the device done
+    flag is set or the step limit is reached; with store generations, run
+    K3 and K8 at every boundary and go on.  Returns the loop state
+    `_extract_chains_cuda` reads.  `boundary_log`: a list that receives a
+    (start, end) pair of CUDA events around every K8 call."""
     dev = n.device
     i32 = torch.int32
     R = n.shape[0]
@@ -523,7 +743,10 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
     L = config.lanes
     S = config.total_steps
     RB = min(S, config.read_step_cap + 1)
+    GENS = max(1, int(config.generations))
+    MIN_LIVE = max(1, int(config.min_live))
     big = bool(index.big)
+    bidir = not config.backward_only
     rec = CANDS * (NFP_BIG if big else NF)
     require(1 <= L <= 1024, "the refill kernel scans at most 1024 lanes")
     require(R >= 1 and slut.shape == (R * M, 6), "pool search shapes")
@@ -544,10 +767,10 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
 
     store = empty(L, S + 1, rec)
     bmask = empty(L, S)
-    consumed = empty(L, RB)
-    bm_key = empty(L, RB)
+    # with generations a second pair of rings: K8 rotates into it
+    rings = [(empty(L, RB), empty(L, RB)) for _ in range(2 if GENS > 1 else 1)]
     lane = empty(N_LANE_STATE, L)
-    glob = empty(4)
+    glob = empty(N_GLOB)
     fin_log = empty(L, S) if track else None
     args = _PoolArgs(
         index.rows.data_ptr(), index.less.data_ptr(),
@@ -558,9 +781,10 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
         repr_mm.data_ptr(), R, M, L, S, config.read_step_cap, RB,
         int(track), float(params.pgo_pge), float(params.pge),
         int(params.gap_dist_ends), int(params.max_gaps),
-        store.data_ptr(), bmask.data_ptr(), consumed.data_ptr(),
-        bm_key.data_ptr(), lane.data_ptr(), glob.data_ptr(),
+        store.data_ptr(), bmask.data_ptr(), rings[0][0].data_ptr(),
+        rings[0][1].data_ptr(), lane.data_ptr(), glob.data_ptr(),
         fin_log.data_ptr() if track else None,
+        int(bidir),
     )
     stream = torch.cuda.current_stream(dev)
     P = ctypes.POINTER(_PoolArgs)
@@ -568,38 +792,85 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
                               [P, ctypes.c_void_p])
     pool_steps = cuda_function("pool_search", "pool_steps",
                                [P, ctypes.c_int, ctypes.c_void_p])
-    name = "pool_search_i64" if big else "pool_search"
-    k1_name = "extend_batch_i64" if big else "extend_batch"
+    sfx = "_i64" if big else ""
+    name = "pool_search" + ("_bidir" if bidir else "") + sfx
+    k1_name = "extend_batch" + sfx
     LAUNCHES.add(name)
     check(pool_init(ctypes.byref(args), stream.cuda_stream), "pool_init")
-    # launch POLL_STEPS steps at a time; read the done flag of the batch
-    # before last (the copy is queued behind it), so the queue never drains.
-    # Each step is two launches (lane kernel, refill kernel); steps queued
-    # after the flag is set return at once but are launches all the same.
-    flags = torch.empty((2, 4), dtype=i32, pin_memory=True)
+    flags = torch.empty((2, N_GLOB), dtype=i32, pin_memory=True)
     events = [torch.cuda.Event(), torch.cuda.Event()]
-    batch = 0
+
+    def run_generation():
+        """Launch POLL_STEPS steps at a time; read the flags of the batch
+        before last (the copy is queued behind it), so the queue never
+        drains.  Each step is two launches (lane kernel, refill kernel);
+        steps queued after the done flag is set or the step limit is
+        reached return at once but are launches all the same, so the
+        counters stop exactly where the JAX while_loop stops.  Returns the
+        counters at the stop."""
+        batch = 0
+        while True:
+            LAUNCHES.add(name, 2 * POLL_STEPS)
+            # K1 runs inline in the lane kernel
+            LAUNCHES.add(k1_name, POLL_STEPS)
+            check(pool_steps(ctypes.byref(args), POLL_STEPS,
+                             stream.cuda_stream), "pool_steps")
+            flags[batch % 2].copy_(glob, non_blocking=True)
+            events[batch % 2].record(stream)
+            if batch >= 1:
+                prev = (batch - 1) % 2
+                events[prev].synchronize()
+                g = flags[prev].tolist()
+                if g[G_DONE] or g[G_STEP] >= g[G_LIMIT]:
+                    return g
+            batch += 1
+            assert batch <= S // POLL_STEPS + 2
+
+    out = None
+    boundaries = 0
     while True:
-        LAUNCHES.add(name, 2 * POLL_STEPS)
-        LAUNCHES.add(k1_name, POLL_STEPS)  # K1 runs inline in the lane kernel
-        check(pool_steps(ctypes.byref(args), POLL_STEPS, stream.cuda_stream),
-              "pool_steps")
-        flags[batch % 2].copy_(glob, non_blocking=True)
-        events[batch % 2].record(stream)
-        if batch >= 1:
-            prev = (batch - 1) % 2
-            events[prev].synchronize()
-            g = flags[prev]
-            if int(g[2]) or int(g[0]) >= S:
-                break
-        batch += 1
-        assert batch <= S // POLL_STEPS + 2
-    return store, bmask, lane, glob, fin_log, R, big
+        g = run_generation()
+        # the spill test of the JAX package's outer loop: a full store,
+        # enough lanes still live, a generation left
+        if not (boundaries + 1 < GENS and g[G_STEP] >= S and not g[G_DONE]
+                and g[G_LIVE] >= MIN_LIVE):
+            break
+        if out is None:
+            out = _alloc_result(config, R, big, dev)
+        state = (store, bmask, lane, glob, fin_log, R, big, out, boundaries)
+        _extract_chains_cuda(*state, config, final=False)
+        k8 = "pool_compact" + sfx
+        compact = cuda_function(
+            "pool_compact", "pool_compact",
+            [ctypes.POINTER(_CompactArgs), ctypes.POINTER(ctypes.c_int),
+             ctypes.c_void_p])
+        cur, nxt = rings[boundaries % 2], rings[(boundaries + 1) % 2]
+        c_args = _CompactArgs(
+            store.data_ptr(), cur[0].data_ptr(), cur[1].data_ptr(),
+            nxt[0].data_ptr(), nxt[1].data_ptr(), lane.data_ptr(),
+            glob.data_ptr(), L, S, config.read_step_cap, RB,
+            max(0, int(config.spill_steps)), int(big))
+        launched = ctypes.c_int(0)
+        if boundary_log is not None:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record(stream)
+        rc = compact(ctypes.byref(c_args), ctypes.byref(launched),
+                     stream.cuda_stream)
+        # the window moves in one launch or, where source and destination
+        # overlap, in several: the library reports how many it made
+        LAUNCHES.add(k8, launched.value)
+        check(rc, k8)
+        if boundary_log is not None:
+            ev[1].record(stream)
+            boundary_log.append(ev)
+        # the step kernels go on in the rotated rings
+        args.consumed, args.bm_key = c_args.consumed_next, c_args.bm_key_next
+        boundaries += 1
+    return store, bmask, lane, glob, fin_log, R, big, out, boundaries
 
 
-def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, config):
-    """K3 wrapper: compaction, ancestor walk and step fold on the card."""
-    dev = store.device
+def _alloc_result(config, R, big, dev):
     L, C = config.lanes, config.max_chains
     MW = config.max_len + 16
     idt = torch.int64 if big else torch.int32
@@ -607,7 +878,7 @@ def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, config):
     def empty(*shape, dtype=torch.int32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    out = dict(
+    return dict(
         c_read=empty(C), c_slot=empty(C),
         c_abandon=empty(C, dtype=torch.bool), c_lower=empty(C, dtype=idt),
         c_lrev=empty(C, dtype=idt), c_size=empty(C, dtype=idt),
@@ -616,13 +887,29 @@ def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, config):
         lane_unfinished=empty(L, dtype=torch.bool), next_read=empty(),
         steps=empty(), read_steps=empty(R + 1),
     )
-    scratch = torch.empty(3 * L + C + 2, dtype=torch.int32, device=dev)
+
+
+def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, out,
+                         boundaries, config, final=True):
+    """K3 wrapper: compaction, ancestor walk and step fold on the card.
+    `out`: the result buffers the earlier boundaries of this invocation
+    wrote into (None: none yet); `boundaries`: how many there were.  Not
+    `final`: an extraction at a store boundary, which appends its chains
+    and folds its steps and leaves the tail fields to the last one."""
+    dev = store.device
+    L, C = config.lanes, config.max_chains
+    MW = config.max_len + 16
+    if out is None:
+        out = _alloc_result(config, R, big, dev)
+    scratch = torch.empty(3 * L + 2 * C + 4, dtype=torch.int32, device=dev)
+    first = boundaries == 0
     args = _ExtractArgs(
         store.data_ptr(), bmask.data_ptr(), lane.data_ptr(),
         glob.data_ptr(), fin_log.data_ptr() if fin_log is not None else None,
         R, L, config.total_steps, C, MW,
-        int(fin_log is not None), int(big),
-        *[scratch[k:].data_ptr() for k in (0, L, 2 * L, 3 * L, 3 * L + C)],
+        int(fin_log is not None), int(big), int(first), int(final),
+        *[scratch[k:].data_ptr()
+          for k in (0, L, 2 * L, 3 * L, 3 * L + C, 3 * L + 2 * C)],
         *[out[k].data_ptr() for k in (
             "c_read", "c_slot", "c_abandon", "c_lower", "c_lrev", "c_size",
             "c_score", "c_ops", "n_chains", "lane_read", "lane_unfinished",
@@ -630,13 +917,14 @@ def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, config):
     )
     fn = cuda_function("extract_chains", "extract_chains",
                        [ctypes.POINTER(_ExtractArgs), ctypes.c_void_p])
-    # count, compaction scan, emit, ancestor walk, fold init (+ step fold)
+    # count, compaction scan, emit, ancestor walk (+ fold init, step fold)
     LAUNCHES.add("extract_chains_i64" if big else "extract_chains",
-                 5 + int(fin_log is not None))
+                 4 + int(first) + int(fin_log is not None))
     check(fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
           "extract_chains")
-    out["read_steps"] = out["read_steps"][:R]
-    return PoolResult(**out)
+    if not final:
+        return None
+    return PoolResult(**dict(out, read_steps=out["read_steps"][:R]))
 
 
 def _dense_slut(index: DeviceFmIndex, dense, n, split, config: PoolConfig,
@@ -664,7 +952,8 @@ def k_mismatch_search_pool2(index: DeviceFmIndex, n, split, cutoff_scale,
                             cutoff_thresh, repr_mm, params: SearchParams,
                             config: PoolConfig, slut=None, dense=None,
                             bid_steps=None) -> PoolResult:
-    """One pool invocation over R reads: K2 then K3.
+    """One pool invocation over R reads: K2 then K3, with K3 and K8 at
+    every store boundary when `config.generations` allows more than one.
 
     Inputs are the unpacked prep arrays (ops/engine.py): n, split (R,) i32;
     cutoff_scale, cutoff_thresh, repr_mm (R,) f32; and either `slut`, the

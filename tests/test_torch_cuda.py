@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on
 the card, at small shapes that reach the edge cases (abandon markers, chain
-log overflow, an exhausted step budget, the RLE and raw Bi-D blobs), with
-int32 intervals and with the int64 intervals of big mode.
+log overflow, an exhausted step budget, the RLE and raw Bi-D blobs, store
+boundaries with and without overlap of the moved window, the bidirectional
+search), with int32 intervals and with the int64 intervals of big mode.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  On the card:
 
@@ -51,18 +52,38 @@ def _equal(got, want, what):
 
 
 def _prepped(fmd, cuda, cfg_kw, seed, rle=True, monkeypatch=None, big=False,
-             qual=40):
+             qual=40, params=None, reads=None, R=48):
     from mapad_tpu_torch.ops.engine import DeviceSearchEngine
     from mapad_tpu_torch.ops.search_pool import PoolConfig
 
     if not rle:
         monkeypatch.setenv("MAPAD_BID_RLE", "0")
-    eng = DeviceSearchEngine(fmd, adna_params("mapad_tpu_torch"),
+    eng = DeviceSearchEngine(fmd, params or adna_params("mapad_tpu_torch"),
                              pool_config=PoolConfig(**cfg_kw), device=cuda,
                              big=big)
-    recs = records("mapad_tpu_torch", bench_reads(seed=seed), qual)
-    cfg, prep, _ = eng._prep_block(recs, 48, eng.pool_config)
+    recs = records("mapad_tpu_torch",
+                   bench_reads(seed=seed) if reads is None else reads, qual)
+    cfg, prep, _ = eng._prep_block(recs, R, eng.pool_config)
     return eng, cfg, prep
+
+
+def _pool_both(eng, cfg, prep, cuda):
+    """K2 (+ K8) + K3 on the card and their plain versions on the same
+    device inputs -> (kernel result, plain result, K8 calls)."""
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+
+    with torch.cuda.device(cuda):
+        consts, kw = eng._upload(prep)
+        slut = kw["slut"] if "slut" in kw else sp2._dense_slut(
+            eng.device_index, kw["dense"], consts[0], consts[1], cfg,
+            kw["bid_steps"])
+        args = (eng.device_index, *consts, eng._params(), cfg, slut)
+        fired = []
+        got = sp2._extract_chains_cuda(
+            *sp2._pool_loop_cuda(*args, boundary_log=fired), cfg)
+        want = sp2._extract_chains_plain(*sp2._pool_loop_plain(*args), cfg)
+        torch.cuda.synchronize()
+    return got, want, len(fired)
 
 
 @pytest.mark.parametrize("rle", [True, False])
@@ -196,19 +217,99 @@ def test_pool_search_and_pack_kernels(fmd, cuda, case, track, big):
     eng, cfg, prep = _prepped(fmd, cuda, CASES[case], seed=len(case),
                               big=big)
     cfg = cfg._replace(track_read_steps=track)
-    with torch.cuda.device(cuda):
-        consts, kw = eng._upload(prep)
-        slut = kw["slut"] if "slut" in kw else sp2._dense_slut(
-            eng.device_index, kw["dense"], consts[0], consts[1], cfg,
-            kw["bid_steps"])
-        assert ("dense" in kw) == big
-        args = (eng.device_index, *consts, eng._params(), cfg, slut)
-        got = sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*args), cfg)
-        want = sp2._extract_chains_plain(*sp2._pool_loop_plain(*args), cfg)
-        torch.cuda.synchronize()
+    assert ("blob" in prep and bool(prep.get("dev_full"))) == big
+    got, want, _fired = _pool_both(eng, cfg, prep, cuda)
     _equal(tuple(got), tuple(want), case)
     _equal((teng._pack_result(got),), (teng._pack_result_plain(got),),
            "pack_result")
+
+
+# store generations: (config, K8 calls the reads force at least)
+GEN_CASES = {
+    # cap > steps / 2: the moved window overlaps its old place (4 chunks)
+    "overlap": (dict(lanes=8, total_steps=640, read_step_cap=512,
+                     max_chains=1024, generations=4, min_live=1), 2),
+    # cap < steps / 2: one move
+    "no_overlap": (dict(lanes=8, total_steps=448, read_step_cap=160,
+                        max_chains=1024, generations=4, min_live=1), 2),
+    # a capped spill: the generation after the boundary stops early
+    "spill": (dict(lanes=8, total_steps=640, read_step_cap=512,
+                   max_chains=1024, generations=4, min_live=1,
+                   spill_steps=96), 1),
+    # more chains than the log holds: the append offset clamps
+    "overflow": (dict(lanes=8, total_steps=640, read_step_cap=512,
+                      max_chains=24, generations=4, min_live=1), 2),
+    # a generation left but too few live lanes: no boundary
+    "min_live": (dict(lanes=8, total_steps=640, read_step_cap=512,
+                      max_chains=1024, generations=4, min_live=9), 0),
+    # wider than a warp, the margin at its least (cap + 4 == steps)
+    "margin": (dict(lanes=40, total_steps=132, read_step_cap=128,
+                    max_chains=1024, generations=3, min_live=1), 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEN_CASES))
+@pytest.mark.parametrize("track", [True, False])
+@pytest.mark.parametrize("big", [False, True])
+def test_pool_compact_kernel(fmd, cuda, case, track, big):
+    """K8 (and K3 at the boundaries, K2 going on after them) against the
+    plain generations loop: every PoolResult field equal."""
+    cfg_kw, least = GEN_CASES[case]
+    reads = (bench_reads(seed=31, n_random=40, n_exo=0) * 2)[:96]
+    eng, cfg, prep = _prepped(fmd, cuda, cfg_kw, 0, big=big, reads=reads,
+                              R=96)
+    cfg = cfg._replace(track_read_steps=track)
+    got, want, fired = _pool_both(eng, cfg, prep, cuda)
+    _equal(tuple(got), tuple(want), case)
+    assert fired >= least and (least or not fired), fired
+    if fired:
+        assert int(got.steps) > cfg.total_steps
+
+
+def _center_params(model):
+    from mapad_tpu_torch import models
+    from mapad_tpu_torch.map import AlignmentParameters
+
+    if model == "test":
+        return AlignmentParameters(
+            difference_model=models.TestDifferenceModel(
+                deam_score=-0.5, mm_score=-1.0, match_score=0.0),
+            mismatch_bound=models.TestBound(threshold=-2.0,
+                                            representative_mm_bound=-1.0),
+            penalty_gap_open=-2.0, penalty_gap_extend=-1.0, chunk_size=1,
+            gap_dist_ends=0, stack_limit_abort=False, max_num_gaps_open=2,
+        )
+    dm = models.VindijaPwm()
+    repr_mm = dm.get_representative_mismatch_penalty()
+    return AlignmentParameters(
+        difference_model=dm,
+        mismatch_bound=models.Discrete(0.01, 0.02, repr_mm),
+        penalty_gap_open=np.float32(3.0) * repr_mm,
+        penalty_gap_extend=np.float32(0.6) * repr_mm, chunk_size=1,
+        gap_dist_ends=5, stack_limit_abort=False, max_num_gaps_open=2,
+    )
+
+
+@pytest.mark.parametrize("model", ["test", "vindija"])
+@pytest.mark.parametrize("gens", [1, 3])
+@pytest.mark.parametrize("big", [False, True])
+def test_pool_search_bidirectional_kernel(fmd, cuda, model, gens, big):
+    """K2 in its bidirectional form (center-start models), alone and with
+    store boundaries."""
+    cfg_kw = dict(lanes=8, total_steps=3072, read_step_cap=512,
+                  max_chains=512, compute_forward_part=True)
+    if gens > 1:
+        cfg_kw.update(total_steps=320, read_step_cap=256, generations=gens,
+                      min_live=1)
+    eng, cfg, prep = _prepped(fmd, cuda, cfg_kw, 17, big=big,
+                              qual=0 if model == "test" else 40,
+                              params=_center_params(model))
+    assert not cfg.backward_only
+    got, want, fired = _pool_both(eng, cfg, prep, cuda)
+    _equal(tuple(got), tuple(want), (model, gens))
+    n = min(int(got.n_chains), cfg.max_chains)
+    assert int((~got.c_abandon[:n]).sum()) > 8
+    assert fired > 0 or gens == 1
 
 
 @pytest.mark.parametrize("big,qual", [(False, 40), (True, 40), (True, 100)])
@@ -228,6 +329,9 @@ def test_engine_on_the_card_equals_plain(fmd, cuda, big, qual, monkeypatch):
         monkeypatch.delenv(name, raising=False)
     if big:
         monkeypatch.setenv("MAPAD_DEEP_NOHIT_HOST", "0")
+        # the narrow deep config: 4 lanes x 4096 steps, 4 store generations
+        monkeypatch.setenv("MAPAD_DEEP_LANES", "4")
+        monkeypatch.setenv("MAPAD_KGENS_MIN_LIVE", "1")
     cfg = PoolConfig(lanes=16, total_steps=1024,
                      read_step_cap=48 if big else 256, max_chains=256)
     reads = records("mapad_tpu_torch", bench_reads(seed=4, n_random=60),

@@ -2,8 +2,10 @@
 engine over several streamed blocks: the same reads escalate, and every
 read's hits are equal bit for bit, packed and decoded; in small mode, in
 big (int64) mode with its defaults (Bi-D on the device, deep tier on), and
-through the retry and deep tiers with equal counters.  Every guard of a
-later slice raises when the engine or its config is made."""
+through the retry and deep tiers with equal counters; with store
+generations (MAPAD_KGENS, the narrow deep config), the bidirectional search
+of center-start models and the batched no-hit probe.  What is not ported
+yet raises when the engine is made."""
 
 import os
 
@@ -107,11 +109,25 @@ def _pair(indexes, cfg, **kw):
     return je, te
 
 
+def _count_steps(je):
+    """The JAX engine keeps no step count: sum `steps` of every result it
+    unpacks into `je._stats["steps"]`, as the port's engine does."""
+    unpack = je._unpack_result
+
+    def counting(handle, flat):
+        res = unpack(handle, flat)
+        je._stats["steps"] = je._stats.get("steps", 0) + int(res.steps)
+        return res
+
+    je._unpack_result = counting
+
+
 def _assert_same_run(je, te, reads, block, packed, qual=40,
                      counters=("retried", "deep_retried", "nohit_host",
                                "oracle", "escalated", "batches",
-                               "device_lanes")):
+                               "device_lanes", "steps")):
     je.block_reads = te.block_reads = block
+    _count_steps(je)
     j_esc, j_hits = _stream(je, records("mapad_tpu", reads, qual), block)
     t_esc, t_hits = _stream(te, records("mapad_tpu_torch", reads, qual),
                             block)
@@ -225,54 +241,193 @@ def test_tiers_equal_jax(indexes, case, monkeypatch):
 
 def test_narrow_deep_config_shape_and_guard(indexes, monkeypatch):
     """MAPAD_DEEP_LANES narrows the deep config and asks for store
-    generations: the fields equal the JAX package's; running it needs
-    kernel K8, so the stream refuses before any block is launched."""
+    generations (kernel K8): the fields equal the JAX package's, and the
+    same reads take the same way through it in both packages."""
+    for name in _TIER_ENV:
+        monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("MAPAD_DEEP_TIER", "1")
     monkeypatch.setenv("MAPAD_DEEP_LANES", "4")
+    monkeypatch.setenv("MAPAD_DEEP_NOHIT_HOST", "0")
+    monkeypatch.setenv("MAPAD_KGENS_MIN_LIVE", "1")
     cfg = dict(max_len=128, lanes=8, total_steps=2048, read_step_cap=64,
                max_chains=1024)
-    je, te = _pair(indexes, cfg)
+    je, te = _pair(indexes, cfg, packed_hits=True)
     deep, jdeep = te._deep_config(), je._deep_config()
     assert (deep.lanes, deep.total_steps, deep.read_step_cap) == (4, 4096,
                                                                    2048)
     for f in ("lanes", "total_steps", "read_step_cap", "generations",
               "min_live", "spill_steps"):
         assert getattr(deep, f) == getattr(jdeep, f), f
-    assert deep.generations > 1
+    assert deep.generations == 4
+    reads = bench_reads(seed=13, n_random=24, n_exo=8)
+    _assert_same_run(je, te, reads, 64, True)
+    assert te._stats.get("deep_retried", 0) > 0
     recs = records("mapad_tpu_torch", bench_reads(seed=2, n_random=4))
-    with pytest.raises(NotImplementedError, match="K8.*later slice"):
-        te.search_chunk(recs, lazy_fallback=True)
-    assert te._stats["batches"] == 0 and te._stats["steps"] == 0
-    with pytest.raises(NotImplementedError, match="K8.*later slice"):
-        te.warm(recs)
-    # one generation (or no deep tier) runs
+    te.warm(recs)  # the deep config runs in warm too
     monkeypatch.setenv("MAPAD_DEEP_KGENS", "1")
+    assert te._deep_config().generations == 1
     assert len(te.search_chunk(recs)) == len(recs)
 
 
-@pytest.mark.parametrize("what", ["mode", "generations", "shard",
-                                  "bidirectional", "nohit_probe"])
+_POOL_ENV = ("MAPAD_POOL_STEPS", "MAPAD_POOL_CAP", "MAPAD_KGENS",
+             "MAPAD_KGENS_MIN_LIVE", "MAPAD_SPILL")
+
+
+@pytest.mark.parametrize("env", [
+    {},
+    dict(MAPAD_KGENS="4", MAPAD_KGENS_MIN_LIVE="8", MAPAD_SPILL="512"),
+    dict(MAPAD_POOL_STEPS="4096", MAPAD_POOL_CAP="1024", MAPAD_KGENS="2"),
+    # no margin for a boundary: one generation
+    dict(MAPAD_POOL_STEPS="3074", MAPAD_KGENS="4"),
+], ids=["defaults", "kgens", "steps_cap", "no_margin"])
+def test_default_pool_config_equals_jax(indexes, env, monkeypatch):
+    """The config an engine makes for itself is the JAX package's, field by
+    field, under the same environment."""
+    for name in _POOL_ENV:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    jfmd, tfmd = indexes
+    for lanes in (2048, 64):
+        je = JEngine(jfmd, adna_params("mapad_tpu"), lanes=lanes, mode="pool")
+        te = TEngine(tfmd, adna_params("mapad_tpu_torch"), lanes=lanes,
+                     device="cpu")
+        for f in TPoolConfig._fields:
+            assert getattr(te.pool_config, f) == getattr(je.pool_config, f), f
+    if not env:
+        assert (te.pool_config.min_live, te.pool_config.spill_steps) == (32,
+                                                                         768)
+
+
+# the starved shape of tests/test_device_search.py: 8 lanes x 640 steps
+# cannot finish the block in one store generation
+_STARVED = dict(max_len=128, lanes=8, total_steps=640, read_step_cap=512,
+                max_chains=1024, min_live=1)
+
+
+@pytest.mark.parametrize("spill", [0, 96])
+def test_store_generations_engine_equals_jax(indexes, spill, monkeypatch):
+    """Four store generations (what MAPAD_KGENS=4 asks for) on a starved
+    step budget: reads left unfinished or undispatched at a full store
+    resume after the compaction; every counter and every hit equals the
+    JAX engine's, and the host searches fewer reads than at one
+    generation."""
+    for name in _TIER_ENV:
+        monkeypatch.delenv(name, raising=False)
+    reads = bench_reads(seed=31, n_random=40, n_exo=0)
+    reads = (reads * 2)[:96]
+    host = {}
+    for gens in (1, 4):
+        je, te = _pair(indexes, dict(_STARVED, generations=gens,
+                                     spill_steps=spill), packed_hits=True)
+        assert te.pool_config.generations == gens
+        _assert_same_run(je, te, reads, 96, True)
+        host[gens] = te._stats["oracle"]
+    assert host[1] > 0, host
+    assert host[4] < host[1] if spill == 0 else host[4] <= host[1], host
+
+
+def test_nohit_probe_equals_jax(indexes, monkeypatch):
+    """MAPAD_NOHIT_PROBE=1: escalatees without a hit go through the batched
+    exhaustion probes of the host C++ searcher (several batches of 5).  The
+    chimeric reads of tests/test_device_search.py: both halves extend far,
+    no full alignment exists."""
+    for name in _TIER_ENV:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("MAPAD_NOHIT_PROBE", "1")
+    monkeypatch.setenv("MAPAD_PROBE_BATCH", "5")
+    ref = bench_ref()
+    rng = np.random.default_rng(41)
+    reads = bench_reads(n_random=0, n_exo=0)
+    for _ in range(24):
+        ln = int(rng.integers(48, 90))
+        h = ln // 2
+        a = int(rng.integers(0, len(ref) - h))
+        b = int(rng.integers(0, len(ref) - h))
+        reads.append(ref[a : a + h] + ref[b : b + ln - h])
+    cfg = dict(max_len=128, lanes=8, total_steps=4096, read_step_cap=16,
+               max_chains=256)
+    for packed in (True, False):
+        je, te = _pair(indexes, cfg, packed_hits=packed)
+        _assert_same_run(je, te, reads, len(reads), packed)
+        assert te._stats["oracle"] > 0
+        # read after every future resolved: fallback-pool tasks write it
+        assert te._stats.get("probe_empty", 0) > 0
+        assert te._stats["probe_empty"] == je._stats["probe_empty"]
+
+
+def _test_model_params(pkg):
+    """tests/test_device_search.py::test_test_model_device_equals_oracle: a
+    model whose alignment starts in the middle of the read."""
+    models = __import__(f"{pkg}.models", fromlist=["x"])
+    mapping = __import__(f"{pkg}.map", fromlist=["x"])
+    return mapping.AlignmentParameters(
+        difference_model=models.TestDifferenceModel(
+            deam_score=-0.5, mm_score=-1.0, match_score=0.0),
+        mismatch_bound=models.TestBound(threshold=-2.0,
+                                        representative_mm_bound=-1.0),
+        penalty_gap_open=-2.0, penalty_gap_extend=-1.0, chunk_size=1,
+        gap_dist_ends=0, stack_limit_abort=False, max_num_gaps_open=2,
+    )
+
+
+def _vindija_params(pkg):
+    models = __import__(f"{pkg}.models", fromlist=["x"])
+    mapping = __import__(f"{pkg}.map", fromlist=["x"])
+    dm = models.VindijaPwm()
+    repr_mm = dm.get_representative_mismatch_penalty()
+    return mapping.AlignmentParameters(
+        difference_model=dm,
+        mismatch_bound=models.Discrete(0.01, 0.02, repr_mm),
+        penalty_gap_open=np.float32(3.0) * repr_mm,
+        penalty_gap_extend=np.float32(0.6) * repr_mm, chunk_size=1,
+        gap_dist_ends=5, stack_limit_abort=False, max_num_gaps_open=2,
+    )
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("model", ["test", "vindija"])
+def test_bidirectional_engine_equals_jax_and_oracle(indexes, model, big,
+                                                    monkeypatch):
+    """A center-start model turns `backward_only` off in both engines; the
+    hits equal the JAX engine's and the port's own sequential oracle's."""
+    from mapad_tpu_torch.map.oracle import k_mismatch_search
+
+    for name in _TIER_ENV:
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("MAPAD_DEEP_TIER", "0")
+    params_of = _test_model_params if model == "test" else _vindija_params
+    qual = 0 if model == "test" else 40
+    jfmd, tfmd = indexes
+    cfg = dict(max_len=128, lanes=8, total_steps=4096, read_step_cap=1024,
+               max_chains=512)
+    je = JEngine(jfmd, params_of("mapad_tpu"), mode="pool",
+                 pool_config=JPoolConfig(compute_forward_part=True, **cfg),
+                 big=big)
+    tparams = params_of("mapad_tpu_torch")
+    te = TEngine(tfmd, tparams, pool_config=TPoolConfig(
+        compute_forward_part=True, **cfg), big=big, device="cpu")
+    assert not te.pool_config.backward_only
+    assert not je.pool_config.backward_only
+    reads = bench_reads(seed=21, n_random=20, n_exo=3)[:40]
+    _esc, hits = _assert_same_run(je, te, reads, 40, False, qual)
+    assert sum(len(h) > 0 for h in hits) > len(reads) // 2
+    for read, got in zip(reads, hits):
+        want = k_mismatch_search(read, [qual] * len(read), tparams, tfmd)
+        assert hits_equal(got, want), read[:16]
+
+
+@pytest.mark.parametrize("what", ["mode", "shard"])
 def test_later_slices_raise_when_made(indexes, what, monkeypatch):
-    """What is not ported yet refuses at construction or config time, not
-    in the middle of a stream."""
+    """What is not ported yet refuses at construction time, not in the
+    middle of a stream."""
     _jfmd, tfmd = indexes
     params = adna_params("mapad_tpu_torch")
     kw = dict(pool_config=TPoolConfig(**CFG), device="cpu")
     if what == "mode":
         kw["mode"] = "batch"  # fixed-batch engine, kernel K10
-    elif what == "generations":
-        kw["pool_config"] = TPoolConfig(**dict(CFG, generations=2))  # K8
     elif what == "shard":
         monkeypatch.setenv("MAPAD_SHARD", "1")  # the mesh, kernel K9
-    elif what == "bidirectional":
-        kw["pool_config"] = TPoolConfig(**dict(CFG, backward_only=False))
-    elif what == "nohit_probe":
-        monkeypatch.setenv("MAPAD_NOHIT_PROBE", "1")
-        te = TEngine(tfmd, params, **kw)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            te.search_chunk(records("mapad_tpu_torch", [b"ACGTACGTACGT"]))
-        assert te._stats["batches"] == 0
-        return
     with pytest.raises(NotImplementedError, match="later slice"):
         TEngine(tfmd, params, **kw)
 

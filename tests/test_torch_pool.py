@@ -15,21 +15,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from mapad_tpu.index.builder import build_auxiliary_structures  # noqa: E402
 from mapad_tpu.ops.engine import DeviceSearchEngine  # noqa: E402
-from mapad_tpu.ops.search_pool import PoolConfig as JPoolConfig  # noqa: E402
-from mapad_tpu.ops.search_pool2 import k_mismatch_search_pool2 as jpool  # noqa: E402
 from mapad_tpu_torch.ops import engine as teng  # noqa: E402
 from mapad_tpu_torch.ops import prep as tprep  # noqa: E402
-from mapad_tpu_torch.ops.fm import DeviceFmIndex  # noqa: E402
-from mapad_tpu_torch.ops.search import SearchParams  # noqa: E402
-from mapad_tpu_torch.ops.search_pool import PoolConfig  # noqa: E402
-from mapad_tpu_torch.ops.search_pool2 import k_mismatch_search_pool2  # noqa: E402
 from torch_port_helpers import (  # noqa: E402
-    adna_params,
     assert_bits_equal,
     assert_pool_results_equal,
     bench_reads,
     bench_ref,
-    records,
+    run_pool_both,
 )
 
 R = 48
@@ -39,52 +32,6 @@ R = 48
 def bench():
     fmd, _ = build_auxiliary_structures(bench_ref(), b"ACGT")
     return fmd
-
-
-def _run_both(fmd, reads, big=False, dense=False, **cfg_kw):
-    """Prep one invocation with the JAX engine, then run the JAX pool
-    search and the port's plain K2+K3 on the same numpy inputs: the
-    host-packed LUT/Bi-D rows, or (`dense`, the default of `big`) the dense
-    per-read arrays from which both compute the Bi-D themselves."""
-    cfg = JPoolConfig(max_len=128, compute_forward_part=False, **cfg_kw)
-    eng = DeviceSearchEngine(fmd, adna_params("mapad_tpu"), mode="pool",
-                             pool_config=cfg, big=big)
-    track = cfg_kw.get("track_read_steps", True)
-    jcfg, prep, host_bid, _ = eng._prep_block(
-        records("mapad_tpu", reads), R, cfg
-    )
-    assert host_bid == (not dense)
-    jcfg = jcfg._replace(track_read_steps=track)
-    kw = {"slut_packed": prep["slut_packed"]} if host_bid else {}
-    jr = jpool(eng.device_index, prep["pattern_rank"], prep["pattern_code"],
-               prep["n"], prep["score_lut"], prep["pen"], prep["split"],
-               prep["cutoff_scale"], prep["cutoff_thresh"], prep["repr_mm"],
-               eng._params(), jcfg, **kw)
-    jr = jax.tree.map(np.asarray, jr)
-
-    di = eng.device_index
-    assert bool(di.big) == big
-    tidx = DeviceFmIndex.from_numpy(np.asarray(di.rows), np.asarray(di.less),
-                                    np.asarray(di.sentinels), di.occ_k,
-                                    di.text_len, big, device="cpu")
-    tcfg = PoolConfig(
-        max_len=jcfg.max_len, lanes=jcfg.lanes,
-        total_steps=jcfg.total_steps, read_step_cap=jcfg.read_step_cap,
-        max_chains=jcfg.max_chains, track_read_steps=track,
-    )
-
-    def t(name):
-        return torch.from_numpy(np.array(prep[name]))
-
-    tkw = (dict(slut=t("slut_packed")) if host_bid else
-           dict(dense=(t("pattern_rank").to(torch.int32), t("pattern_code"),
-                       t("score_lut"), t("pen"))))
-    tr = k_mismatch_search_pool2(
-        tidx, t("n"), t("split"), t("cutoff_scale"), t("cutoff_thresh"),
-        t("repr_mm"), SearchParams.from_alignment(eng.parameters, "cpu"),
-        tcfg, **tkw,
-    )
-    return jr, tr, eng
 
 
 CASES = {
@@ -108,8 +55,8 @@ CASES = {
 
 def _check_case(bench, case, **mode):
     spec = CASES[case]
-    jr, tr, eng = _run_both(bench, bench_reads(**spec["reads"]), **mode,
-                            **spec["cfg"])
+    jr, tr, eng = run_pool_both(bench, bench_reads(**spec["reads"]), R,
+                                **mode, **spec["cfg"])
     assert_pool_results_equal(jr, tr, case)
     n = int(jr.n_chains)
     if case == "abandon":
@@ -156,3 +103,58 @@ def test_pool_search_dense_small_equals_jax(bench, monkeypatch):
     monkeypatch.setenv("MAPAD_HOST_BID", "0")
     _jr, tr = _check_case(bench, "bench", dense=True)
     assert tr.c_lower.dtype == torch.int32
+
+
+# --- the bidirectional search of center-start models ----------------------
+
+
+def _center_params(model):
+    """Alignment parameters around a model whose alignment starts in the
+    middle of the read, from either package's classes."""
+
+    def make(pkg):
+        models = __import__(f"{pkg}.models", fromlist=["x"])
+        mapping = __import__(f"{pkg}.map", fromlist=["x"])
+        if model == "test":
+            dm = models.TestDifferenceModel(deam_score=-0.5, mm_score=-1.0,
+                                            match_score=0.0)
+            return mapping.AlignmentParameters(
+                difference_model=dm,
+                mismatch_bound=models.TestBound(threshold=-2.0,
+                                                representative_mm_bound=-1.0),
+                penalty_gap_open=-2.0, penalty_gap_extend=-1.0, chunk_size=1,
+                gap_dist_ends=0, stack_limit_abort=False,
+                max_num_gaps_open=2,
+            )
+        dm = models.VindijaPwm()
+        repr_mm = dm.get_representative_mismatch_penalty()
+        return mapping.AlignmentParameters(
+            difference_model=dm,
+            mismatch_bound=models.Discrete(0.01, 0.02, repr_mm),
+            penalty_gap_open=np.float32(3.0) * repr_mm,
+            penalty_gap_extend=np.float32(0.6) * repr_mm, chunk_size=1,
+            gap_dist_ends=5, stack_limit_abort=False, max_num_gaps_open=2,
+        )
+
+    return make
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("model", ["test", "vindija"])
+def test_pool_search_bidirectional_equals_jax(bench, model, big):
+    """`backward_only=False`: the extension direction is chosen per step,
+    the Bi-D bound comes from both read halves (`compute_forward_part`)."""
+    reads = bench_reads(seed=17, n_random=30, n_exo=4)[:R]
+    jr, tr, eng = run_pool_both(
+        bench, reads, R, big=big, dense=big, params_of=_center_params(model),
+        qual=0 if model == "test" else 40, lanes=8, total_steps=3072,
+        read_step_cap=512, max_chains=512,
+    )
+    assert not eng.pool_config.backward_only
+    assert_pool_results_equal(jr, tr, (model, big))
+    n = min(int(jr.n_chains), 512)
+    assert (~jr.c_abandon[:n]).sum() > R // 4  # real hits were compared
+    # both directions ran: an op left of a read's start and one right of it
+    pos = (jr.c_ops[:n] >> 2) & 0x7FFF
+    valid = jr.c_ops[:n] != 0
+    assert (pos[valid] < 10).any() and (pos[valid] > 10).any()

@@ -140,3 +140,62 @@ def bid_rows(seed, L=10, M=128):
         vals = np.cumsum(rng.uniform(-4, 0, size=runs)).astype(np.float32)
         bid[i] = np.repeat(vals, np.diff(np.r_[0, cuts, M]))
     return bid
+
+
+def run_pool_both(fmd, reads, R, big=False, dense=False, params_of=adna_params,
+                  qual=40, **cfg_kw):
+    """Prep one invocation of R reads with the JAX engine, then run the JAX
+    pool search and the port's plain kernels on the same numpy inputs: the
+    host-packed LUT/Bi-D rows, or (`dense`, the default of `big`) the dense
+    per-read arrays from which both compute the Bi-D themselves.
+    `params_of(pkg)` makes the alignment parameters from `pkg`'s classes;
+    `cfg_kw` are PoolConfig fields.  -> (JAX result, port result, engine)."""
+    import jax
+
+    from mapad_tpu.ops.engine import DeviceSearchEngine
+    from mapad_tpu.ops.search_pool import PoolConfig as JPoolConfig
+    from mapad_tpu.ops.search_pool2 import k_mismatch_search_pool2 as jpool
+    from mapad_tpu_torch.ops.fm import DeviceFmIndex
+    from mapad_tpu_torch.ops.search import SearchParams
+    from mapad_tpu_torch.ops.search_pool import PoolConfig
+    from mapad_tpu_torch.ops.search_pool2 import k_mismatch_search_pool2
+
+    params = params_of("mapad_tpu")
+    backward = params.difference_model.find_alignment_start(100) == 100
+    cfg = JPoolConfig(**{"max_len": 128, "compute_forward_part": not backward,
+                         "backward_only": backward, **cfg_kw})
+    eng = DeviceSearchEngine(fmd, params, mode="pool", pool_config=cfg,
+                             big=big)
+    track = cfg_kw.get("track_read_steps", True)
+    jcfg, prep, host_bid, _ = eng._prep_block(
+        records("mapad_tpu", reads, qual), R, cfg
+    )
+    assert host_bid == (not dense)
+    jcfg = jcfg._replace(track_read_steps=track)
+    kw = {"slut_packed": prep["slut_packed"]} if host_bid else {}
+    jr = jpool(eng.device_index, prep["pattern_rank"], prep["pattern_code"],
+               prep["n"], prep["score_lut"], prep["pen"], prep["split"],
+               prep["cutoff_scale"], prep["cutoff_thresh"], prep["repr_mm"],
+               eng._params(), jcfg, **kw)
+    jr = jax.tree.map(np.asarray, jr)
+
+    di = eng.device_index
+    assert bool(di.big) == big
+    tidx = DeviceFmIndex.from_numpy(np.asarray(di.rows), np.asarray(di.less),
+                                    np.asarray(di.sentinels), di.occ_k,
+                                    di.text_len, big, device="cpu")
+    tcfg = PoolConfig(**{f: getattr(jcfg, f) for f in PoolConfig._fields})
+
+    def t(name):
+        return torch.from_numpy(np.array(prep[name]))
+
+    tkw = (dict(slut=t("slut_packed")) if host_bid else
+           dict(dense=(t("pattern_rank").to(torch.int32), t("pattern_code"),
+                       t("score_lut"), t("pen"))))
+    tr = k_mismatch_search_pool2(
+        tidx, t("n"), t("split"), t("cutoff_scale"), t("cutoff_thresh"),
+        t("repr_mm"),
+        SearchParams.from_alignment(params_of("mapad_tpu_torch"), "cpu"),
+        tcfg, **tkw,
+    )
+    return jr, tr, eng

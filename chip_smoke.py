@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
-the card at its path's shapes, then drives five paths:
+the card at its path's shapes, then drives six paths:
 
   path 1 (small genome, int32): generate a 4 Mbp repeat-rich genome and
   16,384 aDNA-damaged reads from a seed (bench.py's generators, copied) ->
@@ -33,20 +33,30 @@ the card at its path's shapes, then drives five paths:
 
   path 5 (the bidirectional search): 2,048 reads of path 1's workload under
   a center-start model (VindijaPwm) through `DeviceSearchEngine`, with
-  int32 and with int64 intervals.
+  int32 and with int64 intervals;
+
+  path 6 (the fixed-batch engine, kernel K10): path 1's workload through
+  `DeviceSearchEngine(fmd, params, mode="batch")` at its defaults (2,048
+  lanes, one tier of 2,048 steps, M=128, H=24: eight batches, each the
+  dense upload, K7 in int32 and K10, escalatees to the host searcher),
+  then once more with two tiers ((512, None), (2048, 512)), both set
+  beside the pool engine's `search_chunk` on the same reads.
 
 Before the paths, K8 runs against its plain version at full width with a
 step budget just above the per-read cap, so that the check's reads force
 store boundaries whose moved window overlaps itself (uncapped and capped
 spill, both interval widths), and at a shape where it does not, as on the
 main path; the K8 launches of every run are counted and held against the
-boundaries it fired.  Then the bidirectional K2 against its plain version.
+boundaries it fired.  Then the bidirectional K2 against its plain version,
+and before path 6 K10 against its plain version at full width (the first
+2,048 reads, S=2048, H=24; and 512 reads under the center-start model,
+both directions) and the int32 K7 at R=2048, M=128.
 
 Paths 1 and 2 map their reads again with `map --engine native` (the exact
 host C++ search); the BAMs of paths 1, 3 and 4 equal path 1's native BAM
 and path 2's its own, record for record except XD (a timing); the blocks of
-paths 4 and 5 equal the native engine's hits.  The launch counts are set to
-0 just before each path is driven and read just after.
+paths 4, 5 and 6 equal the native engine's hits.  The launch counts are
+set to 0 just before each path is driven and read just after.
 
 Prints the card's name and power limit, each kernel's time beside its plain
 version's and its bound, reads/s, stage seconds, escalations by cause, the
@@ -86,6 +96,11 @@ K8_FLAT_READS = 2048
 K8_READS = 1024
 BIDIR_READS = 512   # the bidirectional K2 check
 PATH5_READS = 2048
+# the K10 checks: one full batch of the engine's defaults, and the
+# center-start model (both directions) on fewer lanes
+BATCH_CHECK_READS = 2048
+BATCH_CENTER_READS = 512
+PATH6_TIERS = ((512, None), (2048, 512))
 PATH4_BIG_STEPS = 4096  # path 4, last run: a primary store of 4,096 steps
 # path 4: the narrow deep config (lanes, steps, per-read cap, generations)
 DEEP_LANES = 128
@@ -574,6 +589,171 @@ def bidir_check(torch, sp2, engine, reads, big):
     )
 
 
+def search_batch_bytes(idx_d, inputs, res, lane_steps):
+    """Bytes K10 must move for the steps its lanes ran -> (bound bytes, scan
+    bytes).  Bound: its inputs once (pattern codes, score LUT, Bi-D and the
+    five per-lane consts), per lane-step the popped row (32 B), the 9 rows
+    (32 B each) and 9 keys written and K1's two 512 B index rows (over the
+    run at most the whole index), the outputs once.  Scan: the key window
+    this kernel reads at each pop, 4 x (9k+1) B at step k, its own traffic
+    (a pop kept on chip would not need it)."""
+    s = lane_steps.double()
+    lane_step_total = float(s.sum())
+    need = (nbytes(*inputs) + lane_step_total * (32 + 9 * 32 + 9 * 4)
+            + min(nbytes(idx_d.rows), lane_step_total * 2 * 512)
+            + nbytes(*res))
+    scan = float((18 * s * (s - 1) + 4 * s).sum())
+    return need, scan
+
+
+def batch_check(torch, engine, reads, r, what, bid_row=False):
+    """K10 (and K7, int32) against their plain versions on the card on the
+    first `r` reads, at `engine`'s config (a batch engine), every
+    SearchResult field bit for bit.  Returns the K10 kernel-table row (and
+    the K7 one with `bid_row`)."""
+    from mapad_tpu_torch.map.record import Record
+    from mapad_tpu_torch.ops import bi_d
+    from mapad_tpu_torch.ops import search as srch
+
+    recs = [Record(sequence=s, base_qualities=q) for s, q in reads[:r]]
+    cfg, M = engine.config, engine.config.max_len
+    with torch.cuda.device(engine.device):
+        prep = engine._prepare(recs, M, r, host_bid=False, dense=True)
+    rank, code, n, score_lut, pen, split, scale, thresh, repr_mm = (
+        prep["dense"][k] for k in ("pattern_rank", "pattern_code", "n",
+                                   "score_lut", "pen", "split", "scale",
+                                   "thresh", "repr_mm"))
+    st = prep["_stash"]
+    steps = (int(st["split"].max()), int((st["n"] - st["split"]).max()))
+    idx_d, params = engine.device_index, engine._params()
+    fwd = cfg.compute_forward_part
+    rows = {}
+
+    def k7():
+        return bi_d.compute_bi_d(idx_d, rank, pen, n, split, fwd, steps)
+
+    def k7_plain():
+        return bi_d.compute_bi_d_plain(idx_d, rank, pen, n, split, fwd, steps)
+
+    bid = k7()
+    err7 = compare(torch, (bid,), (k7_plain(),), f"bi_d ({what})")
+    if bid_row:
+        walk_steps = int(sum(
+            torch.clamp(split.cpu().long() - w, min=0).sum()
+            for w in range(bi_d.MAX_OFFSET)))
+        rows["bi_d"] = dict(
+            route="cuda", source="mapad_tpu_torch/csrc/bi_d.cu",
+            replaces="mapad_tpu/ops/bi_d.py:27", max_abs_err=err7,
+            ms=timed(torch, k7, 10), plain_ms=timed(torch, k7_plain, 1),
+            bound_ms=bound_ms(nbytes(rank, pen, n, split, bid) + min(
+                nbytes(idx_d.rows), walk_steps * 2 * 512)),
+            bound_by="bytes", library_ms=None,
+        )
+        log(f"K7 bi_d (int32) R={r} M={M} ({walk_steps} walk steps, longest "
+            f"parts {steps}): bit-exact, {rows['bi_d']['ms']:.4f} ms (plain "
+            f"{rows['bi_d']['plain_ms']:.1f} ms)")
+
+    args = (idx_d, code, n, score_lut, bid, split, scale, thresh, repr_mm,
+            params, cfg)
+    res, lane_steps = srch._search_batch_cuda(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pres = srch._search_batch_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err = compare(torch, tuple(res), tuple(pres), f"search_batch ({what})")
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        srch._search_batch_cuda(*args)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    ls = lane_steps.cpu()
+    hc, esc = res.hcount.cpu(), res.escalate.cpu()
+    if not int((hc > 0).sum()):
+        raise AssertionError(f"search_batch ({what}): no hit")
+    need, scan = search_batch_bytes(
+        idx_d, (code, n, score_lut, bid, split, scale, thresh, repr_mm), res,
+        ls)
+    row = dict(
+        route="cuda", source="mapad_tpu_torch/csrc/search_batch.cu",
+        replaces="mapad_tpu/ops/search.py:99", max_abs_err=err,
+        ms=median(times), plain_ms=plain_ms,
+        bound_ms=bound_ms(need), bound_by="bytes",
+        library_ms=None, steps=int(res.steps), scan_bytes=scan,
+        scan_ms=bound_ms(scan),
+    )
+    log(f"K10 search_batch ({what}) L={r} S={cfg.max_steps} H={cfg.hit_cap} "
+        f"M={M}: bit-exact; steps {int(res.steps)}, lane steps mean "
+        f"{float(ls.double().mean()):.1f} max {int(ls.max())}, {int(esc.sum())} "
+        f"escalate, {int((hc > 0).sum())} lanes with hits; "
+        f"{', '.join(f'{x:.3f}' for x in times)} ms (median {row['ms']:.3f}),"
+        f" plain {plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({need:.0f} B), {row['ms'] / row['bound_ms']:.1f}x it; the key "
+        f"windows it scans {scan:.0f} B more ({row['scan_ms']:.4f} ms)")
+    rows["search_batch"] = row
+    return rows
+
+
+class _BatchTap:
+    """While it is entered, every K7 + K10 call of the batch engine leaves
+    its SearchResult in `results` (their `steps` are read afterwards)."""
+
+    def __init__(self, eng_mod):
+        self.mod, self.results = eng_mod, []
+
+    def __enter__(self):
+        self.fn = fn = self.mod.k_mismatch_search_batch
+
+        def run(*args, **kw):
+            res = fn(*args, **kw)
+            self.results.append(res)
+            return res
+
+        self.mod.k_mismatch_search_batch = run
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.k_mismatch_search_batch = self.fn
+
+    def steps(self):
+        return [int(r.steps) for r in self.results]
+
+
+def batch_path(np, engine, recs, want, kernels, pool):
+    """Path 6: `engine` (a batch engine) on `recs` against the native
+    engine's hits, with the launches of `kernels` counted from 0, set
+    beside `pool` (the stats of the pool engine on the same reads) ->
+    (launch counts, steps of each batch)."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops import engine as eng_mod
+
+    LAUNCHES.reset()
+    with _BatchTap(eng_mod) as tap:
+        st = block_against_native(
+            np, engine, recs, want,
+            f"path 6, mode='batch', lanes {engine.lanes}, tiers "
+            f"{engine.tiers}")
+    counts = {k: LAUNCHES.get(k) for k in kernels}
+    steps = tap.steps()
+    log(f"  {st['batches']} batches, steps per batch {steps}; seconds per "
+        f"stage: prep_s {st['prep_s']:.3f}, wait_s {st['wait_s']:.3f}, "
+        f"decode_s {st['decode_s']:.3f}, fb_secs {st['fb_secs']:.3f}")
+    log(f"  against the pool engine on the same reads: "
+        f"{pool['secs'] / st['secs']:.3f}x its reads/s, escalated "
+        f"{st['escalated']} ({pool['escalated']}), host searches "
+        f"{st['oracle']} ({pool['oracle']}), fb_secs {st['fb_secs']:.3f} "
+        f"({pool['fb_secs']:.3f})")
+    log(f"  kernel launches on this path: {counts}")
+    if any(v != st["batches"] for v in counts.values()):
+        raise AssertionError(f"path 6: {counts} launches for "
+                             f"{st['batches']} batches")
+    return counts, steps
+
+
 def table_rows_touched(torch, blob, cls, off, tab_rows, R, M, Q):
     """Distinct rows of the all-length LUT table that an (R, M) block's
     cells gather (the bytes a K4/K6 launch needs of the table)."""
@@ -709,7 +889,7 @@ def check_kernels_big(torch, np, engine, reads):
                                        steps)
 
     bid = k7()
-    err = compare(torch, (bid,), (k7_plain(),), "bi_d")
+    err = compare(torch, (bid,), (k7_plain(),), "bi_d_i64")
     # a second split puts reads into both parts, for the forward part
     half = torch.div(n, 2, rounding_mode="floor").to(torch.int32)
     n_h, half_h = n.cpu(), half.cpu()
@@ -718,7 +898,7 @@ def check_kernels_big(torch, np, engine, reads):
     err = max(err, compare(
         torch, (both,),
         (bi_d.compute_bi_d_plain(idx_d, rank, pen, n, half, True, steps2),),
-        "bi_d (both parts)"))
+        "bi_d_i64 (both parts)"))
     # the walk steps this block's data needs: walk w of a part of length p
     # takes max(0, p - w) steps, two 512 B index rows each
     sp = split.cpu().long()
@@ -726,16 +906,16 @@ def check_kernels_big(torch, np, engine, reads):
                          for w in range(bi_d.MAX_OFFSET)))
     k7_bytes = (nbytes(rank, pen, n, split, bid)
                 + min(nbytes(idx_d.rows), walk_steps * 2 * 512))
-    rows["bi_d"] = dict(
+    rows["bi_d_i64"] = dict(
         route="cuda", source="mapad_tpu_torch/csrc/bi_d.cu",
         replaces="mapad_tpu/ops/bi_d.py:27", max_abs_err=err,
         ms=timed(torch, k7, 10), plain_ms=timed(torch, k7_plain, 1),
         bound_ms=bound_ms(k7_bytes), bound_by="bytes", library_ms=None,
     )
-    log(f"K7 bi_d R={R} M={M} ({R * bi_d.MAX_OFFSET} walks, {walk_steps} "
+    log(f"K7 bi_d_i64 R={R} M={M} ({R * bi_d.MAX_OFFSET} walks, {walk_steps} "
         f"walk steps, longest parts {steps}): bit-exact with and without "
-        f"the forward part, {rows['bi_d']['ms']:.4f} ms (plain "
-        f"{rows['bi_d']['plain_ms']:.1f} ms)")
+        f"the forward part, {rows['bi_d_i64']['ms']:.4f} ms (plain "
+        f"{rows['bi_d_i64']['plain_ms']:.1f} ms)")
 
     # K1 in int64: on the real index, and on one whose counts pass 2^32
     rows["extend_batch_i64"] = k1_check(torch, fm, idx_d, "extend_batch_i64",
@@ -853,15 +1033,19 @@ class _Env:
                 os.environ[k] = v
 
 
-def packed_same(np, a, b):
+def packed_same(np, a, b, comp_bit=False):
     """Two packed hit sets hold the same hits bit for bit (the device pads a
     read's op words to its block's width, the host searcher to the read's
-    own)."""
+    own).  `comp_bit`: `a` comes from the batch search, whose first op word
+    of a hit keeps the store's completion mark (OP_COMP_BIT, as in
+    mapad_tpu; the decoders ignore it), which is cleared before comparing."""
     if len(a) != len(b):
         return False
     if not len(a):
         return True
     ao, bo = np.asarray(a.ops), np.asarray(b.ops)
+    if comp_bit:
+        ao = ao & np.uint32(~(1 << 21) & 0xFFFFFFFF)
     w = max(ao.shape[1], bo.shape[1])
     ao = np.pad(ao, ((0, 0), (0, w - ao.shape[1])))
     bo = np.pad(bo, ((0, 0), (0, w - bo.shape[1])))
@@ -876,21 +1060,23 @@ def block_against_native(np, engine, recs, want, what):
     t0 = time.perf_counter()
     out = engine.search_chunk(recs)
     secs = time.perf_counter() - t0
+    comp_bit = getattr(engine, "mode", "pool") == "batch"
     bad = [i for i, ((got, _), (exp, _)) in enumerate(zip(out, want))
-           if not packed_same(np, got, exp)]
+           if not packed_same(np, got, exp, comp_bit)]
     if len(out) != len(recs) or bad:
         raise AssertionError(f"{what}: {len(bad)} reads' hits differ from "
                              f"the native searcher's, first at {bad[:5]}")
     stats = engine.stats()
     with_hits = sum(1 for hits, _ in out if len(hits))
-    log(f"{what}: {len(recs)} reads in {secs:.2f} s, hits of every read "
-        f"equal to the native searcher's ({with_hits} reads with hits)")
+    log(f"{what}: {len(recs)} reads in {secs:.2f} s = "
+        f"{len(recs) / secs:.1f} reads/s, hits of every read equal to the "
+        f"native searcher's ({with_hits} reads with hits)")
     log(f"  steps {stats['steps']}, escalated {stats['escalated']} by cause "
         f"{stats.get('esc_why')}, host searches {stats['oracle']}, "
         f"deep_retried {stats.get('deep_retried', 0)}, nohit_host "
         f"{stats.get('nohit_host', 0)}, probe_empty "
         f"{stats.get('probe_empty', 0)}")
-    return stats
+    return dict(stats, secs=secs)
 
 
 def main() -> int:
@@ -947,6 +1133,27 @@ def main() -> int:
     rows = check_kernels(torch, np, check_engine, reads)
     path_of = {name: 1 for name in rows}
     del check_engine
+
+    # K10 and the int32 K7 of path 6 against their plain versions: one
+    # batch at the batch engine's defaults, then the center-start model
+    import dataclasses
+
+    from mapad_tpu_torch.models import Discrete, VindijaPwm
+
+    pwm = VindijaPwm()
+    vparams = dataclasses.replace(
+        params, difference_model=pwm, mismatch_bound=Discrete(
+            args.poisson_prob, np.float32(args.divergence),
+            pwm.get_representative_mismatch_penalty()))
+    rows6 = batch_check(
+        torch, DeviceSearchEngine(index.fmd, params, mode="batch"), reads,
+        BATCH_CHECK_READS, "aDNA model, backward", bid_row=True)
+    center = batch_check(
+        torch, DeviceSearchEngine(index.fmd, vparams, mode="batch"), reads,
+        BATCH_CENTER_READS, "VindijaPwm, both directions")["search_batch"]
+    rows6["search_batch"]["max_abs_err"] = max(
+        rows6["search_batch"]["max_abs_err"], center["max_abs_err"])
+    rows6["search_batch"]["center_ms"] = center["ms"]
 
     # `map --engine device` through the CLI; the streaming driver logs the
     # engine's stats when the run ends
@@ -1160,15 +1367,6 @@ def main() -> int:
     del index2, want2
 
     # --- path 5: the bidirectional search (a center-start model) ---
-    import dataclasses
-
-    from mapad_tpu_torch.models import Discrete, VindijaPwm
-
-    pwm = VindijaPwm()
-    vparams = dataclasses.replace(
-        params, difference_model=pwm, mismatch_bound=Discrete(
-            args.poisson_prob, np.float32(args.divergence),
-            pwm.get_representative_mismatch_penalty()))
     index1 = load_index(fasta)
     recs5 = [Record(sequence=s, base_qualities=q)
              for s, q in reads[:PATH5_READS]]
@@ -1190,15 +1388,43 @@ def main() -> int:
         if not launches[name]:
             raise AssertionError(f"path 5: {name} did not launch")
 
+    # --- path 6: the fixed-batch engine (K7 in int32, K10) ---
+    recs6 = [Record(sequence=s, base_qualities=q) for s, q in reads]
+    t = time.perf_counter()
+    want6 = NativeSearchEngine(index1.fmd, params,
+                               packed_hits=True).search_chunk(recs6)
+    log(f"path 6: native engine on {len(recs6)} reads "
+        f"{time.perf_counter() - t:.2f} s")
+    # the same search_chunk span on the same reads through the pool engine
+    # at its defaults, the yardstick of the batch engine's numbers
+    pool6 = block_against_native(
+        np, DeviceSearchEngine(index1.fmd, params, packed_hits=True), recs6,
+        want6, "path 6, the same reads through the pool engine")
+    for tiers in (None, PATH6_TIERS):
+        counts, steps6 = batch_path(
+            np, DeviceSearchEngine(index1.fmd, params, mode="batch",
+                                   packed_hits=True,
+                                   **({"tiers": tiers} if tiers else {})),
+            recs6, want6, tuple(rows6), pool6)
+        if tiers is None:
+            rows6["search_batch"]["path_steps"] = steps6
+            rows.update(rows6)
+            launches.update(counts)
+            path_of.update({name: 6 for name in rows6})
+
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # `path`: the run whose launches the row counts; pool_search rows also
     # carry `steps`, the pool steps that run took (their launches are two
     # per step queued, plus one per invocation); pool_compact rows the
     # boundaries of their check, the launches of one boundary, and their
-    # time at a shape of the main path
+    # time at a shape of the main path; search_batch its check's `steps`,
+    # the bytes of the key windows it scans and their time at the memory
+    # rate (beyond its bound), its time on the center-start check and the
+    # steps of each batch of path 6
     more = ("steps", "boundaries", "launches_per_boundary", "main_shape",
-            "main_ms", "main_bound_ms", "main_launches_per_boundary")
+            "main_ms", "main_bound_ms", "main_launches_per_boundary",
+            "scan_bytes", "scan_ms", "center_ms", "path_steps")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},

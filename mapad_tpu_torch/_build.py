@@ -37,9 +37,10 @@ NVCC_FLAGS = [
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
 ]
 # one library per source (K1 is a device function of common.cuh, inline in
-# pool_search.cu and bi_d.cu; unpack_prep.cu holds K4 and K6)
+# pool_search.cu, bi_d.cu and search_batch.cu; unpack_prep.cu holds K4 and
+# K6)
 CUDA_SOURCES = ("pool_search", "pool_compact", "extract_chains",
-                "unpack_prep", "pack_result", "bi_d")
+                "unpack_prep", "pack_result", "bi_d", "search_batch")
 
 _lock = threading.Lock()
 _loaded: dict = {}

@@ -191,7 +191,7 @@ def compute_bi_d(index: DeviceFmIndex, pattern_rank, pen, n, split,
     )
     fn = cuda_function("bi_d", "bi_d",
                        [ctypes.POINTER(_BidArgs), ctypes.c_void_p])
-    LAUNCHES.add("bi_d")
+    LAUNCHES.add("bi_d_i64" if index.big else "bi_d")
     # K1 runs inline in the walk kernel
     LAUNCHES.add("extend_batch_i64" if index.big else "extend_batch")
     check(fn(ctypes.byref(args),

@@ -2,9 +2,10 @@
 the card and reconstructs hits; `HybridSearchEngine` runs it on the head of
 every block and the exact host C++ searcher on the tail.
 
-Counterpart of mapad_tpu/ops/engine.py (`DeviceSearchEngine` in pool mode
-on one device, `HybridSearchEngine`).  Per block of up to `block_reads`
-reads:
+Counterpart of mapad_tpu/ops/engine.py (`DeviceSearchEngine` in pool and
+in batch mode on one device, `HybridSearchEngine`).  Pool mode (the
+default, and what `search_stream` runs in either mode), per block of up to
+`block_reads` reads:
 
 1. prep thread (host): pad the reads, build the score LUT / penalty rows
    and the bound thresholds (numpy, ops/prep.py) and one int32 upload
@@ -47,13 +48,21 @@ Three kernels live in this module, each beside its plain PyTorch version:
 The wrappers take the plain version for CPU tensors only (the tests); on
 a CUDA tensor they launch the kernel or raise.
 
-Not ported yet (each raises NotImplementedError when the engine is made):
-the multi-device mesh (K9, MAPAD_SHARD=1) and the fixed-batch mode (K10,
-mode="batch").
+Batch mode (`mode="batch"`, small index only) is `search_chunk` over
+fixed batches of `lanes` reads through a list of tiers, `(max_steps,
+lanes)` pairs: each batch's dense inputs go up as they are, the Bi-D runs
+on the card (K7) and the fixed-batch search (K10, ops/search.py) gives
+every lane its own step budget; a tier's escalatees (still searching at
+its budget, or longer than `max_len`) go to the next tier, the last tier's
+to the exact host searcher.
+
+Not ported yet (raises NotImplementedError when the engine is made): the
+multi-device mesh of pool mode (K9, MAPAD_SHARD=1).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import logging
 import os
@@ -86,11 +95,21 @@ from .prep import (
     _unpack_result,
     _wire_opbits,
 )
-from .search import OP_DELETION, OP_MISMATCH, SearchConfig, SearchParams
+from .search import (
+    OP_DELETION,
+    OP_MISMATCH,
+    SearchConfig,
+    SearchParams,
+    SearchResult,
+    k_mismatch_search_batch,
+)
 from .search_pool import PoolConfig, PoolResult
 from .search_pool2 import k_mismatch_search_pool2
 
 logger = logging.getLogger(__name__)
+
+
+DEFAULT_TIERS = ((2048, None),)
 
 
 def _later(what: str):
@@ -366,18 +385,43 @@ def _result_spec(res: PoolResult) -> PoolResult:
     ])
 
 
+def _track(words, split):
+    """The edit operations of one op-word chain in track order: bucketed by
+    read position, each bucket reversed at and past `split` (a 0 word ends
+    the chain)."""
+    buckets: dict[int, list] = {}
+    for w in words:
+        w = int(w)
+        if w == 0:
+            break
+        kind = (w >> 17) & 7
+        pos = (w >> 2) & 0x7FFF
+        base = (
+            int(CODE_TO_BASE[w & 3])
+            if kind in (OP_MISMATCH, OP_DELETION)
+            else 0
+        )
+        buckets.setdefault(pos, []).append(EditOperation(kind, pos, base))
+    track = []
+    for pos in sorted(buckets):
+        ops = buckets[pos]
+        track.extend(ops if pos < split else reversed(ops))
+    return track
+
+
 class DeviceSearchEngine:
     def __init__(self, fmd_index, parameters, lanes: int = 2048,
-                 config: SearchConfig | None = None, mode: str = "pool",
+                 config: SearchConfig | None = None,
+                 tiers: tuple = DEFAULT_TIERS, mode: str = "pool",
                  pool_config: "PoolConfig | None" = None,
                  big: bool | None = None, packed_hits: bool = False,
                  threads: int | None = None, device=None):
-        if mode != "pool":
-            raise _later("the fixed-batch engine mode (kernel K10)")
         self.device = resolve_device(device)
         self.fmd = fmd_index
         self.parameters = parameters
         self.lanes = lanes
+        self.mode = mode
+        self.tiers = tiers
         # --threads bounds the exact-fallback worker pool
         self.threads = threads
         # packed_hits: hits as PackedHits (flat op-word arrays for the
@@ -386,6 +430,11 @@ class DeviceSearchEngine:
         self.device_index = DeviceFmIndex.from_host(
             fmd_index, big=big, device=self.device
         )
+        if self.device_index.big and mode != "pool":
+            raise ValueError(
+                "int64 (big-genome) device mode is implemented for the "
+                "pool kernel only; use mode='pool'"
+            )
         sdm = parameters.difference_model
         self._is_backward_only = sdm.find_alignment_start(100) == 100
         if config is None:
@@ -436,7 +485,7 @@ class DeviceSearchEngine:
                        "fb_secs": 0.0}
         self._stats_lock = threading.Lock()
         self._params_cache = None
-        if os.environ.get("MAPAD_SHARD") == "1":
+        if mode == "pool" and os.environ.get("MAPAD_SHARD") == "1":
             raise _later("the multi-device mesh (kernel K9)")
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -445,7 +494,7 @@ class DeviceSearchEngine:
     # --- host-side per-read preparation (exact f32 paths) ---
 
     def _prepare(self, records, max_len: int, lanes: int | None = None,
-                 host_bid: bool = True):
+                 host_bid: bool = True, dense: bool = False):
         """Host preparation of one invocation.
 
         host_bid: the C++ Bi-D and one int32 upload blob (consts | Bi-D,
@@ -454,7 +503,13 @@ class DeviceSearchEngine:
         ceiling).  Else (big genomes) the Bi-D is left to the card: the blob
         is consts | (class, qual) cells only (unpacked by K6), or, past the
         LUT's ceiling, the dense input arrays go up as they are.  Returns
-        the upload and the host stash the exact fallback reuses."""
+        the upload and the host stash the exact fallback reuses.
+
+        dense (batch mode, with host_bid=False): the nine input arrays of
+        the batch search as they are under "dense" (`thresh` left -inf on
+        empty lanes), uploaded to the engine's device on the current
+        stream; the big-mode dense return above has the same keys on the
+        host, with `thresh` +inf on empty lanes."""
         L = lanes if lanes is not None else self.lanes
         sdm = self.parameters.difference_model
         mb = self.parameters.mismatch_bound
@@ -558,6 +613,19 @@ class DeviceSearchEngine:
             scale=cutoff_scale, thresh=cutoff_thresh, repr_mm=repr_mm,
             max_len=max_len,
         )
+
+        def dense_arrays(thresh):
+            return dict(
+                pattern_rank=pattern_rank.astype(np.int32),
+                pattern_code=pattern_code, n=n, score_lut=score_lut, pen=pen,
+                split=split, scale=cutoff_scale, thresh=thresh,
+                repr_mm=repr_mm,
+            )
+
+        if dense:
+            return dict(_stash=stash, dense={
+                k: self._to_device(v)
+                for k, v in dense_arrays(cutoff_thresh).items()})
         # padded/empty reads reject everything at once
         thresh = cutoff_thresh.copy()
         thresh[n == 0] = np.float32(np.inf)
@@ -574,12 +642,7 @@ class DeviceSearchEngine:
                     blob[k * L : (k + 1) * L] = a.view(np.int32)
                 blob[5 * L :] = _pack_cq10(seqs, quals)
                 return dict(out, blob=blob, dev_full=True)
-            return dict(out, dev_full=False, dense=dict(
-                pattern_rank=pattern_rank.astype(np.int32),
-                pattern_code=pattern_code, n=n, score_lut=score_lut,
-                pen=pen, split=split, scale=cutoff_scale, thresh=thresh,
-                repr_mm=repr_mm,
-            ))
+            return dict(out, dev_full=False, dense=dense_arrays(thresh))
         from ..map import native_search
 
         if not native_search.available():
@@ -671,8 +734,11 @@ class DeviceSearchEngine:
     # --- public API ---
 
     def search_chunk(self, records, lazy_fallback: bool = False):
-        """lazy_fallback: escalated entries come back as Futures still
-        running on the engine's fallback pool."""
+        """lazy_fallback (pool mode): escalated entries come back as Futures
+        still running on the engine's fallback pool.  Batch mode returns
+        every read resolved."""
+        if self.mode != "pool":
+            return self._search_chunk_batch(records)
         R = self.block_reads
         out = [None] * len(records)
         blocks = (
@@ -1294,31 +1360,168 @@ class DeviceSearchEngine:
         return escalated
 
     def _decode_chain(self, result, k, split):
-        buckets: dict[int, list] = {}
-        for w in result.c_ops[k]:
-            w = int(w)
-            if w == 0:
-                break
-            kind = (w >> 17) & 7
-            pos = (w >> 2) & 0x7FFF
-            base = (
-                int(CODE_TO_BASE[w & 3])
-                if kind in (OP_MISMATCH, OP_DELETION)
-                else 0
-            )
-            buckets.setdefault(pos, []).append(EditOperation(kind, pos, base))
-        track = []
-        for pos in sorted(buckets):
-            ops = buckets[pos]
-            if pos < split:
-                track.extend(ops)
-            else:
-                track.extend(reversed(ops))
         return HitInterval(
             BiInterval(int(result.c_lower[k]), int(result.c_lrev[k]),
                        int(result.c_size[k])),
             np.float32(result.c_score[k]),
-            track,
+            _track(result.c_ops[k], split),
+        )
+
+    # --- fixed-batch tiered path (mode="batch") ---
+
+    def _search_chunk_batch(self, records):
+        """The reads through the tiers in fixed batches: a tier's batches
+        are all queued on the card before the first is collected; its
+        escalatees are the next tier's reads, and the last tier's go to the
+        exact host searcher, whose pool runs while batches are collected."""
+        out = [None] * len(records)
+        params = self._params()
+        self._ensure_native()
+        workers = max(1, (os.cpu_count() or 2) - 1)
+        fallback = []  # (read index, Future)
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            pending = list(range(len(records)))
+            for tier_i, (max_steps, tier_lanes) in enumerate(self.tiers):
+                if not pending:
+                    break
+                tier_t0 = time.perf_counter()
+                tier_count = len(pending)
+                lanes = tier_lanes if tier_lanes is not None else self.lanes
+                config = self.config._replace(max_steps=max_steps)
+                last_tier = tier_i == len(self.tiers) - 1
+                in_flight = []
+                for base in range(0, len(pending), lanes):
+                    idxs = pending[base : base + lanes]
+                    batch = [records[i] for i in idxs]
+                    in_flight.append(
+                        (idxs, batch,
+                         self._dispatch_batch(batch, params, config, lanes))
+                    )
+                still_pending = []
+                for idxs, batch, handle in in_flight:
+                    results, escalated = self._collect_batch(batch, *handle)
+                    for k, i in enumerate(idxs):
+                        if k not in escalated:
+                            out[i] = results[k]
+                        elif last_tier:
+                            fallback.append((i, pool.submit(
+                                self._fallback_one, records[i])))
+                        else:
+                            still_pending.append(i)
+                pending = still_pending
+                logger.info(
+                    "tier %d (S=%d): %d reads in %.1fs, %d escalated",
+                    tier_i, max_steps, tier_count,
+                    time.perf_counter() - tier_t0,
+                    len(still_pending) + (len(fallback) if last_tier else 0),
+                )
+            for i in pending:  # only when the tier list is empty
+                fallback.append((i, pool.submit(self._fallback_one,
+                                                records[i])))
+            for i, fut in fallback:
+                out[i] = fut.result()
+        self._stats["oracle"] += len(fallback)
+        return out
+
+    def _on_device(self):
+        """The engine's device and stream as the current ones (the card)."""
+        stack = contextlib.ExitStack()
+        if self.device.type == "cuda":
+            stack.enter_context(torch.cuda.device(self.device))
+            stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
+
+    def _dispatch_batch(self, batch, params, config, lanes=None):
+        """Prep one batch on the host, upload it and queue K7 + K10 ->
+        (SearchResult on the engine's device, splits, overlong read
+        indexes, start time).  Reads longer than `max_len` enter the batch
+        empty and escalate."""
+        t0 = time.perf_counter()
+        max_len = config.max_len
+        overlong = {
+            i for i, r in enumerate(batch) if len(r.sequence) > max_len
+        }
+        with self._on_device():
+            prep = self._prepare(
+                [r if len(r.sequence) <= max_len else _EMPTY for r in batch],
+                max_len, lanes, host_bid=False, dense=True,
+            )
+            stash, d = prep["_stash"], prep["dense"]
+            self._stats["prep_s"] += time.perf_counter() - t0
+            handle = k_mismatch_search_batch(
+                self.device_index, d["pattern_rank"], d["pattern_code"],
+                d["n"], d["score_lut"], d["pen"], d["split"], d["scale"],
+                d["thresh"], d["repr_mm"], params, config,
+                bid_steps=(int(stash["split"].max(initial=0)),
+                           int((stash["n"] - stash["split"]).max(initial=0))),
+            )
+        return handle, stash["split"], overlong, t0
+
+    def _collect_batch(self, batch, handle, split_arr, overlong, t0):
+        """Wait for one batch's result and decode it -> (per-read (hits,
+        seconds) or None, escalated indexes)."""
+        t_fetch = time.perf_counter()
+        with self._on_device():
+            result = SearchResult(*[t.cpu().numpy() for t in handle])
+        t_dec = time.perf_counter()
+        self._stats["wait_s"] += t_dec - t_fetch
+        per_read = (t_dec - t0) / max(len(batch), 1)
+        # a lane with more completions than hit slots kept only the first
+        # H: its read goes on like an escalatee (mapad_tpu's decoder fails
+        # on it instead)
+        overflow = result.hcount > result.h_ops.shape[1]
+        results = []
+        escalated = set()
+        for i, record in enumerate(batch):
+            if i in overlong or (len(record.sequence) > 0 and (
+                    result.escalate[i] or overflow[i])):
+                escalated.add(i)
+                results.append(None)
+            else:
+                hits = self._extract_hits(result, i, int(split_arr[i]))
+                results.append((hits, per_read))
+        self._stats["decode_s"] += time.perf_counter() - t_dec
+        self._stats["steps"] += int(result.steps)
+        self._stats["device_lanes"] += len(batch)
+        self._stats["escalated"] += len(escalated)
+        self._stats["batches"] += 1
+        if escalated:
+            logger.debug("escalating %d/%d reads to the next tier",
+                         len(escalated), len(batch))
+        return results, escalated
+
+    def _extract_hits(self, result, lane: int, split: int):
+        """One lane's hits of a SearchResult (numpy): decoded tracks, or
+        PackedHits with packed_hits."""
+        if self.packed_hits:
+            return self._packed_lane_hits(result, lane, split)
+        return [
+            HitInterval(
+                BiInterval(int(result.h_lower[lane, h]),
+                           int(result.h_lrev[lane, h]),
+                           int(result.h_size[lane, h])),
+                np.float32(result.h_score[lane, h]),
+                _track(result.h_ops[lane, h], split),
+            )
+            for h in range(int(result.hcount[lane]))
+        ]
+
+    def _packed_lane_hits(self, result, lane, split):
+        from ..map.native_post import _EMPTY_PACKED, PackedHits
+
+        hcount = int(result.hcount[lane])
+        if hcount == 0:
+            return _EMPTY_PACKED
+        ivals = np.stack(
+            [result.h_lower[lane, :hcount], result.h_lrev[lane, :hcount],
+             result.h_size[lane, :hcount]],
+            axis=1,
+        ).astype(np.int64)
+        return PackedHits(
+            ivals,
+            result.h_score[lane, :hcount].astype(np.float32),
+            result.h_ops[lane, :hcount].astype(np.uint32, copy=False),
+            int(split),
         )
 
     def _ensure_native(self):

@@ -2,7 +2,8 @@
 the card, at small shapes that reach the edge cases (abandon markers, chain
 log overflow, an exhausted step budget, the RLE and raw Bi-D blobs, store
 boundaries with and without overlap of the moved window, the bidirectional
-search), with int32 intervals and with the int64 intervals of big mode.
+search), with int32 intervals and with the int64 intervals of big mode;
+and the fixed-batch search (K10) and its engine.
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  On the card:
 
@@ -352,6 +353,96 @@ def test_engine_on_the_card_equals_plain(fmd, cuda, big, qual, monkeypatch):
     assert all(packed_equal(a, b) for a, b in zip(hits_g, hits_c))
     if big:
         assert deep_g > 0
+
+
+# (reads, their reference, params, config fields) of the K10 checks; each
+# batch also holds an empty read (a lane with n = 0)
+def _batch_case(name):
+    from torch_port_helpers import repeat_ref, vindija_params
+
+    ref = bench_ref()
+    reads = bench_reads(seed=8, n_random=20)[:24]
+    if name == "backward":
+        return ref, reads, adna_params, dict(max_steps=512)
+    if name == "center":
+        return ref, reads, vindija_params, dict(max_steps=512,
+                                                compute_forward_part=True)
+    if name == "budget":
+        return ref, reads, adna_params, dict(max_steps=32)
+    assert name == "hit_cap"
+    # a read of the segment completes seven times
+    rref, seg = repeat_ref()
+    return rref, [seg, seg[5:55], seg[:50]] * 4, adna_params, \
+        dict(max_steps=512, hit_cap=4)
+
+
+@pytest.mark.parametrize("name", ["backward", "center", "budget",
+                                  "hit_cap"])
+def test_search_batch_kernel(cuda, name):
+    """K7 + K10 against their plain versions on the same card inputs: both
+    extension directions (a center-start model), a budget that leaves
+    lanes live (S=32), a hit cap below a read's completions (H=4), and an
+    empty lane in every batch."""
+    from mapad_tpu_torch.index.builder import build_auxiliary_structures
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.ops.search import (
+        k_mismatch_search_batch,
+        k_mismatch_search_batch_plain,
+    )
+
+    ref, reads, params_of, cfg_kw = _batch_case(name)
+    fmd = build_auxiliary_structures(ref, b"ACGT")[0]
+    L = len(reads) + 1
+    eng = DeviceSearchEngine(fmd, params_of("mapad_tpu_torch"), lanes=L,
+                             mode="batch", device=cuda)
+    cfg = eng.config._replace(**cfg_kw)
+    with torch.cuda.device(cuda):
+        prep = eng._prepare(records("mapad_tpu_torch", [b""] + reads), 128,
+                            L, host_bid=False, dense=True)
+        args = [prep["dense"][k] for k in (
+            "pattern_rank", "pattern_code", "n", "score_lut", "pen", "split",
+            "scale", "thresh", "repr_mm")]
+        got = k_mismatch_search_batch(eng.device_index, *args,
+                                      eng._params(), cfg)
+        want = k_mismatch_search_batch_plain(eng.device_index, *args,
+                                             eng._params(), cfg)
+        torch.cuda.synchronize()
+    _equal(tuple(got), tuple(want), name)
+    hc = got.hcount.cpu()
+    assert int(hc[0]) == 0 and not bool(got.escalate[0])
+    assert int((hc > 0).sum()) > 4 or name == "budget"
+    if name == "budget":
+        assert int(got.steps) == 32 and bool(got.escalate.any())
+    if name == "hit_cap":
+        assert int(hc.max()) > 4
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_batch_engine_on_the_card_equals_plain(fmd, cuda, packed):
+    """The batch engine (two tiers, escalatees of the last to the host) on
+    the card against the same engine on the CPU's plain versions."""
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from torch_port_helpers import hits_equal, packed_equal
+
+    ref = bench_ref()
+    reads = records("mapad_tpu_torch",
+                    bench_reads(seed=12, n_random=40,
+                                extra=[b"", ref[500:700]]))
+    outs = []
+    for dev in (cuda, "cpu"):
+        eng = DeviceSearchEngine(fmd, adna_params("mapad_tpu_torch"),
+                                 lanes=16, mode="batch",
+                                 tiers=((64, None), (2048, 8)),
+                                 packed_hits=packed, device=dev)
+        res = eng.search_chunk(reads)
+        outs.append(([r[0] for r in res],
+                     {k: eng._stats[k] for k in ("device_lanes", "escalated",
+                                                 "batches", "oracle",
+                                                 "steps")}))
+    (hits_g, st_g), (hits_c, st_c) = outs
+    assert st_g == st_c and st_g["escalated"] > 0
+    same = packed_equal if packed else hits_equal
+    assert all(same(a, b) for a, b in zip(hits_g, hits_c))
 
 
 def test_profile_trace_shows_the_kernels(cuda, tmp_path, monkeypatch):

@@ -4,8 +4,8 @@ read's hits are equal bit for bit, packed and decoded; in small mode, in
 big (int64) mode with its defaults (Bi-D on the device, deep tier on), and
 through the retry and deep tiers with equal counters; with store
 generations (MAPAD_KGENS, the narrow deep config), the bidirectional search
-of center-start models and the batched no-hit probe.  What is not ported
-yet raises when the engine is made."""
+of center-start models and the batched no-hit probe.  What the engine
+cannot run raises when it is made."""
 
 import os
 
@@ -31,6 +31,7 @@ from torch_port_helpers import (  # noqa: E402
     hits_equal,
     packed_equal,
     records,
+    vindija_params,
 )
 
 CFG = dict(max_len=128, lanes=8, total_steps=2048, read_step_cap=512,
@@ -371,20 +372,6 @@ def _test_model_params(pkg):
     )
 
 
-def _vindija_params(pkg):
-    models = __import__(f"{pkg}.models", fromlist=["x"])
-    mapping = __import__(f"{pkg}.map", fromlist=["x"])
-    dm = models.VindijaPwm()
-    repr_mm = dm.get_representative_mismatch_penalty()
-    return mapping.AlignmentParameters(
-        difference_model=dm,
-        mismatch_bound=models.Discrete(0.01, 0.02, repr_mm),
-        penalty_gap_open=np.float32(3.0) * repr_mm,
-        penalty_gap_extend=np.float32(0.6) * repr_mm, chunk_size=1,
-        gap_dist_ends=5, stack_limit_abort=False, max_num_gaps_open=2,
-    )
-
-
 @pytest.mark.parametrize("big", [False, True])
 @pytest.mark.parametrize("model", ["test", "vindija"])
 def test_bidirectional_engine_equals_jax_and_oracle(indexes, model, big,
@@ -396,7 +383,7 @@ def test_bidirectional_engine_equals_jax_and_oracle(indexes, model, big,
     for name in _TIER_ENV:
         monkeypatch.delenv(name, raising=False)
     monkeypatch.setenv("MAPAD_DEEP_TIER", "0")
-    params_of = _test_model_params if model == "test" else _vindija_params
+    params_of = _test_model_params if model == "test" else vindija_params
     qual = 0 if model == "test" else 40
     jfmd, tfmd = indexes
     cfg = dict(max_len=128, lanes=8, total_steps=4096, read_step_cap=1024,
@@ -419,15 +406,17 @@ def test_bidirectional_engine_equals_jax_and_oracle(indexes, model, big,
 
 @pytest.mark.parametrize("what", ["mode", "shard"])
 def test_later_slices_raise_when_made(indexes, what, monkeypatch):
-    """What is not ported yet refuses at construction time, not in the
-    middle of a stream."""
+    """What the engine cannot run refuses at construction time, not in the
+    middle of a stream: the fixed-batch mode with a big (int64) index, as
+    in mapad_tpu, and the mesh of pool mode (kernel K9), not ported yet."""
     _jfmd, tfmd = indexes
     params = adna_params("mapad_tpu_torch")
     kw = dict(pool_config=TPoolConfig(**CFG), device="cpu")
     if what == "mode":
-        kw["mode"] = "batch"  # fixed-batch engine, kernel K10
-    elif what == "shard":
-        monkeypatch.setenv("MAPAD_SHARD", "1")  # the mesh, kernel K9
+        with pytest.raises(ValueError, match="mode='pool'"):
+            TEngine(tfmd, params, mode="batch", big=True, **kw)
+        return
+    monkeypatch.setenv("MAPAD_SHARD", "1")
     with pytest.raises(NotImplementedError, match="later slice"):
         TEngine(tfmd, params, **kw)
 

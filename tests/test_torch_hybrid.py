@@ -162,9 +162,9 @@ def test_hybrid_passes_device_kw_through(tfmd):
                              device="cpu")
     assert eng.device.device_index.big
     assert eng.device.pool_config.lanes == 64
-    with pytest.raises(NotImplementedError, match="later slice"):
-        HybridSearchEngine(tfmd, adna_params("mapad_tpu_torch"),
-                           mode="batch", device="cpu")
+    eng = HybridSearchEngine(tfmd, adna_params("mapad_tpu_torch"),
+                             mode="batch", tiers=((64, None),), device="cpu")
+    assert eng.device.mode == "batch" and eng.device.tiers == ((64, None),)
 
 
 def test_cli_default_engine_is_hybrid_and_equals_native(tmp_path,

@@ -67,6 +67,40 @@ def adna_params(pkg):
     )
 
 
+def vindija_params(pkg):
+    """A center-start model (the alignment starts inside the read: the
+    searches extend both ways), built from `pkg`'s own classes."""
+    models = __import__(f"{pkg}.models", fromlist=["x"])
+    mapping = __import__(f"{pkg}.map", fromlist=["x"])
+    dm = models.VindijaPwm()
+    repr_mm = dm.get_representative_mismatch_penalty()
+    return mapping.AlignmentParameters(
+        difference_model=dm,
+        mismatch_bound=models.Discrete(0.01, 0.02, repr_mm),
+        penalty_gap_open=np.float32(3.0) * repr_mm,
+        penalty_gap_extend=np.float32(0.6) * repr_mm, chunk_size=1,
+        gap_dist_ends=5, stack_limit_abort=False, max_num_gaps_open=2,
+    )
+
+
+def repeat_ref():
+    """-> (bench_ref followed by six copies of one 60 bp segment of it, each
+    with one substitution at its own position and a random 50 bp spacer
+    before it, the segment): a read of the segment completes once on the
+    original and once on each copy."""
+    ref = bench_ref()
+    rng = np.random.default_rng(0)
+    seg = ref[1000:1060]
+    parts = [ref]
+    for c in range(6):
+        s = bytearray(seg)
+        p = 10 + 6 * c
+        s[p] = b"ACGT"[(b"ACGT".index(s[p]) + 1) % 4]
+        parts.append(bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 50)))
+        parts.append(bytes(s))
+    return b"".join(parts), seg
+
+
 def records(pkg, seqs, qual=40):
     record = __import__(f"{pkg}.map.record", fromlist=["x"])
     return [

@@ -2,10 +2,12 @@
 """Smoke run of mapad_tpu_torch on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --path7   # path 7 alone (a machine of several cards)
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
-the card at its path's shapes, then drives six paths:
+the card at its path's shapes, then drives eight paths (paths 1-6 on one
+card, MAPAD_SHARD=0, whatever the machine has):
 
   path 1 (small genome, int32): generate a 4 Mbp repeat-rich genome and
   16,384 aDNA-damaged reads from a seed (bench.py's generators, copied) ->
@@ -40,7 +42,21 @@ the card at its path's shapes, then drives six paths:
   lanes, one tier of 2,048 steps, M=128, H=24: eight batches, each the
   dense upload, K7 in int32 and K10, escalatees to the host searcher),
   then once more with two tiers ((512, None), (2048, 512)), both set
-  beside the pool engine's `search_chunk` on the same reads.
+  beside the pool engine's `search_chunk` on the same reads;
+
+  path 7 (the pool search over several shards, kernel K9): path 1's
+  workload through `pipeline.run` with `DeviceSearchEngine(fmd, params,
+  mesh=[cuda:0, cuda:0])` and MAPAD_SHARD=1: one 16,384-read block dealt
+  into two shards of 8,192, each at path 1's per-invocation shape on its
+  own host thread and streams (K4, K2 + K3, `shard_rebase`, K5), beside
+  the same `pipeline.run` unsharded; on a machine with more than one card
+  once more over all of them with no `mesh` (the automatic mesh);
+
+  path 8 (multi-host mapping on one machine): two processes, gloo on
+  localhost, each `run_multihost` with a `DeviceSearchEngine` on cuda:0
+  over path 1's reads in 8,192-read chunks (one chunk each); process 0
+  merges the BAM shards, which equal `map --engine native --batch_size
+  8192`'s BAM.
 
 Before the paths, K8 runs against its plain version at full width with a
 step budget just above the per-read cap, so that the check's reads force
@@ -50,12 +66,18 @@ main path; the K8 launches of every run are counted and held against the
 boundaries it fired.  Then the bidirectional K2 against its plain version,
 and before path 6 K10 against its plain version at full width (the first
 2,048 reads, S=2048, H=24; and 512 reads under the center-start model,
-both directions) and the int32 K7 at R=2048, M=128.
+both directions) and the int32 K7 at R=2048, M=128.  After path 1's
+kernels, K9 (`pool_search_sharded`) runs on the shard threads and streams
+of a two-shard engine on the one card (path 7's): two shards of 512 reads
+of path 1's workload against its plain version, and path 7's block (two
+shards of 8,192) against its shards run unsharded, each timed beside the
+same shards run one after the other; then `shard_rebase` alone against
+its plain version.
 
 Paths 1 and 2 map their reads again with `map --engine native` (the exact
-host C++ search); the BAMs of paths 1, 3 and 4 equal path 1's native BAM
-and path 2's its own, record for record except XD (a timing); the blocks of
-paths 4, 5 and 6 equal the native engine's hits.  The launch counts are
+host C++ search); the BAMs of paths 1, 3, 4 and 7 equal path 1's native
+BAM (path 8's the native BAM of its chunks) and path 2's its own, record for record except XD (a timing); the
+blocks of paths 4, 5 and 6 equal the native engine's hits.  The launch counts are
 set to 0 just before each path is driven and read just after.
 
 Prints the card's name and power limit, each kernel's time beside its plain
@@ -108,6 +130,13 @@ DEEP_SHAPE = (128, 32768, 12288, 4)
 # one block escalates about 100 reads with hits: fewer than the least size
 # of a tier block (a quarter of the lanes), so that is lowered for path 4
 DEEP_MIN = "32"
+# the K9 check: two shards of 512 reads on the one card
+K9_SHARDS = 2
+K9_READS = 512
+# path 8: two processes, one 8,192-read chunk each; a hung rendezvous or
+# a failed process fails the smoke within this many seconds
+PATH8_CHUNK = 8192
+PATH8_TIMEOUT = 300
 MAP_FLAGS = ["-p", "0.03", "-l", "single_stranded", "-f", "0.6", "-t",
              "0.55", "-d", "0.01", "-s", "1.0", "-i", "0.001"]
 
@@ -311,14 +340,9 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
     err = compare(torch, tuple(res), tuple(pres), "pool_search+extract" + sfx)
     steps = int(res.steps)
     L = cfg.lanes
-    n_ext = min(int(res.n_chains), cfg.max_chains)
-    walked = int((res.c_ops[:n_ext] != 0).sum())
-    frame_words = 11 if big else 8
     k2_bytes, ring_bytes = pool_search_bytes(idx_d, consts, slut, cfg, steps,
                                              big)
-    # K3 reads the masks, finish log and the frame records it walks, and
-    # writes the PoolResult
-    k3_bytes = steps * L * 8 + walked * frame_words * 4 + nbytes(*res)
+    k3_bytes = extract_bytes(torch, cfg, res, big)
     rows = {}
     rows["pool_search" + sfx] = dict(
         route="cuda", source="mapad_tpu_torch/csrc/pool_search.cu",
@@ -371,6 +395,16 @@ def pool_search_bytes(idx_d, consts, slut, cfg, steps, big):
     return (nbytes(idx_d.rows, *consts, slut)
             + steps * L * (9 * frame_words + 1 + 1) * 4 + ring_bytes,
             ring_bytes)
+
+
+def extract_bytes(torch, cfg, res, big):
+    """Bytes K3 must move for one invocation's result: it reads the masks,
+    finish log and the frame records it walks, and writes the
+    PoolResult."""
+    n_ext = min(int(res.n_chains), cfg.max_chains)
+    walked = int((res.c_ops[:n_ext] != 0).sum())
+    return (int(res.steps) * cfg.lanes * 8
+            + walked * (11 if big else 8) * 4 + nbytes(*res))
 
 
 def compact_bytes(cfg, big):
@@ -587,6 +621,232 @@ def bidir_check(torch, sp2, engine, reads, big):
         ms=k2_ms, plain_ms=plain_ms, bound_ms=bound_ms(k2_bytes),
         bound_by="bytes", library_ms=None, steps=steps,
     )
+
+
+def k9_run(torch, engine, recs, plain):
+    """K9 (`pool_search_sharded`) on the block `recs` through the sharded
+    `engine`'s shard threads and streams (`ShardRunner`) and shard body, as
+    path 7 runs it: the block dealt and prepared per shard by the engine,
+    uploaded to the shards' card.  Held bit for bit against the same
+    shards run one after the other through the unsharded pool search and
+    re-based, and with `plain` against its plain version; timed in turns
+    with the shards one after the other (do two streams on one card
+    overlap?).  -> (K9's numbers, the shards' unsharded results)."""
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+    from mapad_tpu_torch.ops.search_pool import PoolResult
+    from mapad_tpu_torch.parallel import pool_sharded as tps
+
+    D, R = engine.n_shards, len(recs)
+    r = R // D
+    mesh, indexes, params = engine.mesh, engine._mesh_index, engine._params()
+    cfg, prep, _t0 = engine._prep_block(recs, R, engine.pool_config)
+    ups = []
+    for d, part in enumerate(prep["shards"]):
+        with torch.cuda.device(mesh[d]):
+            ups.append(engine._upload(part, mesh[d]))
+    p = {k: torch.cat([consts[i] for consts, _ in ups])
+         for i, k in enumerate(tps.CONST_KEYS)}
+    p["slut_packed"] = torch.cat([kw["slut"] for _, kw in ups])
+    parts = tps.shard_reads(mesh, p)
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    def k9():
+        return tps.pool_search_sharded(mesh, indexes, p, params, cfg,
+                                       runner=engine._shards)
+
+    def one_after_the_other():
+        return [sp2.k_mismatch_search_pool2(
+            indexes[d], *[parts[d][k] for k in tps.CONST_KEYS], params, cfg,
+            slut=parts[d]["slut_packed"]) for d in range(D)]
+
+    def fields(res):
+        return tuple(t for t in res if t is not None)
+
+    res, first_ms = wall_ms(k9)
+    err, plain_ms = 0.0, None
+    if plain:
+        pres, plain_ms = wall_ms(lambda: tps.pool_search_sharded_plain(
+            mesh, indexes, p, params, cfg))
+        err = compare(torch, fields(res), fields(pres),
+                      "pool_search_sharded")
+    times = {"k9": [], "seq": []}
+    for which in ("seq", "k9", "k9", "seq", "seq", "k9"):
+        out, ms = wall_ms(k9 if which == "k9" else one_after_the_other)
+        times[which].append(ms)
+        if which == "seq":
+            seq = out
+    for d in range(D):
+        want = tps._shard_rebase_plain(
+            PoolResult(*[None if t is None else t.clone() for t in seq[d]]),
+            d * r, r, R)
+        err = max(err, compare(
+            torch, fields(PoolResult(*[None if t is None else t[d]
+                                       for t in res])),
+            fields(want), f"K9 shard {d} against its unsharded run"))
+    steps = [int(x) for x in res.steps]
+    C, L = cfg.max_chains, cfg.lanes
+    k9_bytes = D * ((C + L) * 4 * 2 + 8) + sum(
+        pool_search_bytes(indexes[d], [parts[d][k] for k in tps.CONST_KEYS],
+                          parts[d]["slut_packed"], cfg, steps[d], False)[0]
+        + extract_bytes(torch, cfg, seq[d], False)
+        for d in range(D))
+    k9_ms, seq_ms = median(times["k9"]), median(times["seq"])
+    log(f"K9 pool_search_sharded {D} shards x {r} reads on one card through "
+        f"a sharded engine's shard threads (L={L} S={cfg.total_steps} "
+        f"CAP={cfg.read_step_cap} C={C}): bit-exact against "
+        f"{'its plain version and ' if plain else ''}the same shards "
+        f"unsharded; shard steps {steps} (step efficiency "
+        f"{sum(steps) / (D * max(steps)):.4f}); {k9_ms:.1f} ms (median of "
+        f"{', '.join(f'{x:.1f}' for x in times['k9'])}; first call "
+        f"{first_ms:.1f}), the same shards one after the other {seq_ms:.1f} "
+        f"ms (median of {', '.join(f'{x:.1f}' for x in times['seq'])}): "
+        f"K9 at {k9_ms / seq_ms:.2f}x; bound {bound_ms(k9_bytes):.3f} ms"
+        + (f", plain {plain_ms:.1f} ms" if plain else ""))
+    return dict(reads=R, steps=steps, ms=k9_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms(k9_bytes), sequential_ms=seq_ms,
+                max_abs_err=err), seq
+
+
+def k9_check(torch, engine, reads):
+    """K9 on `engine` (a sharded engine: K9_SHARDS shards on one card) at
+    K9_SHARDS x K9_READS reads of path 1's workload against its plain
+    version, and at path 7's block (K9_SHARDS x 8,192 reads) against its
+    shards run unsharded; then `shard_rebase` alone on a shard's result
+    against its plain version.  Returns the kernel-table row of
+    `shard_rebase`, with K9's numbers beside it."""
+    from mapad_tpu_torch.map.record import Record
+    from mapad_tpu_torch.ops.search_pool import PoolResult
+    from mapad_tpu_torch.parallel import pool_sharded as tps
+
+    D, r = K9_SHARDS, K9_READS
+    R = D * r
+    recs = [Record(sequence=s, base_qualities=q) for s, q in reads]
+    small, seq = k9_run(torch, engine, recs[:R], plain=True)
+    main, _ = k9_run(torch, engine, recs[:engine.block_reads], plain=False)
+
+    # shard_rebase alone: shard 1's local ids made global, kernel and plain
+    def shard1():
+        return PoolResult(*[None if t is None else t.clone()
+                            for t in seq[1]])
+
+    got = tps.shard_rebase(shard1(), r, r, R)
+    want = tps._shard_rebase_plain(shard1(), r, r, R)
+    err = max(small["max_abs_err"], main["max_abs_err"], compare(
+        torch, (got.c_read, got.lane_read, got.next_read),
+        (want.c_read, want.lane_read, want.next_read), "shard_rebase"))
+    # timed at base 0 (the rewrite leaves its result as it is)
+    a, b = shard1(), shard1()
+    cfg = engine.pool_config
+    C, L = cfg.max_chains, cfg.lanes
+    row = dict(
+        route="cuda", source="mapad_tpu_torch/csrc/pool_sharded.cu",
+        replaces="mapad_tpu/parallel/pool_sharded.py:122", max_abs_err=err,
+        ms=timed(torch, lambda: tps.shard_rebase(a, 0, r, R), 50),
+        plain_ms=timed(torch, lambda: tps._shard_rebase_plain(b, 0, r, R),
+                       20),
+        bound_ms=bound_ms((C + L) * 4 * 2 + 8), bound_by="bytes",
+        library_ms=None,
+        **{f"k9_{k}": v for k, v in small.items() if k != "max_abs_err"},
+        **{f"k9_main_{k}": v for k, v in main.items()
+           if k not in ("max_abs_err", "plain_ms")},
+    )
+    log(f"shard_rebase C={C} L={L}: bit-exact, {row['ms']:.4f} ms (plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms)")
+    return row
+
+
+PATH8_PROCESS = r"""
+import dataclasses, json, sys, time
+(root, fasta, fastq, out, coordinator, pid, flags, seed, chunk,
+ device) = sys.argv[1:]
+sys.path.insert(0, root)
+from mapad_tpu_torch import cli
+from mapad_tpu_torch.index import load_index
+from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+from mapad_tpu_torch.parallel.multihost import run_multihost
+
+t = time.perf_counter()
+args = cli.build_parser().parse_args(
+    ["map", "-r", fastq, "-g", fasta, "-o", out, *json.loads(flags)])
+params = dataclasses.replace(cli.build_alignment_parameters(args),
+                             chunk_size=int(chunk))
+engine = DeviceSearchEngine(load_index(fasta).fmd, params, lanes=args.lanes,
+                            packed_hits=True, device=device)
+run_multihost(fastq, fasta, out, True, params, engine=engine,
+              position_seed=int(seed), cmdline="mapad map",
+              coordinator=coordinator, num_processes=2, process_id=int(pid))
+st = engine.stats()
+print(f"process {pid}: {st['device_lanes']} reads in {st['batches']} "
+      f"blocks, {time.perf_counter() - t:.2f} s from start to merge", flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def path8(cli, fasta, fastq, native_bam, seed, device="cuda:0"):
+    """Two processes on one machine run `run_multihost` over gloo on
+    localhost, each over its own chunk on cuda:0; process 0 merges.  The
+    merged BAM equals the native engine's BAM of the same chunks (the
+    position drawn for a read with several best hits is seeded by its
+    chunk's id and its place in the chunk, as in mapAD, so it depends on
+    the chunk size: path 1's native BAM, one chunk, differs there).  A
+    process that fails or hangs fails the smoke."""
+    native_chunks = os.path.join(WORK, f"native_{PATH8_CHUNK}.bam")
+    t = time.perf_counter()
+    if cli.main(["--threads", "0", "map", "-r", fastq, "-g", fasta, "-o",
+                 native_chunks, "--force_overwrite", "--engine", "native",
+                 "--batch_size", str(PATH8_CHUNK), *MAP_FLAGS]) != 0:
+        raise SystemExit("native map failed")
+    a, b = bam_records(native_chunks)[1], bam_records(native_bam)[1]
+    log(f"path 8: map --engine native --batch_size {PATH8_CHUNK} "
+        f"{time.perf_counter() - t:.2f} s; {sum(x != y for x, y in zip(a, b))}"
+        f" records differ from the one-chunk native BAM (positions of reads "
+        f"with several best hits)")
+    out = os.path.join(WORK, "multihost.bam")
+    coordinator = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, MAPAD_SHARD="0")
+    t = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", PATH8_PROCESS, ROOT, fasta, fastq, out,
+             coordinator, str(pid), json.dumps(MAP_FLAGS), str(seed),
+             str(PATH8_CHUNK), device],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )
+        for pid in range(2)
+    ]
+    try:
+        outs = [p.communicate(timeout=PATH8_TIMEOUT)[0].decode(
+            errors="replace") for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for pid, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"path 8: process {pid} exited with "
+                                 f"{p.returncode}:\n{text[-4000:]}")
+        for line in text.splitlines():
+            if line.startswith("process "):
+                log(f"  {line}")
+    secs = time.perf_counter() - t
+    log(f"path 8, run_multihost in 2 processes (gloo on localhost, "
+        f"{PATH8_CHUNK}-read chunks): {N_READS} reads in {secs:.2f} s = "
+        f"{N_READS / secs:.1f} reads/s, process start to merged BAM")
+    bam_compare(out, native_chunks, "path 8")
+    return secs
 
 
 def search_batch_bytes(idx_d, inputs, res, lane_steps):
@@ -1016,14 +1276,19 @@ def bam_compare(dev_bam, nat_bam, what):
 
 
 class _Env:
-    """Environment variables set for one call and restored after."""
+    """Environment variables set (None: unset) for one call and restored
+    after."""
 
     def __init__(self, **values):
         self.values = values
 
     def __enter__(self):
         self.old = {k: os.environ.get(k) for k in self.values}
-        os.environ.update(self.values)
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
     def __exit__(self, *exc):
         for k, v in self.old.items():
@@ -1079,6 +1344,94 @@ def block_against_native(np, engine, recs, want, what):
     return dict(stats, secs=secs)
 
 
+def path7(torch, index, params, args, fastq, fasta, native_bam, card,
+          kernels):
+    """Path 1's workload through `pipeline.run` with one card's pool engine,
+    then over two shards on cuda:0 (MAPAD_SHARD=1, `mesh`), and, on a
+    machine with more than one card, over all of them with no `mesh` (the
+    automatic mesh); each BAM equal to path 1's native BAM.  -> the launch
+    counts of the two-shard run (`kernels` and shard_rebase) and its
+    shards' steps."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.map import pipeline
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+
+    def run(what, engine):
+        bam = os.path.join(WORK, "sharded.bam")
+        LAUNCHES.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipeline.run(fastq, fasta, bam, True, params, None, engine=engine,
+                     position_seed=args.seed, cmdline="mapad map",
+                     threads=os.cpu_count() or 1, index=index)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        st = engine.stats()
+        names = [*kernels, "shard_rebase"] if engine.mesh else kernels
+        counts = {k: LAUNCHES.get(k) for k in names}
+        report_run(what, card, secs, st, counts)
+        if engine.mesh:
+            steps = st["shard_steps"]
+            log(f"  shards {engine.n_shards} on {engine.mesh}, "
+                f"block_reads {engine.block_reads}, shard steps {steps}, "
+                f"step efficiency {sum(steps) / (len(steps) * max(steps)):.4f}"
+                f" (sum / (D x max))")
+            if counts["shard_rebase"] != engine.n_shards * st["batches"]:
+                raise AssertionError(f"{what}: {counts['shard_rebase']} "
+                                     f"rebases for {st['batches']} blocks")
+        bam_compare(bam, native_bam, what.split(",")[0])
+        return secs, counts, st.get("shard_steps")
+
+    def pool_engine(**kw):
+        return DeviceSearchEngine(index.fmd, params, lanes=args.lanes,
+                                  packed_hits=True, **kw)
+
+    secs_1card, _, _ = run("path 7 unsharded, pipeline.run", pool_engine())
+    card0 = torch.device("cuda", 0)
+    with _Env(MAPAD_SHARD="1"):
+        eng = pool_engine(mesh=[card0, card0])
+    assert eng.n_shards == 2 and eng.block_reads == 2 * 8192
+    secs, counts, steps = run("path 7, pipeline.run over two shards on "
+                              "cuda:0", eng)
+    log(f"path 7: {N_READS / secs:.1f} reads/s over two shards on one card, "
+        f"{N_READS / secs_1card:.1f} unsharded just before")
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        with _Env(MAPAD_SHARD=None):
+            auto = pool_engine()
+        assert auto.n_shards == n_cards, auto.n_shards
+        secs_all, _, _ = run(f"path 7, automatic mesh over {n_cards} cards",
+                             auto)
+        log(f"path 7 over {n_cards} cards: {N_READS / secs_all:.1f} reads/s "
+            f"({N_READS / secs_1card:.1f} on one card unsharded)")
+    return counts, steps
+
+
+def path7_alone(torch, np, cli, load_index, params, args, card, t_start):
+    """`--path7`: path 7 alone, with what it needs of path 1 (its workload,
+    index and native BAM), for a machine with several cards."""
+    fasta, fastq, _reads = write_workload(np, GENOME_SIZE, 42, "")
+    if cli.main(["index", "-g", fasta]) != 0:
+        raise SystemExit("index failed")
+    native_bam = os.path.join(WORK, "native.bam")
+    t = time.perf_counter()
+    if cli.main(["--threads", "0", "map", "-r", fastq, "-g", fasta, "-o",
+                 native_bam, "--force_overwrite", "--engine", "native",
+                 *MAP_FLAGS]) != 0:
+        raise SystemExit("native map failed")
+    log(f"path 1's workload: map --engine native "
+        f"{time.perf_counter() - t:.2f} s")
+    path7(torch, load_index(fasta), params, args, fastq, fasta, native_bam,
+          card, ["unpack_prep", "extend_batch", "pool_search",
+                 "extract_chains", "pack_result"])
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1095,6 +1448,9 @@ def main() -> int:
     from mapad_tpu_torch.ops.engine import DeviceSearchEngine
 
     t_start = time.perf_counter()
+    # paths 1-6 run on one card whatever the machine has; paths 7 and 8 set
+    # the mesh themselves
+    os.environ["MAPAD_SHARD"] = "0"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1120,6 +1476,9 @@ def main() -> int:
     args = cli.build_parser().parse_args(
         ["map", "-r", "x", "-g", "x", "-o", "x", *MAP_FLAGS])
     params = cli.build_alignment_parameters(args)
+    if "--path7" in sys.argv[1:]:
+        return path7_alone(torch, np, cli, load_index, params, args, card,
+                           t_start)
 
     # --- path 1: small genome through the CLI ---
     fasta, fastq, reads = write_workload(np, GENOME_SIZE, 42, "")
@@ -1133,6 +1492,13 @@ def main() -> int:
     rows = check_kernels(torch, np, check_engine, reads)
     path_of = {name: 1 for name in rows}
     del check_engine
+    card0 = torch.device("cuda", 0)
+    with _Env(MAPAD_SHARD="1"):
+        k9_engine = DeviceSearchEngine(index.fmd, params, lanes=args.lanes,
+                                       packed_hits=True, mesh=[card0] * 2)
+    rows["shard_rebase"] = k9_check(torch, k9_engine, reads)
+    path_of["shard_rebase"] = 7
+    del k9_engine
 
     # K10 and the int32 K7 of path 6 against their plain versions: one
     # batch at the batch engine's defaults, then the center-start model
@@ -1169,12 +1535,14 @@ def main() -> int:
         raise SystemExit("device map failed")
     torch.cuda.synchronize()
     dev_s = time.perf_counter() - t
-    launches = {k: LAUNCHES.get(k) for k in rows if k != "pool_compact"}
+    launches = {k: LAUNCHES.get(k) for k in rows
+                if k not in ("pool_compact", "shard_rebase")}
     stats = tap.stats
     if stats is None:
         raise AssertionError("the device map logged no search stats")
     rows["pool_search"]["steps"] = stats["steps"]
     report_run("path 1, map --engine device", card, dev_s, stats, launches)
+    path1_s = dev_s
     native_map_and_compare(cli, fastq, fasta, dev_bam,
                            os.path.join(WORK, "native.bam"), "path 1")
     del index
@@ -1412,6 +1780,19 @@ def main() -> int:
             launches.update(counts)
             path_of.update({name: 6 for name in rows6})
 
+    # --- path 7: the pool search over two shards on the card (K9) ---
+    launches7, steps7 = path7(torch, index1, params, args, fastq, fasta,
+                              native_bam, card, path1)
+    for name in path1:
+        rows[name]["path7_launches"] = launches7[name]
+    rows["pool_search"]["path7_steps"] = steps7
+    launches["shard_rebase"] = launches7["shard_rebase"]
+    log(f"  path 1 (`cli.main` whole) in this run: "
+        f"{N_READS / path1_s:.1f} reads/s")
+
+    # --- path 8: multi-host mapping, two processes on this machine ---
+    path8(cli, fasta, fastq, native_bam, args.seed)
+
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # `path`: the run whose launches the row counts; pool_search rows also
@@ -1421,10 +1802,21 @@ def main() -> int:
     # time at a shape of the main path; search_batch its check's `steps`,
     # the bytes of the key windows it scans and their time at the memory
     # rate (beyond its bound), its time on the center-start check and the
-    # steps of each batch of path 6
+    # steps of each batch of path 6; shard_rebase (path 7) K9's numbers:
+    # its reads, each shard's steps, its time, plain time and bound, and
+    # the time of the same shards run one after the other, at the check's
+    # shape and (k9_main_*) at path 7's block; the rows of path 1's kernels
+    # also carry their launches in path 7's two-shard run (`path7_launches`,
+    # its own reset run), pool_search also its shards' steps
+    # (`path7_steps`: two launches per step queued plus one per shard and
+    # invocation)
     more = ("steps", "boundaries", "launches_per_boundary", "main_shape",
             "main_ms", "main_bound_ms", "main_launches_per_boundary",
-            "scan_bytes", "scan_ms", "center_ms", "path_steps")
+            "scan_bytes", "scan_ms", "center_ms", "path_steps",
+            "path7_launches", "path7_steps", "k9_reads", "k9_steps", "k9_ms",
+            "k9_plain_ms", "k9_bound_ms", "k9_sequential_ms",
+            "k9_main_reads", "k9_main_steps", "k9_main_ms",
+            "k9_main_bound_ms", "k9_main_sequential_ms")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},

@@ -1,4 +1,4 @@
-"""mapad_tpu_torch: the PyTorch + CUDA port of mapad_tpu for one NVIDIA H100.
+"""mapad_tpu_torch: the PyTorch + CUDA port of mapad_tpu for NVIDIA H100s.
 
 Same layers and module names as mapad_tpu (the JAX reference, which stays
 as it is); this package imports torch, numpy and the standard library and
@@ -13,6 +13,8 @@ Layer map:
   ops          -- device compute: FMD rank queries, pool search with store
                   generations, chain extraction, prep unpack, Bi-D, result
                   pack (CUDA + plain torch); the device and hybrid engines
+  parallel     -- the pool search over several devices (K9) and multi-host
+                  mapping over torch.distributed
   map          -- mapping pipeline, host C++ search/postprocess bindings,
                   the sequential Python search and BAM conversion
   io           -- FASTA/FASTQ/BAM/BGZF readers and writers

@@ -12,6 +12,10 @@ a hash of their source and flags so an edited source is rebuilt:
   flush-to-zero: the kernels must round every f32 operation exactly as
   the plain versions do).  Each library has a plain C interface and is
   loaded with ctypes; every entry point returns `cudaGetLastError()`.
+  Each library links its own copy of the CUDA runtime, so every call first
+  makes the caller's current torch device the library's own current device
+  (`set_device`, csrc/common.cuh): a thread that drives one card of several
+  launches there.
 
 Every library is written under a temporary name and moved into place with
 `os.replace`, so concurrent builders (parallel test workers, several
@@ -38,9 +42,10 @@ NVCC_FLAGS = [
 ]
 # one library per source (K1 is a device function of common.cuh, inline in
 # pool_search.cu, bi_d.cu and search_batch.cu; unpack_prep.cu holds K4 and
-# K6)
+# K6; pool_sharded.cu K9's device part)
 CUDA_SOURCES = ("pool_search", "pool_compact", "extract_chains",
-                "unpack_prep", "pack_result", "bi_d", "search_batch")
+                "unpack_prep", "pack_result", "bi_d", "search_batch",
+                "pool_sharded")
 
 _lock = threading.Lock()
 _loaded: dict = {}
@@ -147,12 +152,28 @@ def cuda_library(name: str) -> ctypes.CDLL:
 
 def cuda_function(lib_name: str, fn_name: str, argtypes):
     """Entry point `fn_name` of the CUDA library `lib_name`, typed: every
-    entry point returns the cudaError_t of its launches."""
-    fn = getattr(cuda_library(lib_name), fn_name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-    return fn
+    entry point returns the cudaError_t of its launches.  The returned
+    callable launches on the calling thread's current torch device (a
+    caller whose tensors lie on another card enters
+    `torch.cuda.device(dev)` first)."""
+    import torch
+
+    lib = cuda_library(lib_name)
+    fn = getattr(lib, fn_name)
+    set_device = lib.set_device
+    with _lock:
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+        if set_device.argtypes is None:
+            set_device.restype = ctypes.c_int
+            set_device.argtypes = [ctypes.c_int]
+
+    def launch(*args):
+        rc = set_device(torch.cuda.current_device())
+        return rc if rc else fn(*args)
+
+    return launch
 
 
 def check(rc: int, what: str):

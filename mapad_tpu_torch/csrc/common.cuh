@@ -21,6 +21,12 @@
 #define LAUNCH(kernel, grid, block, stream, ...) \
   kernel<<<(grid), (block), 0, (stream)>>>(__VA_ARGS__)
 
+// Every library links its own CUDA runtime: the host wrapper makes the
+// caller's torch device this runtime's current device before each call
+// (_build.cuda_function), so a thread driving one card of several launches
+// there.  Each library is one translation unit, so this is defined once.
+extern "C" int set_device(int device) { return (int)cudaSetDevice(device); }
+
 #define CHECK_LAUNCH()                        \
   do {                                        \
     cudaError_t e_ = cudaGetLastError();      \

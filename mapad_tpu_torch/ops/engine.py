@@ -56,8 +56,19 @@ every lane its own step budget; a tier's escalatees (still searching at
 its budget, or longer than `max_len`) go to the next tier, the last tier's
 to the exact host searcher.
 
-Not ported yet (raises NotImplementedError when the engine is made): the
-multi-device mesh of pool mode (K9, MAPAD_SHARD=1).
+The mesh (pool mode, kernel K9, parallel/pool_sharded.py): with more than
+one device the engine deals every block round-robin into D shards and
+each shard runs steps 2-3 above on its own device, stream and host thread
+(K4 or K6 + K7, then K9's shard body `search_shard`: K2 + K3 and the id
+rebase `shard_rebase`; K5, its own copy) over R/D reads, without waiting
+for the others (`ShardRunner`, as `pool_search_sharded` runs them); the caller stacks the
+shards' results, collects them shard by shard and un-deals them to input
+order, the reads the prep neutralized included.  As in mapad_tpu the mesh
+is every visible card when more than one is visible and MAPAD_SHARD is
+unset on the card or set to 1; the `mesh` keyword (a list of devices, one
+per shard, a device possibly named several times) replaces the visible
+cards under the same rule.  The blocks of the retry and deep tiers are
+sharded too.
 """
 
 from __future__ import annotations
@@ -77,6 +88,13 @@ from .._build import LAUNCHES, check, cuda_function, require
 from ..index.fmd import BiInterval
 from ..map import EditOperation, HitInterval
 from ..models.bounds import Continuous, TestBound
+from ..parallel.pool_sharded import (
+    ShardRunner,
+    _local_view,
+    round_robin_permutation,
+    search_shard,
+)
+from ..parallel.sharding import canonical, make_mesh, replicate
 from ..utils.seq import BASE_TO_CODE, CODE_TO_BASE
 from .fm import DeviceFmIndex, resolve_device
 from .prep import (
@@ -110,10 +128,6 @@ logger = logging.getLogger(__name__)
 
 
 DEFAULT_TIERS = ((2048, None),)
-
-
-def _later(what: str):
-    return NotImplementedError(f"{what} is a later slice of mapad_tpu_torch")
 
 
 # --- K4: unpack the upload blob -----------------------------------------
@@ -415,7 +429,7 @@ class DeviceSearchEngine:
                  tiers: tuple = DEFAULT_TIERS, mode: str = "pool",
                  pool_config: "PoolConfig | None" = None,
                  big: bool | None = None, packed_hits: bool = False,
-                 threads: int | None = None, device=None):
+                 threads: int | None = None, device=None, mesh=None):
         self.device = resolve_device(device)
         self.fmd = fmd_index
         self.parameters = parameters
@@ -484,12 +498,34 @@ class DeviceSearchEngine:
                        "device_s": 0.0, "wait_s": 0.0, "decode_s": 0.0,
                        "fb_secs": 0.0}
         self._stats_lock = threading.Lock()
+        self._lut_lock = threading.Lock()
+        self._dev_lut_by_dev: dict = {}
         self._params_cache = None
-        if mode == "pool" and os.environ.get("MAPAD_SHARD") == "1":
-            raise _later("the multi-device mesh (kernel K9)")
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
             self._copy_stream = torch.cuda.Stream(self.device)
+        # the mesh of pool mode, as in mapad_tpu: on by default on the card
+        # (MAPAD_SHARD unset), opt-in elsewhere (MAPAD_SHARD=1), and only
+        # over more than one device: every visible card unless `mesh`
+        # names the shards' devices
+        self.mesh = None
+        self.n_shards = 1
+        shard_env = os.environ.get("MAPAD_SHARD")
+        want_shard = shard_env == "1" or (
+            shard_env is None and self.device.type == "cuda"
+        )
+        if mode == "pool" and want_shard:
+            if (mesh is None and self.device.type == "cuda"
+                    and torch.cuda.device_count() > 1):
+                mesh = make_mesh()
+            if mesh is not None and len(mesh) > 1:
+                self.mesh = [canonical(d) for d in mesh]
+                self.n_shards = len(self.mesh)
+                self._mesh_index = replicate(self.mesh, self.device_index)
+                for d in set(self.mesh):  # the replicas' copies are done
+                    if d.type == "cuda":
+                        torch.cuda.current_stream(d).synchronize()
+                self._shards = ShardRunner(self.mesh)
 
     # --- host-side per-read preparation (exact f32 paths) ---
 
@@ -686,28 +722,30 @@ class DeviceSearchEngine:
         return dict(blob=blob, L=L, max_len=max_len, dev_lut=dev_lut,
                     rle=bid_rle, _stash=stash)
 
-    def _to_device(self, array):
+    def _to_device(self, array, dev=None):
+        dev = self.device if dev is None else dev
         host = torch.from_numpy(np.ascontiguousarray(array))
-        if self.device.type == "cuda":
+        if dev.type == "cuda":
             host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
+        return host.to(dev, non_blocking=True)
 
-    def _upload(self, prep):
-        """Upload to the card (on the current stream) and unpack (K4, or K6
-        for the device-Bi-D blob).  Returns the pool search's five consts
-        and its keyword inputs: the packed LUT/Bi-D rows, or the dense
-        arrays with the block's longest parts."""
+    def _upload(self, prep, dev=None):
+        """Upload to `dev` (the engine's device by default; on the current
+        stream) and unpack (K4, or K6 for the device-Bi-D blob).  Returns
+        the pool search's five consts and its keyword inputs: the packed
+        LUT/Bi-D rows, or the dense arrays with the block's longest
+        parts."""
         L, M = prep["L"], prep["max_len"]
         if "dense" in prep:
-            d = {k: self._to_device(v) for k, v in prep["dense"].items()}
+            d = {k: self._to_device(v, dev) for k, v in prep["dense"].items()}
             consts = (d["n"], d["split"], d["scale"], d["thresh"],
                       d["repr_mm"])
             dense = (d["pattern_rank"], d["pattern_code"], d["score_lut"],
                      d["pen"])
             return consts, dict(dense=dense, bid_steps=prep["bid_steps"])
-        blob = self._to_device(prep["blob"])
+        blob = self._to_device(prep["blob"], dev)
         if prep.get("dev_full"):
-            tab, pen_tab, off = self._device_lut()
+            tab, pen_tab, off = self._device_lut(dev)
             (rank, code, n, score_lut, pen, split, scale, thresh,
              repr_mm) = _unpack_prep_full(blob, tab, pen_tab, off, L, M,
                                           _DEV_LUT_Q)
@@ -716,7 +754,7 @@ class DeviceSearchEngine:
                 bid_steps=prep["bid_steps"],
             )
         if prep["dev_lut"]:
-            tab, _pen_tab, off = self._device_lut()
+            tab, _pen_tab, off = self._device_lut(dev)
             parts = _unpack_prep_lut(blob, tab, off, L, M, _DEV_LUT_Q,
                                      rle=prep["rle"])
         else:
@@ -762,14 +800,18 @@ class DeviceSearchEngine:
     def block_reads(self) -> int:
         """Device invocation size: 8192 reads, 4096 with a big index (each
         read of a genome-scale text needs more of the shared step budget),
-        as in mapad_tpu.  Assignable (tests, tuning)."""
+        as in mapad_tpu; with a mesh that many per shard, rounded up to a
+        multiple of the shards.  Assignable (tests, tuning)."""
         override = getattr(self, "_block_reads", None) or int(
             os.environ.get("MAPAD_BLOCK_READS", 0)
         )
+        D = self.n_shards
         if override:
-            return max(self.pool_config.lanes, override)
-        return max(self.pool_config.lanes,
-                   4096 if self.device_index.big else 8192)
+            r = max(self.pool_config.lanes * D, override)
+        else:
+            r = max(self.pool_config.lanes,
+                    4096 if self.device_index.big else 8192) * D
+        return -(-r // D) * D
 
     @block_reads.setter
     def block_reads(self, value: int):
@@ -1065,7 +1107,7 @@ class DeviceSearchEngine:
         """A copy of the counts and stage seconds of the blocks run so far
         (the streaming driver logs it when a run ends)."""
         with self._stats_lock:
-            return {k: dict(v) if isinstance(v, dict) else v
+            return {k: type(v)(v) if isinstance(v, (dict, list)) else v
                     for k, v in self._stats.items()}
 
     @staticmethod
@@ -1074,6 +1116,8 @@ class DeviceSearchEngine:
         fallback path, so fallbacks reuse the block's LUT/penalty rows."""
         if stash is None or i is None:
             return None
+        if "_inv" in stash:
+            i = int(stash["_inv"][i])  # input order -> dealt row (mesh)
         return dict(
             pattern_rank=stash["pattern_rank"][i : i + 1],
             pattern_code=stash["pattern_code"][i : i + 1],
@@ -1095,6 +1139,10 @@ class DeviceSearchEngine:
         t0 = time.perf_counter()
         try:
             searcher = self._ensure_native()
+
+            def row_of(i):  # input order -> the stash's (dealt) row
+                return int(stash["_inv"][i]) if "_inv" in stash else i
+
             batch, singles = [], []
             for e in entries:
                 _, rec, i = e
@@ -1103,14 +1151,14 @@ class DeviceSearchEngine:
                     searcher is not None
                     and stash is not None
                     and 0 < ln <= stash["max_len"]
-                    and i < len(stash["n"])
-                    and int(stash["n"][i]) == ln
+                    and row_of(i) < len(stash["n"])
+                    and int(stash["n"][row_of(i)]) == ln
                 ):
                     batch.append(e)
                 else:
                     singles.append(e)
             if batch:
-                rows = [i for _, _, i in batch]
+                rows = [row_of(i) for _, _, i in batch]
                 verdicts = searcher.probe_batch(
                     stash["pattern_rank"][rows],
                     stash["pattern_code"][rows],
@@ -1149,18 +1197,41 @@ class DeviceSearchEngine:
                     fut.set_exception(e)
 
     def _prep_block(self, chunk, R, cfg):
-        """Host-side preparation of one pool invocation (prep thread)."""
+        """Host-side preparation of one pool invocation (prep thread).  With
+        a mesh the block is dealt round-robin into the shards' contiguous
+        slices and each slice prepared as its shard's invocation; the stash
+        holds the whole dealt block, with `_inv` to find a read's row."""
         t0 = time.perf_counter()
+        perm = None
+        if self.mesh is not None:
+            require(R % self.n_shards == 0,
+                    f"reads {R} must divide mesh size {self.n_shards}")
+            # positional correlation in the input makes a contiguous split
+            # step-imbalanced; the collect un-deals with the same perm
+            perm = round_robin_permutation(R, self.n_shards)
+            ext = list(chunk) + [_EMPTY] * (R - len(chunk))
+            chunk = [ext[int(p)] for p in perm]
         # size the pattern axis to the block's longest read, rounded up to
         # 16 (fewer LUT cells and shorter c_ops rows for short reads)
         mlen = max((len(r.sequence) for r in chunk), default=1)
         m_fit = min(cfg.max_len, max(16, -(-mlen // 16) * 16))
         # per-read XD timing from per-read step counts
         cfg = cfg._replace(max_len=m_fit, track_read_steps=True)
-        prep = self._prepare(
-            [r if len(r.sequence) <= cfg.max_len else _EMPTY for r in chunk],
-            cfg.max_len, R, host_bid=self._host_bid_active(),
-        )
+        recs = [r if len(r.sequence) <= cfg.max_len else _EMPTY
+                for r in chunk]
+        host_bid = self._host_bid_active()
+        if perm is None:
+            prep = self._prepare(recs, cfg.max_len, R, host_bid=host_bid)
+        else:
+            Rl = R // self.n_shards
+            shards = [
+                self._prepare(recs[lo : lo + Rl], cfg.max_len, Rl,
+                              host_bid=host_bid)
+                for lo in range(0, R, Rl)
+            ]
+            stash = _merge_stashes([p.pop("_stash") for p in shards], Rl)
+            stash["_inv"] = np.argsort(perm)
+            prep = dict(shards=shards, _stash=stash)
         self._stats["prep_s"] += time.perf_counter() - t0
         return cfg, prep, t0
 
@@ -1171,45 +1242,69 @@ class DeviceSearchEngine:
             )
         return self._dev_exec
 
-    def _run_block(self, cfg, prep, params):
-        """Device thread: upload + K4 (or K6 + K7), K2 + K3, K5 and the
-        async copy of the packed result into pinned host memory on a side
-        stream.
+    def _run_block(self, cfg, prep, params, shard=None):
+        """Device thread, or shard `shard`'s thread (`ShardRunner`: its
+        device and stream are current): upload + K4 (or K6 + K7), K2 + K3
+        (a shard's with its id rebase: `search_shard`), K5 and the async
+        copy of the packed result into pinned host memory on a side stream.
         Returns (result spec, host buffer, copy-done event or None).  The
         step loop polls the card, so this thread's busy time is close to
-        the card's time for the invocation (`_stats["device_s"]`)."""
+        the card's time for the invocation (`_stats["device_s"]`, summed
+        over the shards)."""
         t0 = time.perf_counter()
-        if self.device.type != "cuda":
-            consts, kw = self._upload(prep)
-            res = k_mismatch_search_pool2(self.device_index, *consts,
-                                          params, cfg, **kw)
-            out = _result_spec(res), _pack_result(res).numpy(), None
-            self._stats["device_s"] += time.perf_counter() - t0
-            return out
-        with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-            consts, kw = self._upload(prep)
-            res = k_mismatch_search_pool2(self.device_index, *consts,
-                                          params, cfg, **kw)
+        if shard is None:
+            dev, on_dev = self.device, self._on_device()
+            copy_stream = getattr(self, "_copy_stream", None)
+        else:
+            dev, on_dev = self.mesh[shard], contextlib.nullcontext()
+            copy_stream = self._shards.streams[shard][1]
+        with on_dev:
+            consts, kw = self._upload(prep, dev)
+            if shard is None:
+                res = k_mismatch_search_pool2(self.device_index, *consts,
+                                              params, cfg, **kw)
+            else:
+                Rl = prep["L"]
+                res = search_shard(self._mesh_index[shard], consts, params,
+                                   cfg, shard * Rl, self.n_shards * Rl, **kw)
             packed = _pack_result(res)
-            host = torch.empty(packed.shape, dtype=torch.int32,
-                               pin_memory=True)
-            self._copy_stream.wait_stream(self._stream)
-            with torch.cuda.stream(self._copy_stream):
-                host.copy_(packed, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(self._copy_stream)
-            packed.record_stream(self._copy_stream)
-        self._stats["device_s"] += time.perf_counter() - t0
-        return _result_spec(res), host, done
+            if dev.type != "cuda":
+                out = _result_spec(res), packed.numpy(), None
+            else:
+                host = torch.empty(packed.shape, dtype=torch.int32,
+                                   pin_memory=True)
+                copy_stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(copy_stream):
+                    host.copy_(packed, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(copy_stream)
+                packed.record_stream(copy_stream)
+                out = _result_spec(res), host, done
+        with self._stats_lock:
+            self._stats["device_s"] += time.perf_counter() - t0
+        return out
 
     def _launch_block(self, prepped, params):
-        """Queue one prepared invocation on the device thread."""
+        """Queue one prepared invocation on the device thread, or each
+        shard's part on that shard's thread."""
         cfg, prep, t0 = prepped
         stash = prep.pop("_stash", None)
-        fut = self._device_exec().submit(self._run_block, cfg, prep, params)
+        if "shards" in prep:
+            fut = [self._shards.submit(d, self._run_block, cfg, p, params,
+                                       d)
+                   for d, p in enumerate(prep["shards"])]
+        else:
+            fut = self._device_exec().submit(self._run_block, cfg, prep,
+                                             params)
         return fut, None, t0, stash
 
     def _fetch(self, fut):
+        """Wait for one invocation's copy -> numpy PoolResult; a sharded
+        one's fields stacked along a leading shard axis."""
+        if isinstance(fut, list):
+            parts = [self._fetch(f) for f in fut]
+            return PoolResult(*[None if f[0] is None else np.stack(f)
+                                for f in zip(*parts)])
         spec, host, done = fut.result()
         if done is not None:
             done.synchronize()
@@ -1223,16 +1318,30 @@ class DeviceSearchEngine:
                       nohit_out: set | None = None):
         """Wait for one invocation's result, decode its chains into `out`
         and return the set of escalated read indexes (by cause in
-        `_stats["esc_why"]` when count_stats).  For the tiers' routing the
-        optional sets receive: reads abandoned at the per-read cap, reads
-        that spent MAPAD_RETRY_DEEP_FRAC of it, and escalated reads with no
-        hit so far."""
+        `_stats["esc_why"]` when count_stats, except with a mesh, as in
+        mapad_tpu).  For the tiers' routing the optional sets receive: reads
+        abandoned at the per-read cap, reads that spent
+        MAPAD_RETRY_DEEP_FRAC of it, and escalated reads with no hit so
+        far."""
         fut, _, t0, stash = launched
         t_fetch = time.perf_counter()
         result = self._fetch(fut)
         t_dec = time.perf_counter()
-        elapsed = t_dec - t0
         self._stats["wait_s"] += t_dec - t_fetch
+        collect = (self._collect_pool_sharded if result.c_read.ndim == 2
+                   else self._decode_pool)
+        return collect(chunk, result, out, t_dec - t0, stash, abandoned_out,
+                       deep_out, count_stats, nohit_out)
+
+    def _decode_pool(self, chunk, result, out, elapsed, stash,
+                     abandoned_out: set | None = None,
+                     deep_out: set | None = None,
+                     count_stats: bool = True,
+                     nohit_out: set | None = None):
+        """Decode one invocation's numpy result (over the reads of `chunk`,
+        `elapsed` seconds since its prep began) into `out`; returns the
+        escalated read indexes (see `_collect_pool`)."""
+        t_dec = time.perf_counter()
         per_read = elapsed / max(len(chunk), 1)
         read_time = None
         if result.read_steps is not None and result.read_steps.size:
@@ -1357,6 +1466,65 @@ class DeviceSearchEngine:
             self._stats["device_lanes"] += len(chunk)
             self._stats["escalated"] += len(escalated)
             self._stats["batches"] += 1
+        return escalated
+
+    def _collect_pool_sharded(self, chunk, result, out, elapsed, stash,
+                              abandoned_out=None, deep_out=None,
+                              count_stats: bool = True, nohit_out=None):
+        """Collect a sharded result (leading shard axis), as
+        `_collect_pool_sharded` of mapad_tpu does: shard d owns dealt rows
+        [d*R/D, (d+1)*R/D) of the block's round-robin deal (`_prep_block`)
+        and decodes as one invocation (its reads' XD from its own step
+        time); hits and the escalated, abandoned, deep and no-hit sets are
+        then un-dealt to input order.  Per-cause escalation counts are not
+        kept in this mode (the shards decode with count_stats=False)."""
+        D, R_local = result.read_steps.shape
+        R = D * R_local
+        perm = round_robin_permutation(R, D)
+        ext = list(chunk) + [_EMPTY] * (R - len(chunk))
+        dealt = [ext[int(p)] for p in perm]
+        out_d = [None] * R
+        sets_d = [set(), set(), set(), set()]  # esc, abandon, deep, no-hit
+        for d in range(D):
+            lo = d * R_local
+            sub_out = [None] * R_local
+            ab_l, deep_l, nh_l = set(), set(), set()
+            esc = self._decode_pool(
+                dealt[lo : lo + R_local],
+                _local_view(result, d, lo, R, R_local), sub_out, elapsed,
+                None, ab_l, deep_l, count_stats=False, nohit_out=nh_l,
+            )
+            out_d[lo : lo + R_local] = sub_out
+            for acc, local in zip(sets_d, (esc, ab_l, deep_l, nh_l)):
+                acc.update(lo + i for i in local)
+
+        n = len(chunk)
+        escalated = set()
+        for j in range(R):
+            oi = int(perm[j])
+            if oi >= n:
+                continue
+            out[oi] = out_d[j]
+            for acc, dst in zip(sets_d, (escalated, abandoned_out, deep_out,
+                                         nohit_out)):
+                if dst is not None and j in acc:
+                    dst.add(oi)
+        # reads the prep neutralized (Bi-D RLE overflow) are rows of the
+        # dealt block: through the deal to input order (mapad_tpu injects
+        # the dealt rows as input indexes, so another read goes to the
+        # host in their place)
+        pre = None if stash is None else stash.get("pre_escalate")
+        if pre is not None:
+            _inject_pre_escalate({"pre_escalate": perm[pre]}, n, escalated,
+                                 abandoned_out, nohit_out)
+        if count_stats:
+            self._stats["device_lanes"] += n
+            self._stats["escalated"] += len(escalated)
+            self._stats["batches"] += 1
+        # per-shard steps: total / (D x slowest) is the split's efficiency
+        acc = self._stats.setdefault("shard_steps", [0] * D)
+        for d, st in enumerate(np.asarray(result.steps).reshape(-1)):
+            acc[d] += int(st)
         return escalated
 
     def _decode_chain(self, result, k, split):
@@ -1561,11 +1729,17 @@ class DeviceSearchEngine:
             )
         return cache
 
-    def _device_lut(self):
+    def _device_lut(self, dev=None):
         """One-time all-length score-LUT table, penalty table and
-        per-length offsets on the card for K4 and K6.  The host build is
+        per-length offsets on `dev` (the engine's device by default; each
+        shard's device with a mesh) for K4 and K6.  The host build is
         memoized across engines on the model's scalar parameters."""
-        ent = getattr(self, "_dev_lut_obj", None)
+        dev = canonical(self.device if dev is None else dev)
+        with self._lut_lock:  # shard threads ask at once
+            return self._device_lut_locked(dev)
+
+    def _device_lut_locked(self, dev):
+        ent = self._dev_lut_by_dev.get(dev)
         if ent is None:
             sdm = self.parameters.difference_model
             attrs = tuple(
@@ -1592,8 +1766,8 @@ class DeviceSearchEngine:
                     "device LUT table: %d rows built in %.1fs",
                     host[0].shape[0], time.perf_counter() - t0,
                 )
-            ent = self._dev_lut_obj = tuple(
-                torch.from_numpy(h).to(self.device) for h in host
+            ent = self._dev_lut_by_dev[dev] = tuple(
+                torch.from_numpy(h).to(dev) for h in host
             )
         return ent
 
@@ -1655,6 +1829,19 @@ class DeviceSearchEngine:
             scale, thresh, repr_mm, self.parameters,
             packed=self.packed_hits,
         )
+
+
+def _merge_stashes(stashes, r_local):
+    """The shards' host stashes as one stash of the whole dealt block (shard
+    d's rows at [d*r_local, (d+1)*r_local))."""
+    out = {k: np.concatenate([st[k] for st in stashes])
+           for k in stashes[0] if k not in ("max_len", "pre_escalate")}
+    out["max_len"] = stashes[0]["max_len"]
+    pre = [st["pre_escalate"] + d * r_local
+           for d, st in enumerate(stashes) if "pre_escalate" in st]
+    if pre:
+        out["pre_escalate"] = np.concatenate(pre)
+    return out
 
 
 class HybridSearchEngine:

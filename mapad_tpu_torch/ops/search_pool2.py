@@ -78,7 +78,7 @@ import time
 import torch
 
 from .._build import LAUNCHES, check, cuda_function, require
-from .bi_d import compute_bi_d
+from .bi_d import compute_bi_d, compute_bi_d_plain
 from .fm import DeviceFmIndex, extend_batch_plain
 from .search import (
     CANDS,
@@ -928,18 +928,19 @@ def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, out,
 
 
 def _dense_slut(index: DeviceFmIndex, dense, n, split, config: PoolConfig,
-                bid_steps=None):
+                bid_steps=None, plain: bool = False):
     """The dense-input entry's prologue (search_pool2.py:159-171 of the JAX
-    package): Bi-D composite from the pattern and penalty rows (K7), then
-    the (R*M, 6) f32 rows [score4 | code | Bi-D]."""
+    package): Bi-D composite from the pattern and penalty rows (K7, or its
+    plain version with `plain`), then the (R*M, 6) f32 rows [score4 | code
+    | Bi-D]."""
     pattern_rank, pattern_code, score_lut, pen = dense
     R, M = pattern_rank.shape
     require(M == config.max_len and score_lut.shape == (R, M, 4)
             and pattern_code.shape == pen.shape == (R, M),
             "dense pool search inputs must be (R, max_len)")
-    bid = compute_bi_d(index, pattern_rank, pen, n, split,
-                       compute_forward_part=config.compute_forward_part,
-                       steps=bid_steps)
+    bid = (compute_bi_d_plain if plain else compute_bi_d)(
+        index, pattern_rank, pen, n, split,
+        compute_forward_part=config.compute_forward_part, steps=bid_steps)
     return torch.cat(
         [score_lut.reshape(R * M, 4),
          pattern_code.reshape(R * M, 1).to(torch.float32),

@@ -3,7 +3,10 @@ the card, at small shapes that reach the edge cases (abandon markers, chain
 log overflow, an exhausted step budget, the RLE and raw Bi-D blobs, store
 boundaries with and without overlap of the moved window, the bidirectional
 search), with int32 intervals and with the int64 intervals of big mode;
-and the fixed-batch search (K10) and its engine.
+the fixed-batch search (K10) and its engine; and the pool search over
+several shards (K9 and its `shard_rebase`), on one card and, where the
+machine has them, over distinct cards.  Engines run on one card unless a
+test asks for a mesh (MAPAD_SHARD=0 by default here).
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  On the card:
 
@@ -35,6 +38,13 @@ def cuda():
         pytest.skip("needs nvcc to build the kernels")
     _build.build_cuda()
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _one_card(monkeypatch):
+    """On a machine with several cards an engine would shard over all of
+    them by default: the tests of one card keep to one."""
+    monkeypatch.setenv("MAPAD_SHARD", "0")
 
 
 @pytest.fixture(scope="module")
@@ -471,3 +481,145 @@ def test_profile_trace_shows_the_kernels(cuda, tmp_path, monkeypatch):
     for kernel in ("pool_lane_kernel", "pool_refill_kernel",
                    "unpack_prep_kernel", "pack_result_kernel"):
         assert any(kernel in n for n in names), kernel
+
+
+# --- K9: the pool search over several shards ------------------------------
+
+
+def test_shard_rebase_kernel(cuda):
+    from mapad_tpu_torch.ops.search_pool import PoolResult
+    from mapad_tpu_torch.parallel import pool_sharded as tps
+
+    g = torch.Generator().manual_seed(3)
+    for C, L, base, r_local in ((16384, 512, 8192, 8192), (37, 5, 0, 9)):
+        c_read = torch.randint(-1, r_local, (C,), generator=g,
+                               dtype=torch.int32)
+        lane_read = torch.randint(0, r_local + 1, (L,), generator=g,
+                                  dtype=torch.int32)
+        outs = []
+        for rebase, dev in ((tps.shard_rebase, cuda),
+                            (tps._shard_rebase_plain, cuda)):
+            res = PoolResult(*[None] * len(PoolResult._fields))._replace(
+                c_read=c_read.to(dev), lane_read=lane_read.to(dev),
+                next_read=torch.tensor(r_local // 2, dtype=torch.int32,
+                                       device=dev))
+            outs.append(rebase(res, base, r_local, base + 2 * r_local))
+        torch.cuda.synchronize()
+        got, want = outs
+        _equal((got.c_read, got.lane_read, got.next_read),
+               (want.c_read, want.lane_read, want.next_read), "shard_rebase")
+        assert int(got.next_read) == r_local // 2 + base
+
+
+def _sharded_prep(eng, cfg, prep, dev):
+    """One engine prep uploaded to `dev` and unpacked -> the prep dict of
+    `pool_search_sharded` (the packed rows, or the dense arrays)."""
+    from mapad_tpu_torch.parallel import pool_sharded as tps
+
+    with torch.cuda.device(dev):
+        consts, kw = eng._upload(prep, dev)
+    out = dict(zip(tps.CONST_KEYS, consts))
+    if "slut" in kw:
+        out["slut_packed"] = kw["slut"]
+    else:
+        out.update(zip(tps.DENSE_KEYS, kw["dense"]))
+    return out
+
+
+def _k9_both(fmd, mesh, big, monkeypatch):
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.parallel import pool_sharded as tps
+    from mapad_tpu_torch.parallel import sharding as tsh
+
+    eng, cfg, prep = _prepped(fmd, mesh[0], CASES["bench"], seed=5, big=big,
+                              R=48)
+    cfg = cfg._replace(track_read_steps=True)
+    p = _sharded_prep(eng, cfg, prep, mesh[0])
+    indexes = tsh.replicate(mesh, eng.device_index)
+    LAUNCHES.reset()
+    got = tps.pool_search_sharded(mesh, indexes, p, eng._params(), cfg)
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("shard_rebase") == len(mesh)
+    want = tps.pool_search_sharded_plain(mesh, indexes, p, eng._params(),
+                                         cfg)
+    torch.cuda.synchronize()
+    _equal(tuple(got), tuple(want), "pool_search_sharded")
+    assert got.c_read.shape[0] == len(mesh)
+    assert (got.steps > 0).all()
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("big", [False, True])
+def test_pool_search_sharded_kernel(fmd, cuda, D, big, monkeypatch):
+    """K9 with D shards on one card (one host thread and stream each)
+    against the plain per-shard loops, int32 (packed rows) and int64
+    (dense inputs, each shard's own Bi-D)."""
+    _k9_both(fmd, [torch.device("cuda", torch.cuda.current_device())] * D,
+             big, monkeypatch)
+
+
+def _sharded_engine_run(fmd, dev, mesh, monkeypatch, shard="1"):
+    from concurrent.futures import Future
+
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.ops.search_pool import PoolConfig
+
+    if shard is None:
+        monkeypatch.delenv("MAPAD_SHARD")
+    else:
+        monkeypatch.setenv("MAPAD_SHARD", shard)
+    monkeypatch.setenv("MAPAD_BLOCK_READS", "32")
+    eng = DeviceSearchEngine(
+        fmd, adna_params("mapad_tpu_torch"), packed_hits=True, device=dev,
+        mesh=mesh, pool_config=PoolConfig(lanes=8, total_steps=1024,
+                                          read_step_cap=256,
+                                          max_chains=256, generations=2))
+    res = eng.search_chunk(records("mapad_tpu_torch",
+                                   bench_reads(seed=4, n_random=60)),
+                           lazy_fallback=True)
+    return (eng, {i for i, r in enumerate(res) if isinstance(r, Future)},
+            [(r.result() if isinstance(r, Future) else r)[0] for r in res])
+
+
+def test_sharded_engine_on_the_card_equals_cpu(fmd, cuda, monkeypatch):
+    """The mesh path of the engine (each shard's upload, K4, K2 + K3, the
+    rebase, K5 and copy on its own thread and streams) with two shards on
+    one card against the same mesh on the CPU's plain versions."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from torch_port_helpers import packed_equal
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    LAUNCHES.reset()
+    eng_g, esc_g, hits_g = _sharded_engine_run(fmd, card, [card] * 2,
+                                               monkeypatch)
+    assert LAUNCHES.get("shard_rebase") == 2 * eng_g._stats["batches"]
+    eng_c, esc_c, hits_c = _sharded_engine_run(
+        fmd, "cpu", [torch.device("cpu")] * 2, monkeypatch)
+    assert eng_g.n_shards == eng_c.n_shards == 2
+    assert esc_g == esc_c
+    assert eng_g._stats["shard_steps"] == eng_c._stats["shard_steps"]
+    assert all(packed_equal(a, b) for a, b in zip(hits_g, hits_c))
+
+
+def test_pool_search_sharded_over_distinct_cards(fmd, cuda, monkeypatch):
+    """Where the machine has several cards: K9 over all of them (an index
+    replica on each, each shard's launches on its own card) against its
+    plain version, and the engine's automatic mesh (MAPAD_SHARD unset)
+    against the same mesh on the CPU."""
+    from mapad_tpu_torch.parallel import sharding as tsh
+    from torch_port_helpers import packed_equal
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs more than one card")
+    mesh = tsh.make_mesh()
+    for big in (False, True):
+        _k9_both(fmd, mesh, big, monkeypatch)
+    eng_g, esc_g, hits_g = _sharded_engine_run(fmd, None, None, monkeypatch,
+                                               shard=None)
+    assert eng_g.mesh == mesh
+    eng_c, esc_c, hits_c = _sharded_engine_run(
+        fmd, "cpu", [torch.device("cpu")] * n, monkeypatch)
+    assert esc_g == esc_c
+    assert eng_g._stats["shard_steps"] == eng_c._stats["shard_steps"]
+    assert all(packed_equal(a, b) for a, b in zip(hits_g, hits_c))

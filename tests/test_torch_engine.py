@@ -404,21 +404,16 @@ def test_bidirectional_engine_equals_jax_and_oracle(indexes, model, big,
         assert hits_equal(got, want), read[:16]
 
 
-@pytest.mark.parametrize("what", ["mode", "shard"])
-def test_later_slices_raise_when_made(indexes, what, monkeypatch):
+@pytest.mark.parametrize("what", ["mode"])
+def test_later_slices_raise_when_made(indexes, what):
     """What the engine cannot run refuses at construction time, not in the
     middle of a stream: the fixed-batch mode with a big (int64) index, as
-    in mapad_tpu, and the mesh of pool mode (kernel K9), not ported yet."""
+    in mapad_tpu."""
     _jfmd, tfmd = indexes
     params = adna_params("mapad_tpu_torch")
     kw = dict(pool_config=TPoolConfig(**CFG), device="cpu")
-    if what == "mode":
-        with pytest.raises(ValueError, match="mode='pool'"):
-            TEngine(tfmd, params, mode="batch", big=True, **kw)
-        return
-    monkeypatch.setenv("MAPAD_SHARD", "1")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TEngine(tfmd, params, **kw)
+    with pytest.raises(ValueError, match="mode='pool'"):
+        TEngine(tfmd, params, mode="batch", big=True, **kw)
 
 
 def test_host_bid_off_on_a_small_index_equals_jax(indexes, monkeypatch):

@@ -42,6 +42,10 @@ def test_port_imports_no_jax_and_no_mapad_tpu():
     files = _port_files()
     assert os.path.exists(files[0]), "chip_smoke.py is missing"
     assert len(files) > 30
+    parallel = {os.path.relpath(f, ROOT) for f in files
+                if os.sep + "parallel" + os.sep in f}
+    assert {f"mapad_tpu_torch/parallel/{m}.py"
+            for m in ("sharding", "pool_sharded", "multihost")} <= parallel
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
         # "mapad_tpu_torch" shares the prefix but is its own root

@@ -83,6 +83,52 @@ def vindija_params(pkg):
     )
 
 
+def dryrun_params(pkg, chunk_size=1000):
+    """The alignment parameters of the multi-chip dry run and the multi-host
+    test of the JAX package (`__graft_entry__.dryrun_multichip`,
+    tests/test_multihost_e2e.py), built from `pkg`'s own classes."""
+    models = __import__(f"{pkg}.models", fromlist=["x"])
+    mapping = __import__(f"{pkg}.map", fromlist=["x"])
+    dm = models.SimpleAncientDnaModel(
+        ("single_stranded", 0.6, 0.55), 0.01, 1.0,
+        np.float32(0.02) / np.float32(3.0), False,
+    )
+    repr_mm = dm.get_representative_mismatch_penalty()
+    return mapping.AlignmentParameters(
+        difference_model=dm,
+        mismatch_bound=models.Discrete(0.03, 0.02, repr_mm),
+        penalty_gap_open=repr_mm * np.float32(1.5),
+        penalty_gap_extend=repr_mm * np.float32(0.5),
+        chunk_size=chunk_size, gap_dist_ends=5, stack_limit_abort=False,
+        max_num_gaps_open=2,
+    )
+
+
+def bam_records(path):
+    """Every record of a BAM file (read with mapad_tpu_torch's reader) as
+    a tuple of its fields and its tags, XD (a timing) left out."""
+    from mapad_tpu_torch.io.bam import BamReader
+
+    with open(path, "rb") as f:
+        return [
+            (r.name, r.flags, r.ref_id, r.pos, r.mapq, r.cigar_string(),
+             r.sequence, r.quals,
+             tuple(sorted((bytes(k), v) for k, _t, v in r.tags
+                          if bytes(k) != b"XD")))
+            for r in BamReader(f)
+        ]
+
+
+def port_index(di):
+    """The port's DeviceFmIndex on the CPU from the arrays of a JAX
+    package's DeviceFmIndex."""
+    from mapad_tpu_torch.ops.fm import DeviceFmIndex
+
+    return DeviceFmIndex.from_numpy(np.asarray(di.rows), np.asarray(di.less),
+                                    np.asarray(di.sentinels), di.occ_k,
+                                    di.text_len, bool(di.big), device="cpu")
+
+
 def repeat_ref():
     """-> (bench_ref followed by six copies of one 60 bp segment of it, each
     with one substitution at its own position and a random 50 bp spacer
@@ -189,7 +235,6 @@ def run_pool_both(fmd, reads, R, big=False, dense=False, params_of=adna_params,
     from mapad_tpu.ops.engine import DeviceSearchEngine
     from mapad_tpu.ops.search_pool import PoolConfig as JPoolConfig
     from mapad_tpu.ops.search_pool2 import k_mismatch_search_pool2 as jpool
-    from mapad_tpu_torch.ops.fm import DeviceFmIndex
     from mapad_tpu_torch.ops.search import SearchParams
     from mapad_tpu_torch.ops.search_pool import PoolConfig
     from mapad_tpu_torch.ops.search_pool2 import k_mismatch_search_pool2
@@ -213,11 +258,8 @@ def run_pool_both(fmd, reads, R, big=False, dense=False, params_of=adna_params,
                eng._params(), jcfg, **kw)
     jr = jax.tree.map(np.asarray, jr)
 
-    di = eng.device_index
-    assert bool(di.big) == big
-    tidx = DeviceFmIndex.from_numpy(np.asarray(di.rows), np.asarray(di.less),
-                                    np.asarray(di.sentinels), di.occ_k,
-                                    di.text_len, big, device="cpu")
+    assert bool(eng.device_index.big) == big
+    tidx = port_index(eng.device_index)
     tcfg = PoolConfig(**{f: getattr(jcfg, f) for f in PoolConfig._fields})
 
     def t(name):

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --path7   # path 7 alone (a machine of several cards)
+    python3 chip_smoke.py --probes  # the probe phase alone (P1-P4)
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
@@ -74,6 +75,18 @@ shards of 8,192) against its shards run unsharded, each timed beside the
 same shards run one after the other; then `shard_rebase` alone against
 its plain version.
 
+Last, the probe phase: the ports of the TPU round's DMA probes (P1-P4,
+mapad_tpu_torch/tools/; on no mapping path).  P1 (`probe_dma`) is held
+against its plain version at the TPU probe's defaults (L=1024, W=128,
+T=200, a 512 MiB table of 2^20 rows) and over T=512 steps (acc passes
+2^24), P2-P4 (`copy_src_slice`, `copy_dst_slice`) at their shapes against
+their plain versions and torch slicing, each timed by CUDA events and by
+the profiler's device time beside `x[sl].clone()` or `out[sl] = inp + 1`;
+then the counted run of the tools: P1 timed a step in three forms (one
+launch, one launch a step, plain PyTorch on the card) against path 1's
+index rows (in L2), path 2's and 2^20 rows, P2's shapes, P3, P4's copies
+and its PTX/SASS dump.
+
 Paths 1 and 2 map their reads again with `map --engine native` (the exact
 host C++ search); the BAMs of paths 1, 3, 4 and 7 equal path 1's native
 BAM (path 8's the native BAM of its chunks) and path 2's its own, record for record except XD (a timing); the
@@ -137,6 +150,24 @@ K9_READS = 512
 # a failed process fails the smoke within this many seconds
 PATH8_CHUNK = 8192
 PATH8_TIMEOUT = 300
+# the probe phase: P1 at the TPU probe's defaults (W, L, T, and NB = 2^20,
+# a 512 MiB table), checked once more over T = 512 steps (acc passes 2^24)
+PROBE_W, PROBE_L, PROBE_T, PROBE_T_LONG = 128, 1024, 200, 512
+PROBE_NB = 1 << 20
+
+
+def index_rows(genome_size: int, k: int) -> int:
+    """Fused index rows of a genome (`DeviceFmIndex.from_host`: the doubled
+    text, two sentinels, k symbols a row)."""
+    return -(-(2 * genome_size + 2) // k)
+
+
+# P1 is timed against three tables: path 1's index rows (in the 50 MB
+# L2), path 2's (above it) and the TPU probe's 2^20 rows
+PROBE_TABLES = (("path 1's index rows", index_rows(GENOME_SIZE, 976)),
+                ("path 2's index rows", index_rows(GENOME2_SIZE, 928)),
+                ("the TPU probe's 2^20 rows", PROBE_NB))
+
 MAP_FLAGS = ["-p", "0.03", "-l", "single_stranded", "-f", "0.6", "-t",
              "0.55", "-d", "0.01", "-s", "1.0", "-i", "0.001"]
 
@@ -205,16 +236,9 @@ def make_reads(genome, n_reads, np, seed=7):
 
 def timed(torch, fn, reps):
     """Mean ms of fn() over reps launches, CUDA events around the run."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+    from mapad_tpu_torch.tools import cuda_ms
+
+    return cuda_ms(fn, reps)
 
 
 def compare(torch, got, want, what):
@@ -759,6 +783,159 @@ def k9_check(torch, engine, reads):
     log(f"shard_rebase C={C} L={L}: bit-exact, {row['ms']:.4f} ms (plain "
         f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms)")
     return row
+
+
+# --- the probe phase: P1-P4, the ports of the TPU's DMA probes -------------
+
+
+def probe_cases():
+    """P2's eight shapes (tools/_probe_shapes.py:58-70), P3 (tools/_t9.py)
+    and P4 (tools/_dump_pair.py): (what, direction, array shape, slice,
+    block shape, addend)."""
+    from mapad_tpu_torch.tools import _dump_pair, _probe_shapes, _t9
+
+    cases = [(f"P2 {name}", kind, shape, sl, blk, 0)
+             for name, kind, shape, sl, blk in _probe_shapes.SHAPES]
+    w = _dump_pair.W
+    return cases + [
+        (f"P3 row {_t9.ROW} of ({_t9.NB}, {_t9.W})", "src", (_t9.NB, _t9.W),
+         (slice(_t9.ROW, _t9.ROW + 1),), (1, _t9.W), 0),
+        (f"P4 k_src: row {_dump_pair.SRC_ROW} of (8, {w})", "src", (8, w),
+         (slice(_dump_pair.SRC_ROW, _dump_pair.SRC_ROW + 1),), (1, w), 0),
+        (f"P4 k_dst: in + 1 into row {_dump_pair.DST_ROW} of (8, {w})",
+         "dst", (8, w), (slice(_dump_pair.DST_ROW, _dump_pair.DST_ROW + 1),),
+         (1, w), 1),
+    ]
+
+
+def copy_case(torch, what, kind, shape, sl, blk, addend):
+    """One P2-P4 copy on the card against its plain version and torch
+    slicing of `arange` data, then timed: the kernel, its plain version and
+    the one PyTorch call that does the same (`x[sl].clone()`, or
+    `out[sl] = inp + addend`), each by CUDA events over many calls and by
+    the profiler's device time.  Returns its measurements."""
+    from mapad_tpu_torch.tools import _probe_shapes, cuda_ms, device_ms
+
+    fn, plain, library, ref = _probe_shapes.case(
+        kind, shape, sl, blk, torch.device("cuda", 0), addend)
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    err = max(compare(torch, (got,), (want,), f"{what}: kernel against plain"),
+              compare(torch, (got,), (ref,),
+                      f"{what}: kernel against torch slicing"))
+    _row0, nrows, _col0, ncols = _probe_shapes.slice_args(shape, sl)
+    n = nrows * ncols * 4 * 2
+    r = dict(what=what, kind=kind, max_abs_err=err, bytes=n,
+             bound_ms=bound_ms(n),
+             ms=cuda_ms(fn, 200), device_ms=device_ms(fn, 50),
+             plain_ms=cuda_ms(plain, 200),
+             library_ms=cuda_ms(library, 200),
+             library_device_ms=device_ms(library, 50))
+    shown = {k: "not measured" if v is None else f"{v:.4g} ms"
+             for k, v in r.items() if k.endswith("ms")}
+    log(f"{what}: bit-exact; kernel {shown['ms']} a call by events, "
+        f"{shown['device_ms']} device; plain {shown['plain_ms']}; "
+        f"library {shown['library_ms']} by events, "
+        f"{shown['library_device_ms']} device; bound {shown['bound_ms']}")
+    return r
+
+
+def probe_phase(torch, card):
+    """P1-P4 on the card.  Checks first, outside the counted run: P1 against
+    its plain version at the TPU probe's defaults and over T = 512 steps;
+    P2-P4 at their shapes against their plain versions and torch slicing,
+    each timed.  Then the counted run, the tools as a user runs them: P1's
+    three forms timed at the three tables of PROBE_TABLES (bench_dma), P2's
+    shapes (_probe_shapes), P3 (_t9), P4's copies and its PTX/SASS dump
+    (_dump_pair).  Returns (kernel-table rows, launches of that run)."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.tools import (_dump_pair, _probe_shapes, _t9,
+                                       bench_dma, dma)
+
+    dev = torch.device("cuda", 0)
+    rows, blk = bench_dma.make_inputs(PROBE_NB, PROBE_W, PROBE_L, seed=0,
+                                      device=dev)
+    err = 0.0
+    for steps in (PROBE_T, PROBE_T_LONG):
+        got = dma.gather_steps(rows, blk, steps)
+        want = dma.gather_steps_plain(rows, blk, steps)
+        err = max(err, compare(torch, got, want, f"probe_dma T={steps}"))
+        log(f"P1 probe_dma L={PROBE_L} W={PROBE_W} NB={PROBE_NB} T={steps}: "
+            f"bit-exact (acc {float(got[0])!r}, chk {int(got[1])})")
+    if not float(got[0]) > 2**24:
+        raise AssertionError("P1's check never took acc past 2^24")
+    plain_ms = timed(torch, lambda: dma.gather_steps_plain(rows, blk,
+                                                           PROBE_T), 1)
+    del rows, blk
+    cases = [copy_case(torch, *c) for c in probe_cases()]
+
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    tables = []
+    for what, nb in PROBE_TABLES:
+        rows, blk = bench_dma.make_inputs(nb, PROBE_W, PROBE_L, seed=0,
+                                          device=dev)
+        us = bench_dma.measure(rows, blk, PROBE_T)
+        tables.append(dict(what=what, nb=nb, mb=nb * PROBE_W * 4 / 1e6,
+                           **{f"{f}_us": us[f] for f in bench_dma.FORMS}))
+        log(f"P1 at {what} (NB={nb}, {tables[-1]['mb']:.1f} MB), "
+            f"L={PROBE_L} W={PROBE_W} T={PROBE_T}, us a step: " + ", ".join(
+                f"{f} {us[f]:.3f}" for f in bench_dma.FORMS)
+            + f" (bound {bench_dma.step_bound_us(PROBE_L, PROBE_W):.4f}; "
+            f"{card})")
+        del rows, blk
+    bad = [n for n, ok in _probe_shapes.check() if not ok]
+    got, want = _t9.run()
+    bad += [] if torch.equal(got, want) else ["P3"]
+    bad += [w for w, g, x in _dump_pair.run_pair() if not torch.equal(g, x)]
+    dump_dir = os.path.join(WORK, "dump_pair")
+    counts = _dump_pair.dump(dump_dir)
+    torch.cuda.synchronize()
+    launches = {k: LAUNCHES.get(k)
+                for k in ("probe_dma", "copy_src_slice", "copy_dst_slice")}
+    log(f"probe tools: kernel launches {launches}")
+    if bad:
+        raise AssertionError(f"probe tools failed: {bad}")
+    for kernel, (ptx, sass) in counts.items():
+        for ext in ("ptx", "sass"):
+            text = open(os.path.join(dump_dir, f"{kernel}.{ext}")).read()
+            if f"{kernel}_kernel" not in text:
+                raise AssertionError(f"P4 dump {kernel}.{ext} lacks its "
+                                     "kernel")
+        log(f"P4 dump: {kernel} {ptx} PTX, {sass} SASS instructions")
+    for name, n in launches.items():
+        if not n:
+            raise AssertionError(f"probe tools: {name} did not launch")
+
+    step_bytes = PROBE_L * PROBE_W * 4
+    last = tables[-1]
+    out = {"probe_dma": dict(
+        route="cuda", source="mapad_tpu_torch/csrc/probe_dma.cu",
+        replaces="tools/bench_dma.py:34", max_abs_err=err,
+        ms=last["one_launch_us"] * PROBE_T / 1e3, plain_ms=plain_ms,
+        bound_ms=bound_ms(PROBE_T * step_bytes + PROBE_L * 4 + 8),
+        bound_by="bytes", library_ms=last["library_us"] * PROBE_T / 1e3,
+        launch_per_step_ms=last["launch_per_step_us"] * PROBE_T / 1e3,
+        step_tables=tables)}
+    # each copy kernel's row: its time at P2's largest slice of its
+    # direction, every probe shape's measurements beside it
+    for name, kind, head, replaces, also in (
+            ("copy_src_slice", "src", "P2 src 3d (64,8,128)->(1,8,128)",
+             "tools/_probe_shapes.py:29",
+             ["tools/_t9.py:10", "tools/_dump_pair.py:32"]),
+            ("copy_dst_slice", "dst", "P2 dst (1024,128) write (72,128)",
+             "tools/_probe_shapes.py:44", ["tools/_dump_pair.py:39"])):
+        mine = [c for c in cases if c["kind"] == kind]
+        h = next(c for c in mine if c["what"] == head)
+        out[name] = dict(
+            route="cuda", source="mapad_tpu_torch/csrc/probe_copy.cu",
+            replaces=replaces, also_replaces=also,
+            max_abs_err=max(c["max_abs_err"] for c in mine),
+            **{k: h[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                 "device_ms", "library_device_ms")},
+            bound_by="bytes", shape=head, ptx_sass=list(counts[name]),
+            shapes=mine)
+    return out, launches
 
 
 PATH8_PROCESS = r"""
@@ -1441,7 +1618,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from mapad_tpu_torch import _build, cli
+    from mapad_tpu_torch import _build, cli, tools
     from mapad_tpu_torch._build import LAUNCHES
     from mapad_tpu_torch.index import load_index
     from mapad_tpu_torch.map import pipeline
@@ -1451,17 +1628,14 @@ def main() -> int:
     # paths 1-6 run on one card whatever the machine has; paths 7 and 8 set
     # the mesh themselves
     os.environ["MAPAD_SHARD"] = "0"
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = tools.card()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t = time.perf_counter()
-    logs = _build.build_cuda(verbose=True)
+    logs = _build.build_cuda(_build.CUDA_SOURCES + _build.PROBE_SOURCES,
+                             verbose=True)
     for name in ("searcher", "postprocess", "sais"):
         _build.host_library(name, ["-pthread"] if name == "postprocess"
                             else [])
@@ -1479,6 +1653,11 @@ def main() -> int:
     if "--path7" in sys.argv[1:]:
         return path7_alone(torch, np, cli, load_index, params, args, card,
                            t_start)
+
+    if "--probes" in sys.argv[1:]:
+        probe_rows, probe_launches = probe_phase(torch, card)
+        return finish(torch, probe_rows, probe_launches,
+                      {name: "probes" for name in probe_rows}, card, t_start)
 
     # --- path 1: small genome through the CLI ---
     fasta, fastq, reads = write_workload(np, GENOME_SIZE, 42, "")
@@ -1793,6 +1972,17 @@ def main() -> int:
     # --- path 8: multi-host mapping, two processes on this machine ---
     path8(cli, fasta, fastq, native_bam, args.seed)
 
+    # --- the probe phase: P1-P4, on no mapping path; last, so that the
+    # profiler it runs cannot touch any path's timing ---
+    probe_rows, probe_launches = probe_phase(torch, card)
+    rows.update(probe_rows)
+    launches.update(probe_launches)
+    path_of.update({name: "probes" for name in probe_rows})
+    return finish(torch, rows, launches, path_of, card, t_start)
+
+
+def finish(torch, rows, launches, path_of, card, t_start) -> int:
+    """Print the kernel table and the last line."""
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # `path`: the run whose launches the row counts; pool_search rows also
@@ -1809,14 +1999,20 @@ def main() -> int:
     # also carry their launches in path 7's two-shard run (`path7_launches`,
     # its own reset run), pool_search also its shards' steps
     # (`path7_steps`: two launches per step queued plus one per shard and
-    # invocation)
+    # invocation); the probe rows (path "probes", launches from the probe
+    # tools' run) P1's per-step times at three tables in three forms and its
+    # launch-per-step time, the copies' device times from the profiler, the
+    # shape of their headline, every probe shape's numbers and their PTX and
+    # SASS instruction counts
     more = ("steps", "boundaries", "launches_per_boundary", "main_shape",
             "main_ms", "main_bound_ms", "main_launches_per_boundary",
             "scan_bytes", "scan_ms", "center_ms", "path_steps",
             "path7_launches", "path7_steps", "k9_reads", "k9_steps", "k9_ms",
             "k9_plain_ms", "k9_bound_ms", "k9_sequential_ms",
             "k9_main_reads", "k9_main_steps", "k9_main_ms",
-            "k9_main_bound_ms", "k9_main_sequential_ms")
+            "k9_main_bound_ms", "k9_main_sequential_ms",
+            "launch_per_step_ms", "step_tables", "also_replaces", "device_ms",
+            "library_device_ms", "shape", "ptx_sass", "shapes")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},

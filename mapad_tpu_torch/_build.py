@@ -46,6 +46,10 @@ NVCC_FLAGS = [
 CUDA_SOURCES = ("pool_search", "pool_compact", "extract_chains",
                 "unpack_prep", "pack_result", "bi_d", "search_batch",
                 "pool_sharded")
+# the ports of the TPU's DMA probes (mapad_tpu_torch/tools/): on no mapping
+# path, built at first use by `cuda_library` or with
+# `build_cuda(PROBE_SOURCES)`
+PROBE_SOURCES = ("probe_dma", "probe_copy")
 
 _lock = threading.Lock()
 _loaded: dict = {}

@@ -296,4 +296,21 @@ __device__ __forceinline__ I occ_query_upper(I lower, I size) {
   return wsub<I>(wadd<I>(lower, size), 1);
 }
 
+// asynchronous global -> shared copies (sm_80+ `cp.async`): the counterpart
+// of a TPU kernel's `make_async_copy(...).start()`; `cp_async_wait_all` is
+// its semaphore wait.  16-byte copies need both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 }  // namespace mapad

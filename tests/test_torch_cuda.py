@@ -5,7 +5,9 @@ boundaries with and without overlap of the moved window, the bidirectional
 search), with int32 intervals and with the int64 intervals of big mode;
 the fixed-batch search (K10) and its engine; and the pool search over
 several shards (K9 and its `shard_rebase`), on one card and, where the
-machine has them, over distinct cards.  Engines run on one card unless a
+machine has them, over distinct cards; and the ports of the TPU's DMA
+probes (P1 `gather_steps`, P2-P4 `copy_src_slice` / `copy_dst_slice`) at
+their edge cases, with the probe tools themselves.  Engines run on one card unless a
 test asks for a mesh (MAPAD_SHARD=0 by default here).
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  On the card:
@@ -623,3 +625,151 @@ def test_pool_search_sharded_over_distinct_cards(fmd, cuda, monkeypatch):
     assert esc_g == esc_c
     assert eng_g._stats["shard_steps"] == eng_c._stats["shard_steps"]
     assert all(packed_equal(a, b) for a, b in zip(hits_g, hits_c))
+
+
+# --- the ports of the TPU's DMA probes (P1-P4, mapad_tpu_torch/tools/) ------
+
+
+@pytest.fixture(scope="module")
+def probe_cuda():
+    """The card with only the probe kernels built (they are on no mapping
+    path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from mapad_tpu_torch import _build
+
+    if _build.nvcc_path() is None:
+        pytest.skip("needs nvcc to build the kernels")
+    _build.build_cuda(_build.PROBE_SOURCES)
+    return torch.device("cuda")
+
+
+def _gather_equal(got, want, what):
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), \
+        (what, float(got[0]), float(want[0]))
+    assert torch.equal(got[1], want[1]), (what, "chk")
+
+
+@pytest.mark.parametrize("nb,lanes,width,steps,lo,hi", [
+    (8197, 1024, 128, 40, 0, 100),         # path 1's index rows: in L2
+    (300_000, 1024, 128, 20, 0, 100),      # 153 MB: above the 50 MB L2
+    (4096, 1001, 128, 12, 0, 100),         # L not a multiple of 8 lanes
+    (4096, 5, 128, 12, 0, 100),            # fewer lanes than one block's warps
+    (4096, 1024, 128, 12, 0, 16_000),      # acc passes 2^24 and rounds
+    (4096, 777, 128, 16, -16_000, 16_000), # negative acc
+    (4096, 200, 32, 8, 0, 1000),           # 128-byte rows
+    (4096, 200, 33, 8, 0, 1000),           # rows not 16-byte aligned
+    (4096, 64, 2048, 4, 0, 1000),          # 8 KB rows: a block's lanes fit
+])
+def test_gather_steps_kernel(probe_cuda, nb, lanes, width, steps, lo, hi):
+    """P1 on the card against its plain version on the same inputs."""
+    from mapad_tpu_torch.tools import dma
+
+    rng = np.random.default_rng(nb + lanes + width)
+    rows = torch.from_numpy(rng.integers(lo, hi, size=(nb, width),
+                                         dtype=np.int32)).to(probe_cuda)
+    blk = torch.from_numpy(rng.integers(0, nb, size=lanes,
+                                        dtype=np.int32)).to(probe_cuda)
+    got = dma.gather_steps(rows, blk, steps)
+    want = dma.gather_steps_plain(rows, blk, steps)
+    torch.cuda.synchronize()
+    _gather_equal(got, want, "gather_steps")
+    if hi == 16_000 and lo == 0:
+        assert float(got[0]) > 2**24
+
+
+def test_gather_steps_launch_per_step_equals_one_launch(probe_cuda):
+    """T launches of one step (from Python, and queued from the library's
+    host loop) equal one launch of T steps and the plain version."""
+    from mapad_tpu_torch.tools import bench_dma, dma
+
+    rows, blk = bench_dma.make_inputs(8197, 128, 1024, seed=3,
+                                      device=probe_cuda)
+    T = 24
+    one = dma.gather_steps(rows, blk, T)
+    queued = dma.gather_steps(rows, blk, T, launch_per_step=True)
+    acc = chk = None
+    for t in range(T):
+        acc, chk = dma.gather_steps(rows, blk, 1, t0=t, acc=acc, chk=chk)
+    want = dma.gather_steps_plain(rows, blk, T)
+    torch.cuda.synchronize()
+    for what, got in (("one launch", one), ("queued", queued),
+                      ("python loop", (acc, chk))):
+        _gather_equal(got, want, what)
+    assert float(bench_dma.library_steps(rows, blk, T)[0]) == float(want[0])
+
+
+@pytest.mark.parametrize("shape,row0,nrows,col0,ncols", [
+    ((1024, 32), 7, 1, 0, 32),          # P3: 128-byte rows
+    ((64, 128), 6, 2, 0, 128),
+    ((64, 384), 3, 1, 0, 384),
+    ((64, 2, 128), 3, 1, 0, 256),       # a 3-D array viewed (R, 256)
+    ((64, 8, 128), 3, 5, 0, 1024),
+    ((64, 256), 3, 1, 0, 128),          # the strided 2-minor slice
+    ((64, 256), 3, 4, 128, 128),
+    ((64, 130), 1, 9, 3, 101),          # nothing 16-byte aligned
+    ((300, 128), 20, 250, 0, 128),      # more rows than one block stages
+])
+def test_copy_src_slice_kernel(probe_cuda, shape, row0, nrows, col0, ncols):
+    from mapad_tpu_torch.tools import dma
+
+    x = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
+                      device=probe_cuda)
+    got = dma.copy_src_slice(x, row0, nrows, col0, ncols)
+    want = dma.copy_src_slice_plain(x, row0, nrows, col0, ncols)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    m = x.reshape(shape[0], -1)
+    assert torch.equal(got, m[row0:row0 + nrows, col0:col0 + ncols])
+
+
+@pytest.mark.parametrize("shape,row0,col0,blk,addend", [
+    ((1024, 128), 100, 0, (72, 128), 0),       # P2's destination
+    ((8, 128), 3, 0, (1, 128), 1),             # P4's k_dst
+    ((64, 8, 128), 10, 0, (2, 8, 128), 0),     # a 3-D destination
+    ((64, 256), 5, 128, (3, 128), 7),
+    ((64, 130), 2, 3, (9, 101), -5),           # nothing 16-byte aligned
+    ((400, 128), 30, 0, (300, 128), 2**31 - 1),  # several blocks; wraps
+])
+def test_copy_dst_slice_leaves_the_rest_untouched(probe_cuda, shape, row0,
+                                                  col0, blk, addend):
+    from mapad_tpu_torch.tools import dma
+
+    g = torch.Generator(device=probe_cuda)
+    g.manual_seed(row0)
+    inp = torch.randint(-2**31, 2**31 - 1, blk, dtype=torch.int32,
+                        device=probe_cuda, generator=g)
+    before = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
+                           device=probe_cuda, generator=g)
+    got = dma.copy_dst_slice(inp, before.clone(), row0, col0, addend)
+    want = dma.copy_dst_slice_plain(inp, before.clone(), row0, col0, addend)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    m, b = got.reshape(shape[0], -1), before.reshape(shape[0], -1)
+    src = inp.reshape(blk[0], -1)
+    r1, c1 = row0 + src.shape[0], col0 + src.shape[1]
+    assert torch.equal(m[row0:r1, col0:c1], src + addend)
+    keep = torch.ones_like(m, dtype=torch.bool)
+    keep[row0:r1, col0:c1] = False
+    assert torch.equal(m[keep], b[keep])
+
+
+def test_probe_tools_on_the_card(probe_cuda, tmp_path):
+    """The four tools' checks on the card, P4's PTX/SASS dump, and P1's
+    three forms agreeing at a small size."""
+    from mapad_tpu_torch.tools import _dump_pair, _probe_shapes, _t9, bench_dma
+
+    assert all(ok for _name, ok in _probe_shapes.check()), \
+        _probe_shapes.check()
+    assert torch.equal(*_t9.run())
+    for what, got, want in _dump_pair.run_pair():
+        assert torch.equal(got, want), what
+    counts = _dump_pair.dump(str(tmp_path))
+    for kernel in _dump_pair.KERNELS:
+        for ext in ("ptx", "sass"):
+            text = (tmp_path / f"{kernel}.{ext}").read_text()
+            assert f"{kernel}_kernel" in text, (kernel, ext)
+        assert min(counts[kernel]) > 0, counts
+    rows, blk = bench_dma.make_inputs(4096, 128, 256, device=probe_cuda)
+    us = bench_dma.measure(rows, blk, 10, rounds=1)
+    assert set(us) == set(bench_dma.FORMS) and min(us.values()) > 0

@@ -85,3 +85,21 @@ def test_index_without_device_raises_without_cuda(monkeypatch):
         DeviceFmIndex.from_numpy(on_cpu.rows.numpy(), on_cpu.less.numpy(),
                                  on_cpu.sentinels.numpy(), on_cpu.occ_k,
                                  on_cpu.text_len)
+
+
+@pytest.mark.parametrize("tool", ["bench_dma", "_probe_shapes", "_t9",
+                                  "_dump_pair"])
+def test_probe_tools_raise_without_cuda(monkeypatch, tool):
+    """The ports of the TPU's DMA probes run on the card, or on the CPU only
+    when asked (`device="cpu"`): never on the CPU because no card is there."""
+    import importlib
+
+    mod = importlib.import_module(f"mapad_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(*([[]] if tool == "_dump_pair" else []))
+    entry = {"bench_dma": "make_inputs", "_probe_shapes": "check",
+             "_t9": "run", "_dump_pair": "run_pair"}[tool]
+    args = (64, 8, 8) if tool == "bench_dma" else ()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(mod, entry)(*args)

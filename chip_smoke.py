@@ -345,11 +345,7 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
     sfx = "_i64" if big else ""
     r = consts[0].shape[0]
     args = (idx_d, *consts, params, cfg, slut)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    state = sp2._pool_loop_cuda(*args)
-    torch.cuda.synchronize()
-    k2_ms = (time.perf_counter() - t) * 1e3
+    state, k2_ms = k2_timed(torch, sp2, args)
     res = sp2._extract_chains_cuda(*state, cfg)
     k3_ms = timed(torch, lambda: sp2._extract_chains_cuda(*state, cfg), 5)
     torch.cuda.synchronize()
@@ -364,8 +360,7 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
     err = compare(torch, tuple(res), tuple(pres), "pool_search+extract" + sfx)
     steps = int(res.steps)
     L = cfg.lanes
-    k2_bytes, ring_bytes = pool_search_bytes(idx_d, consts, slut, cfg, steps,
-                                             big)
+    k2_bytes = pool_search_bytes(idx_d, consts, slut, cfg, steps, big)
     k3_bytes = extract_bytes(torch, cfg, res, big)
     rows = {}
     rows["pool_search" + sfx] = dict(
@@ -373,6 +368,7 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
         replaces="mapad_tpu/ops/search_pool2.py:81", max_abs_err=err,
         ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=bound_ms(k2_bytes),
         bound_by="bytes", library_ms=None,
+        **k2_numbers(sp2, idx_d, cfg, steps, k2_ms, big),
     )
     rows["extract_chains" + sfx] = dict(
         route="cuda", source="mapad_tpu_torch/csrc/extract_chains.cu",
@@ -380,13 +376,13 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
         ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=bound_ms(k3_bytes),
         bound_by="bytes", library_ms=None,
     )
-    scan_ms = bound_ms(ring_bytes)
     log(f"K2+K3{sfx} L={L} S={cfg.total_steps} CAP={cfg.read_step_cap} "
         f"C={cfg.max_chains} M={M} on {r} reads: bit-exact; {steps} steps, "
-        f"{int(res.n_chains)} chains; K2 {k2_ms:.1f} ms "
-        f"({k2_ms * 1e3 / max(steps, 1):.2f} us/step; ring-scan bound "
-        f"{scan_ms * 1e3 / max(steps, 1):.2f} us/step), plain "
-        f"{k2_plain_ms:.1f} ms; K3 {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms")
+        f"{int(res.n_chains)} chains; K2 {k2_ms:.2f} ms "
+        f"({k2_ms * 1e3 / max(steps, 1):.3f} us/step; bound "
+        f"{bound_ms(k2_bytes) * 1e3 / max(steps, 1):.3f} us/step; plan "
+        f"{rows['pool_search' + sfx]['plan']}), plain {k2_plain_ms:.1f} ms; "
+        f"K3 {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms")
 
     # K5 on that result
     packed = eng._pack_result(res)
@@ -407,18 +403,90 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
 
 
 def pool_search_bytes(idx_d, consts, slut, cfg, steps, big):
-    """Bytes K2 must move for `steps` steps -> (all, the ring scans' share).
-    It reads the index rows, the LUT/Bi-D rows and the consts once, writes
-    the frame store blocks (9 frames of 8 words, 11 with int64 intervals),
-    masks and finish log of its steps, and in every step reads each lane's
-    ring of pop keys (4 B per ring slot) to find the best entry."""
+    """Bytes K2 must move across HBM for `steps` steps: it reads the index
+    rows, the LUT/Bi-D rows and the consts once, and writes the frame store
+    blocks (9 frames of 8 words, 11 with int64 intervals), masks and finish
+    log of its steps.  The key rings stay on chip (K2's plan keeps them in
+    shared memory at every shape the paths run)."""
     frame_words = 11 if big else 8
-    L = cfg.lanes
-    RB = min(cfg.total_steps, cfg.read_step_cap + 1)
-    ring_bytes = steps * L * 4 * RB
     return (nbytes(idx_d.rows, *consts, slut)
-            + steps * L * (9 * frame_words + 1 + 1) * 4 + ring_bytes,
-            ring_bytes)
+            + steps * cfg.lanes * (9 * frame_words + 1 + 1) * 4)
+
+
+def k2_timed(torch, sp2, args):
+    """K2 at a check's shape: a first run (the library loaded, the
+    allocator primed), then the timed run -> (its loop state, ms by the
+    host clock around one synchronized call)."""
+    sp2._pool_loop_cuda(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = sp2._pool_loop_cuda(*args)
+    torch.cuda.synchronize()
+    return state, (time.perf_counter() - t) * 1e3
+
+
+def k2_numbers(sp2, idx_d, cfg, steps, ms, big):
+    """A K2 row's extra keys: the check's steps, us a step, the launch plan
+    of its shape and the ptxas figures of its kernel form (`floor_ms`,
+    P1's one-launch us a step at the same index table times these steps,
+    is added after the probe phase)."""
+    RB = min(cfg.total_steps, cfg.read_step_cap + 1)
+    bidir = not cfg.backward_only
+    plan = sp2.card_plan(idx_d.rows.device, cfg.lanes, RB, big, bidir)
+    return dict(check_steps=steps, us_step=ms * 1e3 / max(steps, 1),
+                plan=dict(lanes_per_block=plan.lanes_per_block,
+                          blocks=plan.blocks,
+                          ring="shared" if plan.ring_shared else "global",
+                          smem=plan.smem),
+                ptxas=PTXAS.get(k2_form(big, bidir)))
+
+
+# ptxas figures of each K2 form, from the build's -Xptxas -v output
+PTXAS: dict = {}
+
+
+def k2_form(big, bidir):
+    return (f"{'int64' if big else 'int32'} "
+            f"{'bidirectional' if bidir else 'backward'}")
+
+
+def ptxas_entries(text):
+    """[(kernel, its ptxas figures)] of one library's nvcc -Xptxas -v
+    output: registers, shared memory, stack and spills."""
+    out, entry, frame = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            out.append((entry, line.split(":", 1)[1].strip() + "; " + frame))
+            entry, frame = None, ""
+    return out
+
+
+def k2_forms(logs):
+    """The ptxas figures of the four forms of K2's kernel, by form."""
+    forms = {}
+    for entry, figs in ptxas_entries(logs.get("pool_search", "")):
+        if "pool_search_kernel" not in entry:
+            continue
+        big = "pool_search_kernelIl" in entry
+        bidir = "Lb1E" in entry
+        forms[k2_form(big, bidir)] = figs
+    return forms
+
+
+def check_k2_launches(launches, what, boundaries=0, sfx="", name=None):
+    """K2 counts 1 init + 1 a store generation, and K1 one inline launch a
+    K2 generation (K7's inline K1 aside): so K2 = 2 x K1 - boundaries."""
+    k2 = launches[name or "pool_search" + sfx]
+    k1 = launches["extend_batch" + sfx] - launches.get("bi_d" + sfx, 0)
+    log(f"  K2 launches {k2}: {k2 - k1} invocations (init) + {k1} "
+        f"generations ({boundaries} store boundaries)")
+    if k1 < 1 or k2 != 2 * k1 - boundaries:
+        raise AssertionError(f"{what}: K2 {k2} launches, K1 in K2 {k1}, "
+                             f"{boundaries} boundaries")
 
 
 def extract_bytes(torch, cfg, res, big):
@@ -615,11 +683,7 @@ def bidir_check(torch, sp2, engine, reads, big):
             engine.device_index, kw["dense"], consts[0], consts[1], cfg,
             kw["bid_steps"])
     args = (engine.device_index, *consts, engine._params(), cfg, slut)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    state = sp2._pool_loop_cuda(*args)
-    torch.cuda.synchronize()
-    k2_ms = (time.perf_counter() - t) * 1e3
+    state, k2_ms = k2_timed(torch, sp2, args)
     res = sp2._extract_chains_cuda(*state, cfg)
     t = time.perf_counter()
     pstate = sp2._pool_loop_plain(*args)
@@ -632,18 +696,19 @@ def bidir_check(torch, sp2, engine, reads, big):
     hits = int((~res.c_abandon[:n_ext]).sum())
     if not hits:
         raise AssertionError("the bidirectional check found no hit")
-    k2_bytes, _ring = pool_search_bytes(engine.device_index, consts, slut,
-                                        cfg, steps, big)
+    k2_bytes = pool_search_bytes(engine.device_index, consts, slut, cfg,
+                                 steps, big)
+    extra = k2_numbers(sp2, engine.device_index, cfg, steps, k2_ms, big)
     log(f"K2 pool_search_bidir{sfx} (VindijaPwm) L={cfg.lanes} "
         f"S={cfg.total_steps} CAP={cfg.read_step_cap} M={cfg.max_len} on "
         f"{BIDIR_READS} reads: bit-exact; {steps} steps, {hits} hits; "
-        f"{k2_ms:.1f} ms ({k2_ms * 1e3 / max(steps, 1):.2f} us/step), plain "
-        f"{plain_ms:.1f} ms")
+        f"{k2_ms:.2f} ms ({extra['us_step']:.3f} us/step; plan "
+        f"{extra['plan']}), plain {plain_ms:.1f} ms")
     return dict(
         route="cuda", source="mapad_tpu_torch/csrc/pool_search.cu",
         replaces="mapad_tpu/ops/search_pool2.py:311", max_abs_err=err,
         ms=k2_ms, plain_ms=plain_ms, bound_ms=bound_ms(k2_bytes),
-        bound_by="bytes", library_ms=None, steps=steps,
+        bound_by="bytes", library_ms=None, steps=steps, **extra,
     )
 
 
@@ -717,7 +782,7 @@ def k9_run(torch, engine, recs, plain):
     C, L = cfg.max_chains, cfg.lanes
     k9_bytes = D * ((C + L) * 4 * 2 + 8) + sum(
         pool_search_bytes(indexes[d], [parts[d][k] for k in tps.CONST_KEYS],
-                          parts[d]["slut_packed"], cfg, steps[d], False)[0]
+                          parts[d]["slut_packed"], cfg, steps[d], False)
         + extract_bytes(torch, cfg, seq[d], False)
         for d in range(D))
     k9_ms, seq_ms = median(times["k9"]), median(times["seq"])
@@ -1547,6 +1612,7 @@ def path7(torch, index, params, args, fastq, fasta, native_bam, card,
         names = [*kernels, "shard_rebase"] if engine.mesh else kernels
         counts = {k: LAUNCHES.get(k) for k in names}
         report_run(what, card, secs, st, counts)
+        check_k2_launches(counts, what)
         if engine.mesh:
             steps = st["shard_steps"]
             log(f"  shards {engine.n_shards} on {engine.mesh}, "
@@ -1642,9 +1708,11 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t:.1f} s (nvcc for "
         f"{sorted(logs) or 'none: cached'})")
     for name, text in sorted(logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for entry, figs in ptxas_entries(text):
+            log(f"  {name}: {entry}: {figs}")
+    PTXAS.update(k2_forms(logs))
+    for form, figs in sorted(PTXAS.items()):
+        log(f"  K2 pool_search_kernel, {form}: {figs}")
 
     os.makedirs(WORK, exist_ok=True)
     args = cli.build_parser().parse_args(
@@ -1721,6 +1789,7 @@ def main() -> int:
         raise AssertionError("the device map logged no search stats")
     rows["pool_search"]["steps"] = stats["steps"]
     report_run("path 1, map --engine device", card, dev_s, stats, launches)
+    check_k2_launches(launches, "path 1")
     path1_s = dev_s
     native_map_and_compare(cli, fastq, fasta, dev_bam,
                            os.path.join(WORK, "native.bam"), "path 1")
@@ -1760,6 +1829,7 @@ def main() -> int:
     rows["pool_search_i64"]["steps"] = stats2["steps"]
     report_run("path 2, pipeline.run big=True", card, dev_s, stats2,
                launches2)
+    check_k2_launches(launches2, "path 2", sfx="_i64")
     launches.update(launches2)
     native_map_and_compare(cli, fastq2, fasta2, dev_bam2,
                            os.path.join(WORK, "native2.bam"), "path 2")
@@ -1804,8 +1874,10 @@ def main() -> int:
     if stats3 is None or "device_fraction" not in stats3:
         raise AssertionError("map with no --engine did not run the hybrid "
                              "engine")
+    launches3 = {k: LAUNCHES.get(k) for k in path1}
     report_run("path 3, map (default engine: hybrid)", card, dev_s, stats3,
-               {k: LAUNCHES.get(k) for k in path1})
+               launches3)
+    check_k2_launches(launches3, "path 3")
     log(f"  device fraction at the end {stats3['device_fraction']:.3f}; "
         f"reads searched by the device engine "
         f"{stats3['hybrid_device_reads']}, by the native engine "
@@ -1849,6 +1921,7 @@ def main() -> int:
     ev4 = k8_tap.take()
     per = launches_per_boundary(launches4["pool_compact"],
                                 [c for c, _ in ev4], "path 4")
+    check_k2_launches(launches4, "path 4", boundaries=len(ev4))
     log(f"  K8 ran {len(ev4)} boundaries ({per} launches each, counted; "
         f"{median([a.elapsed_time(b) for _, (a, b) in ev4]):.4f} ms a "
         f"boundary); unfinished {stats4['esc_why']['unfinished']} "
@@ -1934,6 +2007,11 @@ def main() -> int:
         log(f"  kernel launches on this path: {name} {launches[name]}")
         if not launches[name]:
             raise AssertionError(f"path 5: {name} did not launch")
+        sfx = "_i64" if big else ""
+        check_k2_launches(
+            {k: LAUNCHES.get(k) for k in (name, "extend_batch" + sfx,
+                                          "bi_d" + sfx)},
+            f"path 5 {name}", sfx=sfx, name=name)
 
     # --- path 6: the fixed-batch engine (K7 in int32, K10) ---
     recs6 = [Record(sequence=s, base_qualities=q) for s, q in reads]
@@ -1978,7 +2056,30 @@ def main() -> int:
     rows.update(probe_rows)
     launches.update(probe_launches)
     path_of.update({name: "probes" for name in probe_rows})
+    k2_floors(rows, probe_rows["probe_dma"]["step_tables"], card)
     return finish(torch, rows, launches, path_of, card, t_start)
+
+
+def k2_floors(rows, tables, card):
+    """Each K2 row's floor: its check's steps at P1's one-launch us a step
+    over the same index table (int32 forms: path 1's rows; int64: path
+    2's; the bidirectional int64 check runs on path 1's genome, whose int64
+    rows are path 1's table in size), from this run's probe phase."""
+    by_what = {t["what"]: t for t in tables}
+    for name, row in rows.items():
+        if not name.startswith("pool_search") or "check_steps" not in row:
+            continue
+        table = by_what["path 2's index rows" if name == "pool_search_i64"
+                        else "path 1's index rows"]
+        row["floor_us_step"] = table["one_launch_us"]
+        row["floor_ms"] = row["check_steps"] * table["one_launch_us"] / 1e3
+        row["limit"] = ("floor" if row["floor_ms"] > row["bound_ms"]
+                        else "bytes")
+        log(f"K2 {name}: {row['us_step']:.3f} us a step against P1's "
+            f"one-launch floor {table['one_launch_us']:.3f} at "
+            f"{table['what']} ({row['ms'] / row['floor_ms']:.2f}x it) and "
+            f"the bytes bound "
+            f"{row['bound_ms'] * 1e3 / row['check_steps']:.4f}; {card}")
 
 
 def finish(torch, rows, launches, path_of, card, t_start) -> int:
@@ -1986,8 +2087,11 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     # `path`: the run whose launches the row counts; pool_search rows also
-    # carry `steps`, the pool steps that run took (their launches are two
-    # per step queued, plus one per invocation); pool_compact rows the
+    # carry `steps`, the pool steps that run took (their launches: one init
+    # an invocation and one cooperative launch a store generation), their
+    # check's steps, us a step, launch plan and ptxas figures, and P1's
+    # one-launch floor for the check's steps (`floor_ms`, `floor_us_step`;
+    # `limit` names the larger of floor and bytes bound); pool_compact rows the
     # boundaries of their check, the launches of one boundary, and their
     # time at a shape of the main path; search_batch its check's `steps`,
     # the bytes of the key windows it scans and their time at the memory
@@ -1998,7 +2102,7 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     # shape and (k9_main_*) at path 7's block; the rows of path 1's kernels
     # also carry their launches in path 7's two-shard run (`path7_launches`,
     # its own reset run), pool_search also its shards' steps
-    # (`path7_steps`: two launches per step queued plus one per shard and
+    # (`path7_steps`: one launch a generation plus one init per shard and
     # invocation); the probe rows (path "probes", launches from the probe
     # tools' run) P1's per-step times at three tables in three forms and its
     # launch-per-step time, the copies' device times from the profiler, the
@@ -2011,6 +2115,8 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
             "k9_plain_ms", "k9_bound_ms", "k9_sequential_ms",
             "k9_main_reads", "k9_main_steps", "k9_main_ms",
             "k9_main_bound_ms", "k9_main_sequential_ms",
+            "check_steps", "us_step", "plan", "ptxas", "floor_ms",
+            "floor_us_step", "limit",
             "launch_per_step_ms", "step_tables", "also_replaces", "device_ms",
             "library_device_ms", "shape", "ptx_sass", "shapes")
     table = [

@@ -215,14 +215,18 @@ __device__ __forceinline__ int64_t row_checkpoint<int64_t>(const int* row,
 }
 
 // K1: counts of ranks 1..4 in bwt[0..=r] (0 for r < 0), from one fused
-// row.  Every lane of the calling warp passes the same r and receives the
-// same counts.  Each lane counts 4 of the symbol words with SWAR nibble
-// compares; a 5-step butterfly sums them.
-template <typename I>
+// row.  Every lane of a group of W aligned lanes of the calling warp
+// (W = 32: the whole warp; W = 16: a half, see occ4_pair) passes the same
+// r and receives the same counts; the whole warp calls it together.  Each
+// lane counts 128 / W of the symbol words with SWAR nibble compares; a
+// butterfly over the group sums them.
+template <typename I, int W = 32>
 __device__ __forceinline__ void occ4_warp(const int* __restrict__ rows,
                                           int nb, int k, I r, I out[4]) {
+  static_assert(W == 32 || W == 16, "a warp or a half warp");
   constexpr int N_CP = Idx<I>::N_CP;
-  const int lane = threadIdx.x & 31;
+  constexpr int PER = (ROW_WORDS - N_CP + W - 1) / W;  // words a lane
+  const int lane = threadIdx.x & (W - 1);
   const I r_safe = r > 0 ? r : 0;
   // the block number is an int32 (a garbage int64 position wraps), a
   // negative one counts from the end, and the gather clamps like XLA's
@@ -231,16 +235,27 @@ __device__ __forceinline__ void occ4_warp(const int* __restrict__ rows,
   blk = blk < 0 ? 0 : (blk > nb - 1 ? nb - 1 : blk);
   const int off = (int)(r_safe % k);
   const int* row = rows + (size_t)blk * ROW_WORDS;
+  // every load of the row first (one round trip), then the counts
+  I cp[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) cp[s] = row_checkpoint<I>(row, s);
+  unsigned words[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int w = lane + i * W;
+    words[i] = w < ROW_WORDS - N_CP ? (unsigned)row[N_CP + w] : 0u;
+  }
   int c[4] = {0, 0, 0, 0};
-  for (int w = lane; w < ROW_WORDS - N_CP; w += 32) {
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int w = lane + i * W;
     const int nv = off - w * 8 + 1;  // symbols of this word in the prefix
-    if (nv <= 0) continue;
+    if (nv <= 0 || w >= ROW_WORDS - N_CP) continue;
     const unsigned m =
         nv >= 8 ? 0x11111111u : (0x11111111u & ((1u << (4 * nv)) - 1u));
-    const unsigned word = (unsigned)row[N_CP + w];
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
-      unsigned x = word ^ ((unsigned)(s + 1) * 0x11111111u);
+      unsigned x = words[i] ^ ((unsigned)(s + 1) * 0x11111111u);
       unsigned t = x | (x >> 1);
       t |= t >> 2;  // bit 0 of each nibble: nibble != symbol
       c[s] += __popc(~t & m);
@@ -249,11 +264,28 @@ __device__ __forceinline__ void occ4_warp(const int* __restrict__ rows,
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) c[s] += __shfl_xor_sync(0xffffffffu, c[s], d);
+    for (int d = W / 2; d > 0; d >>= 1)
+      c[s] += __shfl_xor_sync(0xffffffffu, c[s], d);
   }
 #pragma unroll
   for (int s = 0; s < 4; ++s)
-    out[s] = r >= 0 ? wadd<I>((I)c[s], row_checkpoint<I>(row, s)) : (I)0;
+    out[s] = r >= 0 ? wadd<I>((I)c[s], cp[s]) : (I)0;
+}
+
+// K1's two rank queries of one extension in one warp: the lower half
+// ranks r1 and the upper half r2, each over its own fused row at once;
+// every lane receives both sets of counts.
+template <typename I>
+__device__ __forceinline__ void occ4_pair(const int* __restrict__ rows,
+                                          int nb, int k, I r1, I r2,
+                                          I occ1[4], I occ2[4]) {
+  I out[4];
+  occ4_warp<I, 16>(rows, nb, k, (threadIdx.x & 16) ? r2 : r1, out);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    occ1[s] = __shfl_sync(0xffffffffu, out[s], 0);
+    occ2[s] = __shfl_sync(0xffffffffu, out[s], 16);
+  }
 }
 
 template <typename I>

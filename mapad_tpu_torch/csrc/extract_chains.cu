@@ -10,7 +10,7 @@
 //
 // JAX compacts the completion/abandon entries with two top_k passes over
 // negated (lane, block) keys, which yields the first C marked entries in
-// ascending (lane, slot) order.  Here the lane kernel's 9-bit block masks
+// ascending (lane, slot) order.  Here the step kernel's 9-bit block masks
 // (bmask, written at every step) give the same order without a sort:
 //   1. count:  one block per lane sums the popcounts of its masks and
 //              finds its first marked block;

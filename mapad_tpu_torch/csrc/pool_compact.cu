@@ -18,7 +18,7 @@
 //
 // What the JAX version does in ~2.5 passes over the whole (L, S+1, 128)
 // store is here one pass over the window alone: the store is not padded to
-// 128 words, blocks of steps not yet run are never read (the lane kernel
+// 128 words, blocks of steps not yet run are never read (the step kernel
 // and K3 treat blocks below S - step as zero), and the masks K3 scans do
 // not move, because every moved frame's marks are cleared: K3 is told in
 // glob[G_BASE] the first step it has not seen.

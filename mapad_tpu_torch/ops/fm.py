@@ -21,10 +21,11 @@ csrc/common.cuh, called inline by the pool search (csrc/pool_search.cu);
 `extend_batch` below launches its thin `__global__` wrapper so the function
 can be checked alone.  Its launch count (`extend_batch`, `extend_batch_i64`)
 takes one for every launch of a kernel that runs it: the thin wrapper here,
-the pool search's lane kernel, the Bi-D walk kernel.  Bound on the card: one 512 B row read per interval
-end (2 per lane) -- bytes, L2-resident; each warp lane counts 4 words with
-SWAR nibble compares, so a query is ~4 dependent loads and a 5-step
-shuffle reduction.
+each generation's launch of the pool search, the Bi-D walk kernel.  Bound
+on the card: one 512 B row read per interval end (2 per lane) -- bytes,
+L2-resident; a warp (or half a warp, `occ4_pair`: the pool search ranks
+both ends at once) loads the row at once and counts its words with SWAR
+nibble compares, then a butterfly sums them.
 """
 
 from __future__ import annotations

@@ -26,20 +26,26 @@ Two implementations of each kernel live here:
   csrc/pool_compact.cu.
 
 K2 (`pool_search`, replaces `k_mismatch_search_pool2` setup + `body`,
-search_pool2.py:99-612): one lane kernel launch per step (one block per
-lane: dense pop scan over the RB = CAP+1 ring, the popped block read, the
-LUT row read, K1 inline, the 9-candidate expansion, the store write) and a
-one-block refill kernel (lane-order exclusive scan of the finish flags,
-next-read assignment, the done flag).  Launches after the done flag
-return at once, so the host polls the flag only every `POLL_STEPS` steps.
-Bound: the pop reads the lane's bm_key ring, 4 x RB bytes per lane per
-step (6.3 MB a step at L=512, CAP=3072: ~1.9 us at 3.35 TB/s; the JAX
-design's two dense (L, RB) passes model twice that); the store write is
-288 B per lane per step.
+search_pool2.py:99-612): one cooperative launch runs every step of a store
+generation (csrc/pool_search.cu).  A warp carries a lane (the pop's ring
+scan over the ages of its read's steps, the popped block, K1 inline in the
+two halves of the warp, the 9 candidates on its first nine lanes and the
+running best a serial pass over them, the store write); the refill of
+finished lanes sits behind one grid barrier a step, made of the blocks'
+counts of finished lanes, tagged with the step, which every block reads
+itself: so the read ids go out in lane order as in the JAX loop.
+`pool_plan` places the lanes: lanes a block, blocks (all co-resident on
+the card) and the home of the key rings (shared memory where they fit,
+else global memory, the same kernel body).  The host makes
+one launch and, where a store boundary may follow, one read of the
+counters a generation.  Bound: the bytes that cross HBM, the inputs once
+and 288 B of store block a lane a step (396 B with int64 intervals); in
+practice a chain of dependent reads and a grid barrier a step, whose floor
+P1 (csrc/probe_dma.cu) measures.
 
 K3 (`extract_chains` + `fold_read_steps` + tail, search_pool2.py:617-737,
 921-971): per-lane counts of completion/abandon entries from the 9-bit
-block masks the lane kernel writes, a lane-order prefix sum (giving the
+block masks the step kernel writes, a lane-order prefix sum (giving the
 first C entries in ascending (lane, slot) order, as JAX's top_k of
 negated keys does), an in-order emit per lane, then one thread per chain
 gathers its fields and walks MW-1 ancestors into `c_ops`; the per-read
@@ -74,6 +80,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -107,8 +114,6 @@ from .search_pool import OP_ABANDON_BIT, PoolConfig, PoolResult
 
 OP_PUSHED_BIT = 1 << 23  # op word of a live (poppable) pushed frame
 INT_MIN = -(2**31)
-# host polls the device done flag once per this many step launches
-POLL_STEPS = 64
 
 
 def _check_config(config: PoolConfig, R: int):
@@ -728,14 +733,100 @@ class _ExtractArgs(ctypes.Structure):
     ]
 
 
+# the launch plan of K2 (csrc/pool_search.cu): a warp a lane
+WARP = 32
+MAX_LANES_PER_BLOCK = 16  # csrc/pool_search.cu MAX_LANES_PER_BLOCK
+STAGE_BYTES = 2 * CANDS * NFP_BIG * 4  # a lane's staged blocks (STAGE_WORDS)
+
+
+class PoolPlan(NamedTuple):
+    """Where K2's lanes run: `lanes_per_block` warps a block, `blocks`
+    blocks (all co-resident), the key rings in shared memory or not, and
+    the dynamic shared memory of a block (the rings, if there, and each
+    lane's staged blocks).  Mirrors `struct PoolPlan` in
+    csrc/pool_search.cu."""
+
+    lanes_per_block: int
+    blocks: int
+    ring_shared: bool
+    smem: int
+
+
+def pool_plan(L: int, RB: int, sms: int, smem_block: int, smem_sm: int,
+              blocks_per_sm, static_smem: int = 0,
+              reserved_smem: int = 0) -> PoolPlan:
+    """K2's launch plan for L lanes with key rings of RB slots, on a card
+    of `sms` SMs whose block may opt into `smem_block` bytes of shared
+    memory and whose SM holds `smem_sm`.  `blocks_per_sm(threads, smem)`:
+    the blocks of that shape one SM holds at once (the occupancy query,
+    with the kernel's registers); `static_smem`: the kernel's own shared
+    memory, `reserved_smem`: the runtime's reserve a block.
+
+    The lanes spread over the SMs, one block each: ceil(L / sms) lanes a
+    block.  The rings go into shared memory where a block's rings, its
+    staging and the rest fit a block and an SM and the card then still
+    holds every block at once; else they stay in global memory.  Raises
+    where no grid of the card holds every lane at once."""
+    require(1 <= L <= 1024, "the pool search runs 1 to 1024 lanes")
+    lpb = -(-L // sms)
+    require(lpb <= MAX_LANES_PER_BLOCK,
+            f"{L} lanes need more than {MAX_LANES_PER_BLOCK} warps a block "
+            f"on {sms} SMs")
+    blocks = -(-L // lpb)
+    threads = WARP * lpb
+    stage = lpb * STAGE_BYTES
+    ring = lpb * RB * 4
+    shared = (stage + ring + static_smem <= smem_block
+              and stage + ring + static_smem + reserved_smem <= smem_sm)
+    if shared and blocks > blocks_per_sm(threads, stage + ring) * sms:
+        shared = False
+    smem = stage + (ring if shared else 0)
+    require(blocks <= blocks_per_sm(threads, smem) * sms,
+            f"the card cannot hold {blocks} blocks of {threads} threads and "
+            f"{smem} B of shared memory at once")
+    return PoolPlan(lpb, blocks, shared, smem)
+
+
+class _PoolPlanC(ctypes.Structure):
+    """Mirror of `struct PoolPlan` in csrc/pool_search.cu."""
+
+    _fields_ = [("lanes_per_block", ctypes.c_int), ("blocks", ctypes.c_int),
+                ("ring_shared", ctypes.c_int), ("smem", ctypes.c_int)]
+
+
+def card_plan(dev: torch.device, L: int, RB: int, big: bool,
+              bidir: bool) -> PoolPlan:
+    """`pool_plan` with the figures of the card `dev` and of the kernel
+    form that runs (a few queries of the runtime, no launch)."""
+    card = cuda_function("pool_search", "pool_card",
+                         [ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int)])
+    occupancy = cuda_function("pool_search", "pool_occupancy",
+                              [ctypes.c_int] * 4
+                              + [ctypes.POINTER(ctypes.c_int)])
+    with torch.cuda.device(dev):
+        fig = (ctypes.c_int * 5)()
+        check(card(int(big), int(bidir), fig), "pool_card")
+        sms, smem_block, smem_sm, static, reserved = list(fig)
+
+        def blocks_per_sm(threads, smem):
+            out = ctypes.c_int(0)
+            check(occupancy(int(big), int(bidir), threads, smem,
+                            ctypes.byref(out)), "pool_occupancy")
+            return out.value
+
+        return pool_plan(L, RB, sms, smem_block, smem_sm, blocks_per_sm,
+                         static, reserved)
+
+
 def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
                     cutoff_thresh, repr_mm, params: SearchParams,
                     config: PoolConfig, slut, boundary_log=None):
-    """K2 and K8 wrapper: launch the step kernels until the device done
-    flag is set or the step limit is reached; with store generations, run
-    K3 and K8 at every boundary and go on.  Returns the loop state
-    `_extract_chains_cuda` reads.  `boundary_log`: a list that receives a
-    (start, end) pair of CUDA events around every K8 call."""
+    """K2 and K8 wrapper: one launch of the persistent step kernel a store
+    generation; with store generations, run K3 and K8 at every boundary
+    and go on.  Returns the loop state `_extract_chains_cuda` reads.
+    `boundary_log`: a list that receives a (start, end) pair of CUDA events
+    around every K8 call."""
     dev = n.device
     i32 = torch.int32
     R = n.shape[0]
@@ -748,7 +839,6 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
     big = bool(index.big)
     bidir = not config.backward_only
     rec = CANDS * (NFP_BIG if big else NF)
-    require(1 <= L <= 1024, "the refill kernel scans at most 1024 lanes")
     require(R >= 1 and slut.shape == (R * M, 6), "pool search shapes")
     for t, dt in ((n, i32), (split, i32), (cutoff_scale, torch.float32),
                   (cutoff_thresh, torch.float32), (repr_mm, torch.float32),
@@ -761,6 +851,9 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
                                           cutoff_thresh, repr_mm)),
             "per-read consts must be (R,)")
     track = bool(config.track_read_steps)
+    # the barrier's step tags, (steps so far + 1) << 5
+    require(S * GENS < 1 << 26, "too many pool steps for the step tags")
+    plan = _PoolPlanC(*card_plan(dev, L, RB, big, bidir))
 
     def empty(*shape, dtype=i32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -772,6 +865,9 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
     lane = empty(N_LANE_STATE, L)
     glob = empty(N_GLOB)
     fin_log = empty(L, S) if track else None
+    # each block's tagged count of finished lanes, by step parity (zeroed:
+    # no tag is 0)
+    flags = torch.zeros(2 * (-(-L // 4) * 4), dtype=i32, device=dev)
     args = _PoolArgs(
         index.rows.data_ptr(), index.less.data_ptr(),
         index.sentinels.data_ptr(), index.rows.shape[0], index.occ_k,
@@ -790,50 +886,33 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
     P = ctypes.POINTER(_PoolArgs)
     pool_init = cuda_function("pool_search", "pool_init",
                               [P, ctypes.c_void_p])
-    pool_steps = cuda_function("pool_search", "pool_steps",
-                               [P, ctypes.c_int, ctypes.c_void_p])
+    pool_run = cuda_function("pool_search", "pool_run",
+                             [P, ctypes.POINTER(_PoolPlanC), ctypes.c_void_p,
+                              ctypes.c_void_p])
     sfx = "_i64" if big else ""
     name = "pool_search" + ("_bidir" if bidir else "") + sfx
     k1_name = "extend_batch" + sfx
     LAUNCHES.add(name)
     check(pool_init(ctypes.byref(args), stream.cuda_stream), "pool_init")
-    flags = torch.empty((2, N_GLOB), dtype=i32, pin_memory=True)
-    events = [torch.cuda.Event(), torch.cuda.Event()]
 
     def run_generation():
-        """Launch POLL_STEPS steps at a time; read the flags of the batch
-        before last (the copy is queued behind it), so the queue never
-        drains.  Each step is two launches (lane kernel, refill kernel);
-        steps queued after the done flag is set or the step limit is
-        reached return at once but are launches all the same, so the
-        counters stop exactly where the JAX while_loop stops.  Returns the
-        counters at the stop."""
-        batch = 0
-        while True:
-            LAUNCHES.add(name, 2 * POLL_STEPS)
-            # K1 runs inline in the lane kernel
-            LAUNCHES.add(k1_name, POLL_STEPS)
-            check(pool_steps(ctypes.byref(args), POLL_STEPS,
-                             stream.cuda_stream), "pool_steps")
-            flags[batch % 2].copy_(glob, non_blocking=True)
-            events[batch % 2].record(stream)
-            if batch >= 1:
-                prev = (batch - 1) % 2
-                events[prev].synchronize()
-                g = flags[prev].tolist()
-                if g[G_DONE] or g[G_STEP] >= g[G_LIMIT]:
-                    return g
-            batch += 1
-            assert batch <= S // POLL_STEPS + 2
+        """One launch runs the generation's steps until the step limit or
+        the done flag; K1 runs inline in it."""
+        LAUNCHES.add(name)
+        LAUNCHES.add(k1_name)
+        check(pool_run(ctypes.byref(args), ctypes.byref(plan),
+                       flags.data_ptr(), stream.cuda_stream), name)
 
     out = None
     boundaries = 0
     while True:
-        g = run_generation()
+        run_generation()
+        if boundaries + 1 >= GENS:
+            break
         # the spill test of the JAX package's outer loop: a full store,
         # enough lanes still live, a generation left
-        if not (boundaries + 1 < GENS and g[G_STEP] >= S and not g[G_DONE]
-                and g[G_LIVE] >= MIN_LIVE):
+        g = glob.tolist()
+        if not (g[G_STEP] >= S and not g[G_DONE] and g[G_LIVE] >= MIN_LIVE):
             break
         if out is None:
             out = _alloc_result(config, R, big, dev)

@@ -4,6 +4,8 @@ under tools/ that reach `pl.pallas_call`), ported to the H100 as P1-P4:
   bench_dma      P1: microseconds a step of a dependent scattered row gather
                  (the pool search's step), in one launch, one launch a step
                  and as plain PyTorch on the card
+  k2_phases      not a probe: SM cycles of each phase of the pool search's
+                 step (K2, csrc/pool_search.cu) on the card
   _probe_shapes  P2: a slice of each of eight shapes staged through shared
                  memory, from a strided source or into a strided destination
   _t9            P3: row 7 of a (1024, 32) table through a (1, 32) scratch

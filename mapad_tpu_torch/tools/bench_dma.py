@@ -15,7 +15,8 @@ with CUDA events in turns after a warm-up, each the median of `rounds`:
   one_launch       all T steps in one cooperative launch (the TPU kernel is
                    one `pallas_call`)
   launch_per_step  the same kernel launched once a step from one host loop,
-                   acc carried on the card (how the pool search's K2 runs)
+                   acc carried on the card (the form the pool search's K2
+                   had before its one launch a store generation)
   library          plain PyTorch on the card: `index_select` of the rows and
                    a sum of their column 0 a step, the dependency on acc
                    kept (the reference's `run_xla_gather` drops the acc term,

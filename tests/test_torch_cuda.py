@@ -237,6 +237,137 @@ def test_pool_search_and_pack_kernels(fmd, cuda, case, track, big):
            "pack_result")
 
 
+# K2's one launch a generation at the edges of its launch plan (ops/
+# search_pool2.py pool_plan): (config, reads, whether the plan keeps the
+# key rings in shared memory)
+PLAN_CASES = {
+    # full width, the primary's ring (RB = 3,073) in shared memory
+    "full_width": (dict(lanes=512, total_steps=3200, read_step_cap=3072,
+                        max_chains=16384), 640, True),
+    # 1,024 lanes: 8 a block
+    "L1024": (dict(lanes=1024, total_steps=512, read_step_cap=300,
+                   max_chains=4096), 1100, True),
+    # one lane, one block of one warp
+    "L1": (dict(lanes=1, total_steps=2048, read_step_cap=512,
+                max_chains=512), 8, True),
+    # lane counts that leave warps of the last block, or SMs, empty
+    "L40": (dict(lanes=40, total_steps=1024, read_step_cap=256,
+                 max_chains=512), 48, True),
+    "L13": (dict(lanes=13, total_steps=1024, read_step_cap=256,
+                 max_chains=512), 48, True),
+    # a deep ring (RB = 8,192)
+    "deep_ring": (dict(lanes=64, total_steps=8192, read_step_cap=8191,
+                       max_chains=1024), 96, True),
+    # a ring too large for a block's shared memory: the global layout
+    "global_ring": (dict(lanes=8, total_steps=60000, read_step_cap=59999,
+                         max_chains=512), 24, False),
+}
+
+
+def _plan_reads(n):
+    return bench_reads(seed=41, n_random=max(0, n - 10), n_exo=4)[:n]
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+@pytest.mark.parametrize("big", [False, True])
+def test_pool_search_launch_plans(fmd, cuda, case, big):
+    """K2 in one launch at the plan's edges, bit for bit against the plain
+    loop: the plan's ring home as expected, one launch and one K1 count
+    for the generation."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+
+    cfg_kw, R, shared = PLAN_CASES[case]
+    eng, cfg, prep = _prepped(fmd, cuda, cfg_kw, 0, big=big,
+                              reads=_plan_reads(R), R=R)
+    RB = min(cfg.total_steps, cfg.read_step_cap + 1)
+    plan = sp2.card_plan(cuda, cfg.lanes, RB, big, not cfg.backward_only)
+    assert plan.ring_shared == shared, plan
+    LAUNCHES.reset()
+    got, want, fired = _pool_both(eng, cfg, prep, cuda)
+    _equal(tuple(got), tuple(want), case)
+    sfx = "_i64" if big else ""
+    assert LAUNCHES.get("pool_search" + sfx) == 2 and not fired
+    # K1 inline in the one generation (K7's own K1 aside, in big mode)
+    assert LAUNCHES.get("extend_batch" + sfx) - LAUNCHES.get(
+        "bi_d" + sfx) == 1
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_pool_search_stops_at_the_step_limit(fmd, cuda, big):
+    """A capped spill: the generation after the store boundary stops at
+    the step limit K8 set, with lanes live and the store not full."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+
+    cfg_kw = dict(GEN_CASES["spill"][0], generations=2)
+    reads = (bench_reads(seed=31, n_random=40, n_exo=0) * 2)[:96]
+    eng, cfg, prep = _prepped(fmd, cuda, cfg_kw, 0, big=big, reads=reads,
+                              R=96)
+    with torch.cuda.device(cuda):
+        consts, kw = eng._upload(prep)
+        args = (eng.device_index, *consts, eng._params(), cfg, kw["slut"]
+                if "slut" in kw else sp2._dense_slut(
+                    eng.device_index, kw["dense"], consts[0], consts[1],
+                    cfg, kw["bid_steps"]))
+        LAUNCHES.reset()
+        state = sp2._pool_loop_cuda(*args)
+        g = state[3].tolist()
+        got = sp2._extract_chains_cuda(*state, cfg)
+        want = sp2._extract_chains_plain(*sp2._pool_loop_plain(*args), cfg)
+        torch.cuda.synchronize()
+    assert g[sp2.G_STEP] == g[sp2.G_LIMIT] < cfg.total_steps, g
+    assert not g[sp2.G_DONE] and g[sp2.G_LIVE] > 0, g
+    # 1 init + 1 a generation
+    assert LAUNCHES.get("pool_search" + ("_i64" if big else "")) == 3
+    _equal(tuple(got), tuple(want), "spill stop")
+
+
+def test_two_pool_searches_on_two_streams_of_one_card(fmd, cuda):
+    """Two full-width K2 grids at once on two streams of one card (as two
+    shards of a mesh on one card run them) both finish, within a time
+    limit, each bit for bit against its plain loop."""
+    import threading
+
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+
+    cfg_kw = dict(lanes=512, total_steps=2048, read_step_cap=1024,
+                  max_chains=8192)
+    runs = []
+    for seed in (3, 4):
+        eng, cfg, prep = _prepped(fmd, cuda, cfg_kw, seed,
+                                  reads=_plan_reads(600)[seed:seed + 560],
+                                  R=560)
+        with torch.cuda.device(cuda):
+            consts, kw = eng._upload(prep)
+        runs.append((eng.device_index, *consts, eng._params(), cfg,
+                     kw["slut"]))
+    out = [None, None]
+    start = threading.Barrier(2)
+
+    def shard(i):
+        with torch.cuda.device(cuda), torch.cuda.stream(
+                torch.cuda.Stream(cuda)):
+            start.wait()
+            res = sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*runs[i]),
+                                           runs[i][7])
+            torch.cuda.current_stream().synchronize()
+            out[i] = res
+
+    threads = [threading.Thread(target=shard, args=(i,), daemon=True)
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads), "a K2 grid hung"
+    for i, res in enumerate(out):
+        with torch.cuda.device(cuda):
+            want = sp2._extract_chains_plain(*sp2._pool_loop_plain(*runs[i]),
+                                             runs[i][7])
+        _equal(tuple(res), tuple(want), f"stream {i}")
+
+
 # store generations: (config, K8 calls the reads force at least)
 GEN_CASES = {
     # cap > steps / 2: the moved window overlaps its old place (4 chunks)
@@ -480,8 +611,8 @@ def test_profile_trace_shows_the_kernels(cuda, tmp_path, monkeypatch):
                  str(tmp_path / "trace")]) == 0
     events = json.load(open(tmp_path / "trace" / "trace.json"))
     names = {e.get("name", "") for e in events.get("traceEvents", [])}
-    for kernel in ("pool_lane_kernel", "pool_refill_kernel",
-                   "unpack_prep_kernel", "pack_result_kernel"):
+    for kernel in ("pool_search_kernel", "unpack_prep_kernel",
+                   "pack_result_kernel"):
         assert any(kernel in n for n in names), kernel
 
 

@@ -67,7 +67,8 @@ main path; the K8 launches of every run are counted and held against the
 boundaries it fired.  Then the bidirectional K2 against its plain version,
 and before path 6 K10 against its plain version at full width (the first
 2,048 reads, S=2048, H=24; and 512 reads under the center-start model,
-both directions) and the int32 K7 at R=2048, M=128.  After path 1's
+both directions; each with its launch plan, its longest lane's steps and
+its us a step) and the int32 K7 at R=2048, M=128.  After path 1's
 kernels, K9 (`pool_search_sharded`) runs on the shard threads and streams
 of a two-shard engine on the one card (path 7's): two shards of 512 reads
 of path 1's workload against its plain version, and path 7's block (two
@@ -475,6 +476,12 @@ def k2_forms(logs):
         bidir = "Lb1E" in entry
         forms[k2_form(big, bidir)] = figs
     return forms
+
+
+def k10_form(logs):
+    """The ptxas figures of K10's kernel, under "K10"."""
+    return {"K10": figs for entry, figs in ptxas_entries(
+        logs.get("search_batch", "")) if "search_batch_kernel" in entry}
 
 
 def check_k2_launches(launches, what, boundaries=0, sfx="", name=None):
@@ -1091,21 +1098,19 @@ def path8(cli, fasta, fastq, native_bam, seed, device="cuda:0"):
     return secs
 
 
-def search_batch_bytes(idx_d, inputs, res, lane_steps):
+def search_batch_bytes(idx_d, inputs, res, lane_steps, chunk):
     """Bytes K10 must move for the steps its lanes ran -> (bound bytes, scan
     bytes).  Bound: its inputs once (pattern codes, score LUT, Bi-D and the
     five per-lane consts), per lane-step the popped row (32 B), the 9 rows
     (32 B each) and 9 keys written and K1's two 512 B index rows (over the
-    run at most the whole index), the outputs once.  Scan: the key window
-    this kernel reads at each pop, 4 x (9k+1) B at step k, its own traffic
-    (a pop kept on chip would not need it)."""
-    s = lane_steps.double()
-    lane_step_total = float(s.sum())
+    run at most the whole index), the outputs once.  Scan: the keys of the
+    popped chunk this kernel reads at each pop, 4 x `chunk` B a lane-step,
+    its own traffic (the chunk maxima in shared memory name the chunk)."""
+    lane_step_total = float(lane_steps.double().sum())
     need = (nbytes(*inputs) + lane_step_total * (32 + 9 * 32 + 9 * 4)
             + min(nbytes(idx_d.rows), lane_step_total * 2 * 512)
             + nbytes(*res))
-    scan = float((18 * s * (s - 1) + 4 * s).sum())
-    return need, scan
+    return need, lane_step_total * 4 * chunk
 
 
 def batch_check(torch, engine, reads, r, what, bid_row=False):
@@ -1177,25 +1182,31 @@ def batch_check(torch, engine, reads, r, what, bid_row=False):
     hc, esc = res.hcount.cpu(), res.escalate.cpu()
     if not int((hc > 0).sum()):
         raise AssertionError(f"search_batch ({what}): no hit")
+    plan = srch.batch_card_plan(engine.device, r, cfg.max_steps, M)
     need, scan = search_batch_bytes(
         idx_d, (code, n, score_lut, bid, split, scale, thresh, repr_mm), res,
-        ls)
+        ls, plan.chunk)
+    top = int(ls.max())
     row = dict(
         route="cuda", source="mapad_tpu_torch/csrc/search_batch.cu",
         replaces="mapad_tpu/ops/search.py:99", max_abs_err=err,
         ms=median(times), plain_ms=plain_ms,
         bound_ms=bound_ms(need), bound_by="bytes",
         library_ms=None, steps=int(res.steps), scan_bytes=scan,
-        scan_ms=bound_ms(scan),
+        scan_ms=bound_ms(scan), max_lane_steps=top,
+        us_step=median(times) * 1e3 / max(top, 1),
+        plan=dict(plan._asdict()), ptxas=PTXAS.get("K10"),
     )
     log(f"K10 search_batch ({what}) L={r} S={cfg.max_steps} H={cfg.hit_cap} "
         f"M={M}: bit-exact; steps {int(res.steps)}, lane steps mean "
-        f"{float(ls.double().mean()):.1f} max {int(ls.max())}, {int(esc.sum())} "
+        f"{float(ls.double().mean()):.1f} max {top}, {int(esc.sum())} "
         f"escalate, {int((hc > 0).sum())} lanes with hits; "
         f"{', '.join(f'{x:.3f}' for x in times)} ms (median {row['ms']:.3f}),"
-        f" plain {plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({need:.0f} B), {row['ms'] / row['bound_ms']:.1f}x it; the key "
-        f"windows it scans {scan:.0f} B more ({row['scan_ms']:.4f} ms)")
+        f" {row['us_step']:.3f} us a step of the longest lane, plain "
+        f"{plain_ms:.1f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({need:.0f} B), {row['ms'] / row['bound_ms']:.1f}x it; the popped "
+        f"chunks' keys {scan:.0f} B more ({row['scan_ms']:.4f} ms); plan "
+        f"{row['plan']}; ptxas {row['ptxas']}")
     rows["search_batch"] = row
     return rows
 
@@ -1711,8 +1722,11 @@ def main() -> int:
         for entry, figs in ptxas_entries(text):
             log(f"  {name}: {entry}: {figs}")
     PTXAS.update(k2_forms(logs))
+    PTXAS.update(k10_form(logs))
     for form, figs in sorted(PTXAS.items()):
-        log(f"  K2 pool_search_kernel, {form}: {figs}")
+        kernel = ("K10 search_batch_kernel" if form == "K10"
+                  else f"K2 pool_search_kernel, {form}")
+        log(f"  {kernel}: {figs}")
 
     os.makedirs(WORK, exist_ok=True)
     args = cli.build_parser().parse_args(
@@ -1766,7 +1780,8 @@ def main() -> int:
         BATCH_CENTER_READS, "VindijaPwm, both directions")["search_batch"]
     rows6["search_batch"]["max_abs_err"] = max(
         rows6["search_batch"]["max_abs_err"], center["max_abs_err"])
-    rows6["search_batch"]["center_ms"] = center["ms"]
+    for k in ("ms", "max_lane_steps", "us_step", "plan"):
+        rows6["search_batch"][f"center_{k}"] = center[k]
 
     # `map --engine device` through the CLI; the streaming driver logs the
     # engine's stats when the run ends
@@ -2094,8 +2109,11 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     # `limit` names the larger of floor and bytes bound); pool_compact rows the
     # boundaries of their check, the launches of one boundary, and their
     # time at a shape of the main path; search_batch its check's `steps`,
-    # the bytes of the key windows it scans and their time at the memory
-    # rate (beyond its bound), its time on the center-start check and the
+    # the keys of the popped chunks it reads (`scan_bytes`, 4 x the chunk
+    # width a lane-step) and their time at the memory rate (`scan_ms`,
+    # beyond its bound), its longest lane's steps (`max_lane_steps`), its
+    # time over them (`us_step`), its launch plan and ptxas figures, the
+    # same four and its time on the center-start check (`center_*`) and the
     # steps of each batch of path 6; shard_rebase (path 7) K9's numbers:
     # its reads, each shard's steps, its time, plain time and bound, and
     # the time of the same shards run one after the other, at the check's
@@ -2110,7 +2128,9 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     # SASS instruction counts
     more = ("steps", "boundaries", "launches_per_boundary", "main_shape",
             "main_ms", "main_bound_ms", "main_launches_per_boundary",
-            "scan_bytes", "scan_ms", "center_ms", "path_steps",
+            "scan_bytes", "scan_ms", "max_lane_steps", "center_ms",
+            "center_max_lane_steps", "center_us_step", "center_plan",
+            "path_steps",
             "path7_launches", "path7_steps", "k9_reads", "k9_steps", "k9_ms",
             "k9_plain_ms", "k9_bound_ms", "k9_sequential_ms",
             "k9_main_reads", "k9_main_steps", "k9_main_ms",

@@ -26,19 +26,39 @@
 // number of iterations any lane needed (S for a lane still live).  So each
 // lane is a warp that runs its loop to its own end, in one launch, and
 // `steps` is an atomicMax.  All 32 threads of a warp hold the lane's state
-// in registers (redundantly, like K7's walks): the pop is a warp scan of
-// the written key window [ROOT - 9s, ROOT] (unwritten and popped slots
-// hold INT_MIN) as one u64 max of (key, SLOTS-1-slot); K1 is two
-// occ4_warp queries; thread t < 9 writes store row ROOT - 9(s+1) + t.  The
-// keys and rows live in device memory (the keys of one lane, 73.7 KB at
-// S=2048, would fit in shared memory: later work).
+// in registers (redundantly, like K7's walks), but split a step's
+// candidates: the six cutoff tests (one IEEE division each) run one a
+// thread and a ballot gathers them, every thread runs reject_iterative on
+// the resulting bit masks, and thread t < 9 builds and stores the row and
+// key of slot ROOT - 9(s+1) + t.  The launch plan
+// (ops/search.py `batch_plan`) gives a block `lanes_per_block` warps and
+// each warp `lane_smem` bytes of dynamic shared memory.
+//
+// The pop has two levels.  The key array (global memory) is cut into
+// chunks of C = 2^k consecutive slots (C >= 32, larger for a long store so
+// that a lane keeps at most 1,024 chunks), and each lane keeps in shared
+// memory the maximum of every chunk as the u64 (key ^ 2^31) << 32 |
+// (ROOT - slot): the key first, then the lowest slot, so ties across
+// chunks still go to the lowest slot.  A chunk that holds no key yet, or
+// only INT_MIN keys, reads as key INT_MIN.  A pop is a warp max over the
+// maxima of the chunks the store has reached; its slot is the popped one,
+// so the popped row and the popped chunk's C keys are read at once, and
+// the chunk's new maximum (the popped slot and the slots not yet written
+// left out: the key scratch is never initialised) is reduced from those
+// keys.  The 9 new keys of a step are contiguous, so they land in one or
+// two chunks, whose maxima take them after the popped chunk's update.
+// Completed and rejected candidates write INT_MIN and so never raise a
+// maximum.  The lane's code, score-LUT and Bi-D rows are staged in shared
+// memory when the lane starts (24 B a position), so after the popped row a
+// step reads only K1's two index rows from global memory, in one
+// `occ4_pair` (the two halves of the warp rank the interval's two ends at
+// once).
 //
 // Bound on the card: bytes -- the inputs once (24 B a cell), per lane-step
 // the popped row, 9 rows and 9 keys written (356 B) and K1's two index
-// rows (the whole index at most), the outputs once.  The key window the
-// pop scans (4 B x (9s+1) at step s) is this kernel's own traffic beyond
-// that.  f32 arithmetic: --fmad=false, IEEE division (`reject`), the JAX
-// op order.
+// rows (the whole index at most), the outputs once.  The popped chunk's C
+// keys (4C B a pop) are this kernel's own traffic beyond that.  f32
+// arithmetic: --fmad=false, IEEE division (`reject`), the JAX op order.
 #include "common.cuh"
 
 using namespace mapad;
@@ -73,24 +93,68 @@ struct BatchArgs {
   int* steps;       // () zeroed by the caller
 };
 
-constexpr int WARPS = 4;  // lanes per block
+// the launch plan (ops/search.py BatchPlan): a lane's shared memory is its
+// chunk maxima (u64, `chunks` of them), then the score LUT (M x 4 f32),
+// the Bi-D row (M f32) and the codes (M i32), `lane_smem` bytes in all
+struct BatchPlan {
+  int lanes_per_block, blocks, chunk, chunks, lane_smem, smem, resident;
+};
 
-static __global__ void __launch_bounds__(WARPS * 32)
-search_batch_kernel(BatchArgs a) {
-  const int lane = blockIdx.x * WARPS + (threadIdx.x >> 5);
+// at most this many lanes (warps) a block (ops/search.py batch_plan)
+constexpr int MAX_LANES_PER_BLOCK = 16;
+
+// a slot's pop key: the monotone key, then the lowest slot
+static __device__ __forceinline__ unsigned long long pop_key(int key,
+                                                            int rslot) {
+  return ((unsigned long long)((unsigned)key ^ 0x80000000u) << 32) |
+         (unsigned)rslot;
+}
+
+static __device__ __forceinline__ unsigned long long warp_max(
+    unsigned long long v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, d);
+    v = o > v ? o : v;
+  }
+  return v;
+}
+
+static __global__ void __launch_bounds__(MAX_LANES_PER_BLOCK * 32)
+search_batch_kernel(BatchArgs a, BatchPlan p) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int w = threadIdx.x >> 5;
+  const int lane = blockIdx.x * p.lanes_per_block + w;
   const int t = threadIdx.x & 31;
   if (lane >= a.L) return;  // the whole warp
   const int S = a.S, M = a.M, H = a.H;
   const int SLOTS = S * CANDS + 1, ROOT = SLOTS - 1;
+  const int CW = p.chunk, NC = p.chunks;
+  const int csh = __ffs(CW) - 1;  // C is a power of two
   int* st = a.store + (size_t)lane * SLOTS * NF;
   int* key = a.keys + (size_t)lane * SLOTS;
   int* hs = a.hit_slot + (size_t)lane * H;
+  unsigned char* mine = dyn + (size_t)w * p.lane_smem;
+  unsigned long long* cmax = reinterpret_cast<unsigned long long*>(mine);
+  float* s_slut = reinterpret_cast<float*>(mine + (size_t)8 * NC);
+  float* s_bid = s_slut + (size_t)4 * M;
+  int* s_code = reinterpret_cast<int*>(s_bid + M);
   const int nn = a.n[lane], sp = a.split[lane];
   const float c_scale = a.scale[lane], c_thresh = a.thresh[lane],
               c_repr = a.repr[lane];
-  const int* code_row = a.code + (size_t)lane * M;
-  const float* slut_row = a.slut + (size_t)lane * M * 4;
-  const float* bid_row = a.bid + (size_t)lane * M;
+
+  // --- the lane's inputs on chip, every chunk empty ---
+  {
+    const float* slut_row = a.slut + (size_t)lane * M * 4;
+    const float* bid_row = a.bid + (size_t)lane * M;
+    const int* code_row = a.code + (size_t)lane * M;
+    for (int i = t; i < 4 * M; i += 32) s_slut[i] = slut_row[i];
+    for (int i = t; i < M; i += 32) {
+      s_bid[i] = bid_row[i];
+      s_code[i] = code_row[i];
+    }
+    for (int c = t; c < NC; c += 32) cmax[c] = 0;
+  }
   if (t < NF) {
     // the root frame: whole text, empty match at the alignment start
     const int root[NF] = {0, 0, a.text_len, 0, wshl(sp, 16), 0, 0, 0};
@@ -100,26 +164,22 @@ search_batch_kernel(BatchArgs a) {
     if (t == 0) key[ROOT] = 0;  // the key of 0.0f
   }
   __syncwarp();
+  if (t == 0) cmax[ROOT >> csh] = pop_key(0, 0);
+  __syncwarp();
 
   bool done = nn <= 0;
   float best_score = -__int_as_float(0x7f800000);
   int best_size = 0, hcount = 0, lane_steps = 0;
   for (int step = 0; !done && step < S; ++step) {
-    // --- pop: the max key of the written window, first occurrence ---
+    // --- pop, level 1: the max over the chunks the store has reached ---
+    const int lo = ROOT - CANDS * step;  // the lowest written slot
     unsigned long long best = 0;
-    const int lo = ROOT - CANDS * step;
-#pragma unroll 8
-    for (int s = lo + t; s <= ROOT; s += 32) {
-      const unsigned long long v =
-          ((unsigned long long)((unsigned)key[s] ^ 0x80000000u) << 32) |
-          (unsigned)(ROOT - s);
+#pragma unroll 4
+    for (int c = (lo >> csh) + t; c < NC; c += 32) {
+      const unsigned long long v = cmax[c];
       best = v > best ? v : best;
     }
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      const unsigned long long o = __shfl_xor_sync(0xffffffffu, best, d);
-      best = o > best ? o : best;
-    }
+    best = warp_max(best);
     const int f_mono = (int)((unsigned)(best >> 32) ^ 0x80000000u);
     const int sel = ROOT - (int)(unsigned)(best & 0xffffffffu);
     if (f_mono == INT_MIN32) {  // nothing left to pop
@@ -127,12 +187,27 @@ search_batch_kernel(BatchArgs a) {
       lane_steps = step + 1;
       break;
     }
+    // --- level 2, beside the popped row's read: the popped chunk's keys,
+    // its new maximum without the popped slot ---
     const int* fr = st + (size_t)sel * NF;
     const int f_lower = fr[F_LOWER], f_lrev = fr[F_LREV], f_size = fr[F_SIZE];
-    const int f_start = fr[F_STARTLEN] >> 16, f_len = fr[F_STARTLEN] & 0xFFFF;
-    const int gaps = fr[F_GAPS];
-    __syncwarp();  // every thread has read the popped row and its key
-    if (t == 0) key[sel] = INT_MIN32;
+    const int f_startlen = fr[F_STARTLEN], gaps = fr[F_GAPS];
+    const int c0 = (sel >> csh) << csh;
+    unsigned long long rest = 0;
+    for (int i = t; i < CW; i += 32) {
+      const int s = c0 + i;
+      const bool live = s >= lo && s <= ROOT && s != sel;
+      const unsigned long long v = pop_key(live ? key[s] : INT_MIN32,
+                                           ROOT - s);
+      rest = v > rest ? v : rest;
+    }
+    rest = warp_max(rest);
+    __syncwarp();  // every thread has read the popped row and the chunk
+    if (t == 0) {
+      key[sel] = INT_MIN32;
+      cmax[sel >> csh] = rest;
+    }
+    const int f_start = f_startlen >> 16, f_len = f_startlen & 0xFFFF;
     const float f_score = __int_as_float(mono_bits(f_mono));
     const int f_gapb = gaps & 3, f_gapf = (gaps >> 2) & 3,
               f_ngaps = (gaps >> 4) & 0xFF;
@@ -151,17 +226,23 @@ search_batch_kernel(BatchArgs a) {
         (gap_state == GAP_DELETION ? a.pge : a.pgo_pge) + f_score;
     const int ngaps_inc = gap_state == GAP_CLOSED ? f_ngaps + 1 : f_ngaps;
 
+    // --- K1: the two halves of the warp rank the interval's two ends ---
+    int occ1[4], occ2[4];
+    occ4_pair<int>(a.rows, a.nb, a.occ_k, occ_query_lower<int>(ext_lower),
+                   occ_query_upper<int>(ext_lower, f_size), occ1, occ2);
+
+    // the LUT and Bi-D rows from shared memory
     const int j_c = j < 0 ? 0 : (j > M - 1 ? M - 1 : j);
-    const float Sj[4] = {slut_row[j_c * 4 + 0], slut_row[j_c * 4 + 1],
-                         slut_row[j_c * 4 + 2], slut_row[j_c * 4 + 3]};
-    const int pat_j = code_row[j_c];
+    const float Sj[4] = {s_slut[j_c * 4 + 0], s_slut[j_c * 4 + 1],
+                         s_slut[j_c * 4 + 2], s_slut[j_c * 4 + 3]};
+    const int pat_j = s_code[j_c];
     // bi_d_get: the bound of both remainders
     const int bk = d_k < 0 ? 0 : (d_k > M - 1 ? M - 1 : d_k);
     const int tt = nn - (1 + d_l);
     const int ci = tt + sp;
     const int ci_c = ci < 0 ? 0 : (ci > M - 1 ? M - 1 : ci);
-    const float d_rev = (d_k >= 0 && d_k < nn) ? bid_row[bk] : 0.0f;
-    const float d_fwd = (tt >= 0 && ci < nn) ? bid_row[ci_c] : 0.0f;
+    const float d_rev = (d_k >= 0 && d_k < nn) ? s_bid[bk] : 0.0f;
+    const float d_fwd = (tt >= 0 && ci < nn) ? s_bid[ci_c] : 0.0f;
     const float lb = d_rev + d_fwd;
 
     // best-first global stop (mapping.rs:1201-1208)
@@ -171,12 +252,6 @@ search_batch_kernel(BatchArgs a) {
       break;
     }
 
-    // --- K1: rank of both interval ends, then the extension sweep ---
-    int occ1[4], occ2[4];
-    occ4_warp<int>(a.rows, a.nb, a.occ_k, occ_query_lower<int>(ext_lower),
-                   occ1);
-    occ4_warp<int>(a.rows, a.nb, a.occ_k,
-                   occ_query_upper<int>(ext_lower, f_size), occ2);
     int ch_lower[4], ch_lrev[4], ch_size[4];
     extend_from_occ<int>(a.less, a.sent, ext_lower, ext_lrev, f_size, occ1,
                          occ2, ch_lower, ch_lrev, ch_size);
@@ -186,77 +261,126 @@ search_batch_kernel(BatchArgs a) {
     const int d5 = fwd ? j : j + 1;
     const bool del_allowed = min(d5, nn - d5) >= gde;
     const int next_start = fwd ? f_start : f_start - 1;
-    const bool del_rej = ((del_score + lb) / c_scale) < c_thresh;
-    const bool ins_rej = ((ins_score + lb) / c_scale) < c_thresh;
     const bool gaps_ok = ngaps_inc <= a.max_gaps;
     // the gap state of the side not extended rides along unchanged
     auto gaps_word = [&](int state, int ng) {
       return (fwd ? f_gapb : state) | ((fwd ? state : f_gapf) << 2) |
              wshl(ng, 4);
     };
+    // the match/mismatch score of each child slot (symbol fwd ? slot : 3 -
+    // slot)
+    float mm_score[4];
+#pragma unroll
+    for (int slot = 0; slot < 4; ++slot)
+      mm_score[slot] = Sj[fwd ? slot : 3 - slot] + f_score;
 
-    // --- the 9 candidates (order: ins, then (del, mm) per slot) ---
-    bool ok[CANDS];
-    float score[CANDS];
-    int lo9[CANDS], lr9[CANDS], sz9[CANDS], sl9[CANDS], gp9[CANDS],
-        op9[CANDS];
-    ok[0] = !ins_rej && ins_allowed && gaps_ok;
-    score[0] = ins_score;
-    lo9[0] = f_lower;
-    lr9[0] = f_lrev;
-    sz9[0] = f_size;
-    sl9[0] = wshl(next_start, 16) | (f_len + 1);
-    gp9[0] = gaps_word(GAP_INSERTION, ngaps_inc);
-    op9[0] = OP_VALID_BIT | (OP_INSERTION << 17) | (j_c << 2);
+    // --- the cutoff of the six distinct scores, one a thread (0 the
+    // deletion, 1 the insertion, 2 + slot a slot's match/mismatch), in one
+    // IEEE division each; a ballot gathers the rejections ---
+    const int q = t < 6 ? t : 0;
+    const float sq = q == 0   ? del_score
+                     : q == 1 ? ins_score
+                     : q == 2 ? mm_score[0]
+                     : q == 3 ? mm_score[1]
+                     : q == 4 ? mm_score[2]
+                              : mm_score[3];
+    const unsigned rej =
+        __ballot_sync(0xffffffffu, ((sq + lb) / c_scale) < c_thresh);
+
+    // --- the 9 candidates (order: ins, then (del, mm) per slot): which
+    // pass the cutoff, then reject_iterative in candidate order
+    // (mapping.rs:956-963), in every thread ---
+    unsigned pass = !(rej & 2u) && ins_allowed && gaps_ok ? 1u : 0u;
 #pragma unroll
     for (int slot = 0; slot < 4; ++slot) {
-      const int code = fwd ? slot : 3 - slot;
       const bool nonzero = ch_size[slot] >= 1;
-      const float mm_score = Sj[code] + f_score;
-      const int kd = 1 + 2 * slot, km = 2 + 2 * slot;
-      ok[kd] = nonzero && !del_rej && del_allowed && gaps_ok;
-      score[kd] = del_score;
-      sl9[kd] = wshl(f_start, 16) | f_len;
-      gp9[kd] = gaps_word(GAP_DELETION, ngaps_inc);
-      op9[kd] = OP_VALID_BIT | (OP_DELETION << 17) | (j_c << 2) | code;
-      ok[km] = nonzero && !(((mm_score + lb) / c_scale) < c_thresh);
-      score[km] = mm_score;
-      sl9[km] = wshl(next_start, 16) | (f_len + 1);
-      gp9[km] = gaps_word(GAP_CLOSED, f_ngaps);
-      op9[km] = OP_VALID_BIT |
-                ((code == pat_j ? OP_MATCH : OP_MISMATCH) << 17) |
-                (j_c << 2) | code;
-      lo9[kd] = lo9[km] = fwd ? ch_lrev[slot] : ch_lower[slot];
-      lr9[kd] = lr9[km] = fwd ? ch_lower[slot] : ch_lrev[slot];
-      sz9[kd] = sz9[km] = ch_size[slot];
+      if (nonzero && !(rej & 1u) && del_allowed && gaps_ok)
+        pass |= 1u << (1 + 2 * slot);
+      if (nonzero && !((rej >> (2 + slot)) & 1u)) pass |= 1u << (2 + 2 * slot);
     }
-
-    // --- reject_iterative in candidate order (mapping.rs:956-963), and
-    // the rows written reversed: candidate k at base + 8 - k ---
+    const bool len_del = (f_len & 0xFFFF) == nn,
+               len_ext = ((f_len + 1) & 0xFFFF) == nn;
+    // the rows go reversed: candidate k at base + 8 - k; the new keys'
+    // maxima of the (one or two) chunks they land in
     const int base = ROOT - (step + 1) * CANDS;
+    const int c_lo = base >> csh;
+    unsigned long long new_lo = 0, new_hi = 0;
+    unsigned kept = 0, comps = 0;
+    const int hits_before = hcount;
 #pragma unroll
     for (int k = 0; k < CANDS; ++k) {
-      const bool ok_k = ok[k] && !(score[k] < best_score + c_repr);
-      const bool comp = ok_k && (sl9[k] & 0xFFFF) == nn;
-      if (comp && score[k] > best_score) {
-        best_size = sz9[k];
-        best_score = score[k];
+      const float sk = k == 0 ? ins_score
+                              : ((k & 1) ? del_score : mm_score[(k - 2) >> 1]);
+      const bool ok_k = ((pass >> k) & 1u) && !(sk < best_score + c_repr);
+      const bool comp = ok_k && ((k & 1) ? len_del : len_ext);
+      if (comp && sk > best_score) {
+        best_size = k == 0 ? f_size : ch_size[(k - 1) >> 1];
+        best_score = sk;
       }
+      kept |= ok_k ? 1u << k : 0u;
+      comps |= comp ? 1u << k : 0u;
       const int slot = base + CANDS - 1 - k;
+      const unsigned long long v = pop_key(
+          ok_k && !comp ? mono_bits(__float_as_int(sk)) : INT_MIN32,
+          ROOT - slot);
+      if ((slot >> csh) == c_lo)
+        new_lo = v > new_lo ? v : new_lo;
+      else
+        new_hi = v > new_hi ? v : new_hi;
+    }
+    hcount += __popc(comps);
+
+    // --- thread t writes slot base + t: candidate k = 8 - t, its row, its
+    // key and, where it completes, its place among the hits ---
+    if (t < CANDS) {
+      const int k = CANDS - 1 - t, slot = base + t;
+      const bool ins = k == 0, del = k & 1;
+      const int cs = ins ? 0 : (k - 1) >> 1;  // the child slot
+      const int code = fwd ? cs : 3 - cs;
+      int c_lower = ch_lower[0], c_lrev = ch_lrev[0], c_size = ch_size[0];
+      float c_mm = mm_score[0];
+#pragma unroll
+      for (int s = 1; s < 4; ++s)
+        if (cs == s) {
+          c_lower = ch_lower[s];
+          c_lrev = ch_lrev[s];
+          c_size = ch_size[s];
+          c_mm = mm_score[s];
+        }
+      const float sc = ins ? ins_score : (del ? del_score : c_mm);
+      const bool comp = (comps >> k) & 1u;
+      const int op =
+          OP_VALID_BIT | (j_c << 2) |
+          (ins ? OP_INSERTION << 17
+               : (del ? (OP_DELETION << 17)
+                      : ((code == pat_j ? OP_MATCH : OP_MISMATCH) << 17)) |
+                     code);
+      int4* row = reinterpret_cast<int4*>(st + (size_t)slot * NF);
+      row[0] = make_int4(ins ? f_lower : (fwd ? c_lrev : c_lower),
+                         ins ? f_lrev : (fwd ? c_lower : c_lrev),
+                         ins ? f_size : c_size, sel);
+      row[1] = make_int4(
+          del ? wshl(f_start, 16) | f_len : wshl(next_start, 16) | (f_len + 1),
+          ins ? gaps_word(GAP_INSERTION, ngaps_inc)
+              : (del ? gaps_word(GAP_DELETION, ngaps_inc)
+                     : gaps_word(GAP_CLOSED, f_ngaps)),
+          op | (comp ? OP_COMP_BIT : 0), __float_as_int(sc));
+      key[slot] = ((kept >> k) & 1u) && !comp ? mono_bits(__float_as_int(sc))
+                                             : INT_MIN32;
       if (comp) {
-        if (t == 0 && hcount < H) hs[hcount] = slot;
-        ++hcount;
-      }
-      if (t == CANDS - 1 - k) {
-        int4* row = reinterpret_cast<int4*>(st + (size_t)slot * NF);
-        row[0] = make_int4(lo9[k], lr9[k], sz9[k], sel);
-        row[1] = make_int4(sl9[k], gp9[k], op9[k] | (comp ? OP_COMP_BIT : 0),
-                           __float_as_int(score[k]));
-        key[slot] = ok_k && !comp ? mono_bits(__float_as_int(score[k]))
-                                  : INT_MIN32;
+        const int h = hits_before + __popc(comps & ((1u << k) - 1u));
+        if (h < H) hs[h] = slot;
       }
     }
-    __syncwarp();  // the rows and keys of this step before the next scan
+    // after the popped chunk's update (the same thread, in order): a new
+    // key may land in the popped slot's chunk
+    if (t == 0) {
+      unsigned long long* m = cmax + c_lo;
+      if (new_lo > m[0]) m[0] = new_lo;
+      if (((base + CANDS - 1) >> csh) != c_lo && new_hi > m[1])
+        m[1] = new_hi;
+    }
+    __syncwarp();  // the rows, keys and maxima of this step before the next
     // multi-hit / >9 hits early return (mapping.rs:1341-1355)
     if (hcount > 9 || best_size > 1) {
       done = true;
@@ -302,10 +426,50 @@ search_batch_kernel(BatchArgs a) {
   }
 }
 
-extern "C" int search_batch(const BatchArgs* a, cudaStream_t stream) {
+// The card's figures for the plan: SMs, the shared memory a block may opt
+// into, an SM's shared memory, the kernel's static shared memory and the
+// runtime's reserve a block.  Lets the kernel take all the dynamic shared
+// memory a block may have (the same value from every caller, so two host
+// threads never race on it).
+extern "C" int batch_card(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[1],
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &out[2], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[4],
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, search_batch_kernel);
+  if (e == cudaSuccess) {
+    out[3] = (int)fa.sharedSizeBytes;
+    e = cudaFuncSetAttribute(search_batch_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             out[1] - out[3]);
+  }
+  return (int)e;
+}
+
+// blocks of `threads` threads and `smem` bytes of dynamic shared memory
+// that one SM holds at once (after batch_card)
+extern "C" int batch_occupancy(int threads, int smem, int* per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, search_batch_kernel, threads, (size_t)smem);
+}
+
+// One launch runs every lane to its end.  A launch the card refuses
+// returns its error; nothing else is tried.
+extern "C" int search_batch(const BatchArgs* a, const BatchPlan* plan,
+                            cudaStream_t stream) {
   if (a->L <= 0) return 0;
-  LAUNCH(search_batch_kernel, (a->L + WARPS - 1) / WARPS, WARPS * 32, stream,
-         *a);
+  search_batch_kernel<<<plan->blocks, plan->lanes_per_block * 32,
+                        (size_t)plan->smem, stream>>>(*a, *plan);
   CHECK_LAUNCH();
   return 0;
 }

@@ -17,12 +17,17 @@ other's state, and a done lane writes nothing that reaches the result, so
 the kernel gives each lane a warp that runs its loop to its own end.  The
 only values across lanes are `steps` (the most iterations any lane needed,
 S for a lane still live) and the stop of the whole loop, which is that
-maximum.  Bound: bytes -- the inputs once (24 B a cell: codes, score
-LUT, Bi-D composite), per lane-step the popped row, 9 frames and 9 keys
-written and K1's two index rows (the whole index at most), the outputs
-once.  The pop's scan of the written key window (4 x (9k+1) B at step k)
-is this kernel's own traffic beyond that.  The composite comes from K7
-(ops/bi_d.py), launched by the wrapper first.
+maximum.  The pop has two levels: each lane keeps in shared memory the
+maximum (key, then lowest slot) of every chunk of C consecutive key slots,
+takes the best chunk from those maxima, and reads that chunk's C keys
+beside the popped row to update its maximum; the lane's code, score-LUT
+and Bi-D rows sit in shared memory beside them.  `batch_plan` lays this
+out: the chunk width C and the lanes a block.  Bound: bytes -- the inputs
+once (24 B a cell: codes, score LUT, Bi-D composite), per lane-step the
+popped row, 9 frames and 9 keys written and K1's two index rows (the
+whole index at most), the outputs once.  The popped chunk's keys (4 x C B
+a pop) are this kernel's own traffic beyond that.  The composite comes
+from K7 (ops/bi_d.py), launched by the wrapper first.
 
 `k_mismatch_search_batch_plain` is the JAX loop transcribed to PyTorch; the
 wrapper `k_mismatch_search_batch` takes it for CPU tensors only (the
@@ -366,6 +371,98 @@ class _BatchArgs(ctypes.Structure):
     ]
 
 
+# the launch plan of K10 (csrc/search_batch.cu): a warp a lane
+WARP = 32
+MAX_LANES_PER_BLOCK = 16  # csrc/search_batch.cu MAX_LANES_PER_BLOCK
+MIN_CHUNK = 32  # slots a chunk at least: one key a thread of the warp
+MAX_CHUNKS = 1024  # chunk maxima a lane keeps at most (8 KB)
+CELL_BYTES = 24  # a lane's staged inputs a position: 4 + 1 f32, 1 i32
+
+
+class BatchPlan(NamedTuple):
+    """Where K10's lanes run and how a lane's pop is laid out: a block of
+    `lanes_per_block` warps, `blocks` blocks; the keys cut into `chunks`
+    chunks of `chunk` slots; `lane_smem` bytes of shared memory a lane (its
+    chunk maxima, then its staged inputs), `smem` a block; `resident` 1
+    where the card holds every block at once.  Mirrors `struct BatchPlan`
+    in csrc/search_batch.cu."""
+
+    lanes_per_block: int
+    blocks: int
+    chunk: int
+    chunks: int
+    lane_smem: int
+    smem: int
+    resident: int
+
+
+def batch_plan(L: int, S: int, M: int, sms: int, smem_block: int,
+               smem_sm: int, blocks_per_sm, static_smem: int = 0,
+               reserved_smem: int = 0) -> BatchPlan:
+    """K10's launch plan for L lanes of S steps over reads padded to M, on
+    a card of `sms` SMs whose block may opt into `smem_block` bytes of
+    shared memory and whose SM holds `smem_sm`.  `blocks_per_sm(threads,
+    smem)`: the blocks of that shape one SM holds at once (the occupancy
+    query, with the kernel's registers); `static_smem`: the kernel's own
+    shared memory, `reserved_smem`: the runtime's reserve a block.
+
+    The chunk width is the least power of two, 32 or more, that cuts the
+    9S+1 key slots into at most MAX_CHUNKS chunks.  The lanes spread over
+    the SMs: ceil(L / sms) lanes a block, fewer where a block's shared
+    memory would not hold them.  Raises where no block holds one lane."""
+    require(L >= 1, "the batch search runs one lane or more")
+    require(S >= 1 and CANDS * S + 1 < 2**31, "the batch search's steps")
+    require(1 <= M <= 0x7FFF, "the batch search's read length")
+    slots = CANDS * S + 1
+    chunk = MIN_CHUNK
+    while -(-slots // chunk) > MAX_CHUNKS:
+        chunk *= 2
+    chunks = -(-slots // chunk)
+    lane_smem = -(-(8 * chunks + CELL_BYTES * M) // 16) * 16
+    room = min(smem_block - static_smem,
+               smem_sm - static_smem - reserved_smem)
+    require(lane_smem <= room,
+            f"a lane needs {lane_smem} B of shared memory; a block may "
+            f"have {room}")
+    lpb = min(-(-L // sms), room // lane_smem, MAX_LANES_PER_BLOCK)
+    blocks = -(-L // lpb)
+    per_sm = blocks_per_sm(WARP * lpb, lpb * lane_smem)
+    require(per_sm >= 1,
+            f"the card holds no block of {WARP * lpb} threads and "
+            f"{lpb * lane_smem} B of shared memory")
+    return BatchPlan(lpb, blocks, chunk, chunks, lane_smem, lpb * lane_smem,
+                     int(blocks <= per_sm * sms))
+
+
+class _BatchPlanC(ctypes.Structure):
+    """Mirror of `struct BatchPlan` in csrc/search_batch.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in BatchPlan._fields]
+
+
+def batch_card_plan(dev: torch.device, L: int, S: int, M: int) -> BatchPlan:
+    """`batch_plan` with the figures of the card `dev` and of K10's kernel
+    (a few queries of the runtime, no launch)."""
+    card = cuda_function("search_batch", "batch_card",
+                         [ctypes.POINTER(ctypes.c_int)])
+    occupancy = cuda_function("search_batch", "batch_occupancy",
+                              [ctypes.c_int, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_int)])
+    with torch.cuda.device(dev):
+        fig = (ctypes.c_int * 5)()
+        check(card(fig), "batch_card")
+        sms, smem_block, smem_sm, static, reserved = list(fig)
+
+        def blocks_per_sm(threads, smem):
+            out = ctypes.c_int(0)
+            check(occupancy(threads, smem, ctypes.byref(out)),
+                  "batch_occupancy")
+            return out.value
+
+        return batch_plan(L, S, M, sms, smem_block, smem_sm, blocks_per_sm,
+                          static, reserved)
+
+
 def _search_batch_cuda(index: DeviceFmIndex, pattern_code, n, score_lut,
                        bid, split, cutoff_scale, cutoff_thresh, repr_mm,
                        params: SearchParams, config: SearchConfig):
@@ -407,6 +504,7 @@ def _search_batch_cuda(index: DeviceFmIndex, pattern_code, n, score_lut,
     )
     if L == 0:
         return res, lane_steps
+    plan = _BatchPlanC(*batch_card_plan(dev, L, S, M))
     args = _BatchArgs(
         index.rows.data_ptr(), index.less.data_ptr(),
         index.sentinels.data_ptr(), index.rows.shape[0], index.occ_k,
@@ -419,11 +517,14 @@ def _search_batch_cuda(index: DeviceFmIndex, pattern_code, n, score_lut,
         lane_steps.data_ptr(), *[t.data_ptr() for t in res],
     )
     fn = cuda_function("search_batch", "search_batch",
-                       [ctypes.POINTER(_BatchArgs), ctypes.c_void_p])
+                       [ctypes.POINTER(_BatchArgs),
+                        ctypes.POINTER(_BatchPlanC), ctypes.c_void_p])
     LAUNCHES.add("search_batch")
     LAUNCHES.add("extend_batch")  # K1 runs inline in the lane loop
-    check(fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
-          "search_batch")
+    with torch.cuda.device(dev):
+        rc = fn(ctypes.byref(args), ctypes.byref(plan),
+                torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, "search_batch")
     return res, lane_steps
 
 

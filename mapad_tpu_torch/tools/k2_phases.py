@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import sys
 import time
 
@@ -45,6 +44,7 @@ import torch
 
 from .. import _build
 from ..ops.fm import resolve_device
+from . import apply_edits, nvcc_all
 
 PHASES = ("scan", "stage", "argmax", "K1+LUT", "cands", "barrier", "refill")
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -105,11 +105,7 @@ EDITS = (
 def instrument(src: str) -> str:
     """The kernel source with the phase probes; raises where the source no
     longer has a phase's end as EDITS knows it."""
-    for old, new in EDITS:
-        if src.count(old) != 1:
-            raise ValueError(f"pool_search.cu: no single {old[:48]!r}")
-        src = src.replace(old, new)
-    return src
+    return apply_edits(src, EDITS, "pool_search.cu")
 
 
 def build(sources, out_dir):
@@ -120,18 +116,9 @@ def build(sources, out_dir):
         cu = os.path.join(out_dir, f"k2_phases_{name}.cu")
         with open(path) as f, open(cu, "w") as g:
             g.write(instrument(f.read()))
-        so = os.path.join(out_dir, f"libk2_phases_{name}.so")
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", _build.CSRC,
-               cu, "-o", so]
-        jobs.append((name, so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    libs = {}
-    for name, so, proc in jobs:
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode:
-            raise RuntimeError(f"building {name} failed:\n{log}")
-        libs[name] = ctypes.CDLL(so)
-    return libs
+        jobs.append((name, cu,
+                     os.path.join(out_dir, f"libk2_phases_{name}.so")))
+    return {name: lib for name, (lib, _log) in nvcc_all(jobs).items()}
 
 
 def _inputs(big):

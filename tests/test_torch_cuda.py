@@ -512,6 +512,16 @@ def _batch_case(name):
                                                 compute_forward_part=True)
     if name == "budget":
         return ref, reads, adna_params, dict(max_steps=32)
+    if name == "default_tier":
+        # the engine's default tier: exogenous reads run many chunks long
+        return ref, bench_reads(seed=9, n_random=24, n_exo=8)[:40], \
+            adna_params, dict(max_steps=2048)
+    if name == "mid_chunk":
+        # 9 * 100 + 1 = 901 key slots: the last chunk holds 5
+        return ref, reads, adna_params, dict(max_steps=100)
+    if name == "one_chunk":
+        # 19 key slots, below one chunk of 32
+        return ref, reads, adna_params, dict(max_steps=2, hit_cap=4)
     assert name == "hit_cap"
     # a read of the segment completes seven times
     rref, seg = repeat_ref()
@@ -520,12 +530,15 @@ def _batch_case(name):
 
 
 @pytest.mark.parametrize("name", ["backward", "center", "budget",
-                                  "hit_cap"])
+                                  "hit_cap", "default_tier", "mid_chunk",
+                                  "one_chunk"])
 def test_search_batch_kernel(cuda, name):
     """K7 + K10 against their plain versions on the same card inputs: both
     extension directions (a center-start model), a budget that leaves
-    lanes live (S=32), a hit cap below a read's completions (H=4), and an
-    empty lane in every batch."""
+    lanes live (S=32), a hit cap below a read's completions (H=4), the
+    default tier (S=2048) with lanes that pop from many chunks, a store
+    whose last chunk is partial (S=100) and one below a single chunk
+    (S=2), and an empty lane in every batch."""
     from mapad_tpu_torch.index.builder import build_auxiliary_structures
     from mapad_tpu_torch.ops.engine import DeviceSearchEngine
     from mapad_tpu_torch.ops.search import (
@@ -553,11 +566,42 @@ def test_search_batch_kernel(cuda, name):
     _equal(tuple(got), tuple(want), name)
     hc = got.hcount.cpu()
     assert int(hc[0]) == 0 and not bool(got.escalate[0])
-    assert int((hc > 0).sum()) > 4 or name == "budget"
+    assert int((hc > 0).sum()) > 4 or name in ("budget", "one_chunk")
     if name == "budget":
         assert int(got.steps) == 32 and bool(got.escalate.any())
     if name == "hit_cap":
         assert int(hc.max()) > 4
+    if name == "default_tier":
+        assert int(got.steps) >= 64  # 577 slots and more: 18 chunks
+    if name in ("mid_chunk", "one_chunk"):
+        S = cfg_kw["max_steps"]
+        assert int(got.steps) == S and (9 * S + 1) % 32
+        assert bool(got.escalate.any())
+
+
+# the batch engine's tiers (max_steps, lanes; None: the engine's 2,048):
+# ops/engine.py DEFAULT_TIERS, then chip_smoke.py PATH6_TIERS
+BATCH_TIERS = ((2048, None), (512, None), (2048, 512))
+
+
+@pytest.mark.parametrize("tier", BATCH_TIERS)
+def test_search_batch_launch_plans(cuda, tier):
+    """K10's plan on the card at each tier of the engine's defaults and of
+    `chip_smoke.py`'s path 6, over reads of 128 positions: ceil(L / SMs)
+    lanes a block, chunks of 32 slots, every lane resident at once."""
+    from mapad_tpu_torch.ops import search as srch
+    from mapad_tpu_torch.ops.engine import DEFAULT_TIERS
+
+    assert set(DEFAULT_TIERS) <= set(BATCH_TIERS)
+    S, L = tier[0], tier[1] or 2048
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = srch.batch_card_plan(cuda, L, S, 128)
+    assert plan.lanes_per_block == -(-L // sms)
+    assert plan.blocks == -(-L // plan.lanes_per_block)
+    assert (plan.chunk, plan.chunks) == (32, -(-(9 * S + 1) // 32))
+    assert plan.lane_smem == -(-(8 * plan.chunks + 24 * 128) // 16) * 16
+    assert plan.smem == plan.lanes_per_block * plan.lane_smem
+    assert plan.resident == 1
 
 
 @pytest.mark.parametrize("packed", [False, True])

@@ -68,7 +68,10 @@ boundaries it fired.  Then the bidirectional K2 against its plain version,
 and before path 6 K10 against its plain version at full width (the first
 2,048 reads, S=2048, H=24; and 512 reads under the center-start model,
 both directions; each with its launch plan, its longest lane's steps and
-its us a step) and the int32 K7 at R=2048, M=128.  After path 1's
+its us a step) and the int32 K7 at R=2048, M=128 (each K7 run with the
+walk steps its data needs, both parts where the forward part is on, its
+launch plan with the resident warps an SM, and the -Xptxas -v figures of
+both forms of its kernel).  After path 1's
 kernels, K9 (`pool_search_sharded`) runs on the shard threads and streams
 of a two-shard engine on the one card (path 7's): two shards of 512 reads
 of path 1's workload against its plain version, and path 7's block (two
@@ -81,8 +84,10 @@ mapad_tpu_torch/tools/; on no mapping path).  P1 (`probe_dma`) is held
 against its plain version at the TPU probe's defaults (L=1024, W=128,
 T=200, a 512 MiB table of 2^20 rows) and over T=512 steps (acc passes
 2^24), P2-P4 (`copy_src_slice`, `copy_dst_slice`) at their shapes against
-their plain versions and torch slicing, each timed by CUDA events and by
-the profiler's device time beside `x[sl].clone()` or `out[sl] = inp + 1`;
+their plain versions and torch slicing, each timed in turns with
+`x[sl].clone()` or `out[sl] = inp + 1` (medians of five rounds by CUDA
+events and by the profiler's device time, beside a kernel that does
+nothing);
 then the counted run of the tools: P1 timed a step in three forms (one
 launch, one launch a step, plain PyTorch on the card) against path 1's
 index rows (in L2), path 2's and 2^20 rows, P2's shapes, P3, P4's copies
@@ -155,6 +160,7 @@ PATH8_TIMEOUT = 300
 # a 512 MiB table), checked once more over T = 512 steps (acc passes 2^24)
 PROBE_W, PROBE_L, PROBE_T, PROBE_T_LONG = 128, 1024, 200, 512
 PROBE_NB = 1 << 20
+COPY_ROUNDS = 5  # the copies and their PyTorch calls, timed in turns
 
 
 def index_rows(genome_size: int, k: int) -> int:
@@ -476,6 +482,20 @@ def k2_forms(logs):
         bidir = "Lb1E" in entry
         forms[k2_form(big, bidir)] = figs
     return forms
+
+
+def k7_forms(logs):
+    """The ptxas figures of K7's kernel in both interval widths."""
+    return {f"K7 {'int64' if 'bi_d_kernelIl' in entry else 'int32'}": figs
+            for entry, figs in ptxas_entries(logs.get("bi_d", ""))
+            if "bi_d_kernel" in entry}
+
+
+def k7_plan(bi_d, dev, rank, fwd, big):
+    """K7's launch plan at this input, as a dict with the resident warps an
+    SM (the occupancy query at the plan's block shape)."""
+    plan = bi_d.bid_card_plan(dev, rank.shape[1], 2 if fwd else 1, big)
+    return dict(plan._asdict(), resident_warps=plan.resident_warps)
 
 
 def k10_form(logs):
@@ -880,12 +900,14 @@ def probe_cases():
     ]
 
 
-def copy_case(torch, what, kind, shape, sl, blk, addend):
+def copy_case(torch, what, kind, shape, sl, blk, addend, floor_ms):
     """One P2-P4 copy on the card against its plain version and torch
-    slicing of `arange` data, then timed: the kernel, its plain version and
-    the one PyTorch call that does the same (`x[sl].clone()`, or
-    `out[sl] = inp + addend`), each by CUDA events over many calls and by
-    the profiler's device time.  Returns its measurements."""
+    slicing of `arange` data, then timed: the kernel and the one PyTorch
+    call that does the same (`x[sl].clone()`, or `out[sl] = inp + addend`)
+    in turns, COPY_ROUNDS rounds each by CUDA events over 200 calls and by
+    the profiler's device time over 50 (a round whose profile saw no device
+    time left out), medians kept; the plain version once by events.  `floor_ms`: the device time of a kernel that does nothing.
+    Returns its measurements."""
     from mapad_tpu_torch.tools import _probe_shapes, cuda_ms, device_ms
 
     fn, plain, library, ref = _probe_shapes.case(
@@ -897,18 +919,27 @@ def copy_case(torch, what, kind, shape, sl, blk, addend):
                       f"{what}: kernel against torch slicing"))
     _row0, nrows, _col0, ncols = _probe_shapes.slice_args(shape, sl)
     n = nrows * ncols * 4 * 2
+    runs = {k: [] for k in ("ms", "library_ms", "device_ms",
+                            "library_device_ms")}
+    for _ in range(COPY_ROUNDS):
+        runs["ms"].append(cuda_ms(fn, 200))
+        runs["library_ms"].append(cuda_ms(library, 200))
+        runs["device_ms"].append(device_ms(fn, 50))
+        runs["library_device_ms"].append(device_ms(library, 50))
     r = dict(what=what, kind=kind, max_abs_err=err, bytes=n,
-             bound_ms=bound_ms(n),
-             ms=cuda_ms(fn, 200), device_ms=device_ms(fn, 50),
-             plain_ms=cuda_ms(plain, 200),
-             library_ms=cuda_ms(library, 200),
-             library_device_ms=device_ms(library, 50))
+             bound_ms=bound_ms(n), plain_ms=cuda_ms(plain, 200),
+             floor_device_ms=floor_ms,
+             **{k: median([x for x in v if x is not None])
+                if any(x is not None for x in v) else None
+                for k, v in runs.items()})
     shown = {k: "not measured" if v is None else f"{v:.4g} ms"
              for k, v in r.items() if k.endswith("ms")}
     log(f"{what}: bit-exact; kernel {shown['ms']} a call by events, "
-        f"{shown['device_ms']} device; plain {shown['plain_ms']}; "
-        f"library {shown['library_ms']} by events, "
-        f"{shown['library_device_ms']} device; bound {shown['bound_ms']}")
+        f"{shown['device_ms']} device; library {shown['library_ms']} by "
+        f"events, {shown['library_device_ms']} device (medians of "
+        f"{COPY_ROUNDS} rounds in turns); plain {shown['plain_ms']}; bound "
+        f"{shown['bound_ms']}; an empty kernel {shown['floor_device_ms']} "
+        "device")
     return r
 
 
@@ -922,7 +953,7 @@ def probe_phase(torch, card):
     (_dump_pair).  Returns (kernel-table rows, launches of that run)."""
     from mapad_tpu_torch._build import LAUNCHES
     from mapad_tpu_torch.tools import (_dump_pair, _probe_shapes, _t9,
-                                       bench_dma, dma)
+                                       bench_dma, device_ms, dma)
 
     dev = torch.device("cuda", 0)
     rows, blk = bench_dma.make_inputs(PROBE_NB, PROBE_W, PROBE_L, seed=0,
@@ -939,7 +970,10 @@ def probe_phase(torch, card):
     plain_ms = timed(torch, lambda: dma.gather_steps_plain(rows, blk,
                                                            PROBE_T), 1)
     del rows, blk
-    cases = [copy_case(torch, *c) for c in probe_cases()]
+    # the device time of a kernel that does nothing (a zero-cycle spin)
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0), 50) \
+        if hasattr(torch.cuda, "_sleep") else None
+    cases = [copy_case(torch, *c, floor_ms) for c in probe_cases()]
 
     LAUNCHES.reset()
     torch.cuda.synchronize()
@@ -1004,7 +1038,8 @@ def probe_phase(torch, card):
             replaces=replaces, also_replaces=also,
             max_abs_err=max(c["max_abs_err"] for c in mine),
             **{k: h[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                 "device_ms", "library_device_ms")},
+                                 "device_ms", "library_device_ms",
+                                 "floor_device_ms")},
             bound_by="bytes", shape=head, ptx_sass=list(counts[name]),
             shapes=mine)
     return out, launches
@@ -1145,20 +1180,22 @@ def batch_check(torch, engine, reads, r, what, bid_row=False):
     bid = k7()
     err7 = compare(torch, (bid,), (k7_plain(),), f"bi_d ({what})")
     if bid_row:
-        walk_steps = int(sum(
-            torch.clamp(split.cpu().long() - w, min=0).sum()
-            for w in range(bi_d.MAX_OFFSET)))
+        walk_steps = bi_d.walk_steps(n, split, fwd)
         rows["bi_d"] = dict(
             route="cuda", source="mapad_tpu_torch/csrc/bi_d.cu",
             replaces="mapad_tpu/ops/bi_d.py:27", max_abs_err=err7,
             ms=timed(torch, k7, 10), plain_ms=timed(torch, k7_plain, 1),
             bound_ms=bound_ms(nbytes(rank, pen, n, split, bid) + min(
                 nbytes(idx_d.rows), walk_steps * 2 * 512)),
-            bound_by="bytes", library_ms=None,
+            bound_by="bytes", library_ms=None, walk_steps=walk_steps,
+            plan=k7_plan(bi_d, engine.device, rank, fwd, False),
+            ptxas=PTXAS.get("K7 int32"),
         )
         log(f"K7 bi_d (int32) R={r} M={M} ({walk_steps} walk steps, longest "
-            f"parts {steps}): bit-exact, {rows['bi_d']['ms']:.4f} ms (plain "
-            f"{rows['bi_d']['plain_ms']:.1f} ms)")
+            f"parts {steps}, forward part {fwd}): bit-exact, "
+            f"{rows['bi_d']['ms']:.4f} ms (plain "
+            f"{rows['bi_d']['plain_ms']:.1f} ms); plan {rows['bi_d']['plan']}"
+            f"; ptxas {rows['bi_d']['ptxas']}")
 
     args = (idx_d, code, n, score_lut, bid, split, scale, thresh, repr_mm,
             params, cfg)
@@ -1412,11 +1449,11 @@ def check_kernels_big(torch, np, engine, reads):
         torch, (both,),
         (bi_d.compute_bi_d_plain(idx_d, rank, pen, n, half, True, steps2),),
         "bi_d_i64 (both parts)"))
-    # the walk steps this block's data needs: walk w of a part of length p
-    # takes max(0, p - w) steps, two 512 B index rows each
-    sp = split.cpu().long()
-    walk_steps = int(sum(torch.clamp(sp - w, min=0).sum()
-                         for w in range(bi_d.MAX_OFFSET)))
+    # the walk steps each run's data needs (both parts where the forward
+    # part is on), two 512 B index rows each
+    fwd = cfg.compute_forward_part
+    walk_steps = bi_d.walk_steps(n, split, fwd)
+    both_steps = bi_d.walk_steps(n, half, True)
     k7_bytes = (nbytes(rank, pen, n, split, bid)
                 + min(nbytes(idx_d.rows), walk_steps * 2 * 512))
     rows["bi_d_i64"] = dict(
@@ -1424,11 +1461,23 @@ def check_kernels_big(torch, np, engine, reads):
         replaces="mapad_tpu/ops/bi_d.py:27", max_abs_err=err,
         ms=timed(torch, k7, 10), plain_ms=timed(torch, k7_plain, 1),
         bound_ms=bound_ms(k7_bytes), bound_by="bytes", library_ms=None,
+        walk_steps=walk_steps, plan=k7_plan(bi_d, dev, rank, fwd, True),
+        both_ms=timed(torch, lambda: bi_d.compute_bi_d(
+            idx_d, rank, pen, n, half, True, steps2), 10),
+        both_walk_steps=both_steps,
+        both_bound_ms=bound_ms(nbytes(rank, pen, n, half, both) + min(
+            nbytes(idx_d.rows), both_steps * 2 * 512)),
+        both_plan=k7_plan(bi_d, dev, rank, True, True),
+        ptxas=PTXAS.get("K7 int64"),
     )
-    log(f"K7 bi_d_i64 R={R} M={M} ({R * bi_d.MAX_OFFSET} walks, {walk_steps} "
-        f"walk steps, longest parts {steps}): bit-exact with and without "
-        f"the forward part, {rows['bi_d_i64']['ms']:.4f} ms (plain "
-        f"{rows['bi_d_i64']['plain_ms']:.1f} ms)")
+    row = rows["bi_d_i64"]
+    log(f"K7 bi_d_i64 R={R} M={M} ({R * bi_d.MAX_OFFSET} walks a part): "
+        f"bit-exact with and without the forward part; forward part {fwd}: "
+        f"{walk_steps} walk steps, longest parts {steps}, {row['ms']:.4f} "
+        f"ms (plain {row['plain_ms']:.1f} ms), plan {row['plan']}; both "
+        f"parts (split n // 2): {both_steps} walk steps, longest parts "
+        f"{steps2}, {row['both_ms']:.4f} ms, plan {row['both_plan']}; "
+        f"ptxas {row['ptxas']}")
 
     # K1 in int64: on the real index, and on one whose counts pass 2^32
     rows["extend_batch_i64"] = k1_check(torch, fm, idx_d, "extend_batch_i64",
@@ -1723,8 +1772,11 @@ def main() -> int:
             log(f"  {name}: {entry}: {figs}")
     PTXAS.update(k2_forms(logs))
     PTXAS.update(k10_form(logs))
+    PTXAS.update(k7_forms(logs))
     for form, figs in sorted(PTXAS.items()):
         kernel = ("K10 search_batch_kernel" if form == "K10"
+                  else f"{form[:2]} bi_d_kernel, {form[3:]}"
+                  if form.startswith("K7")
                   else f"K2 pool_search_kernel, {form}")
         log(f"  {kernel}: {figs}")
 
@@ -2123,9 +2175,11 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     # (`path7_steps`: one launch a generation plus one init per shard and
     # invocation); the probe rows (path "probes", launches from the probe
     # tools' run) P1's per-step times at three tables in three forms and its
-    # launch-per-step time, the copies' device times from the profiler, the
-    # shape of their headline, every probe shape's numbers and their PTX and
-    # SASS instruction counts
+    # launch-per-step time, the copies' device times from the profiler (and
+    # an empty kernel's, `floor_device_ms`), the shape of their headline,
+    # every probe shape's numbers and their PTX and SASS instruction counts; the bi_d rows the walk steps of their run,
+    # their launch plan (with the resident warps an SM) and ptxas figures,
+    # bi_d_i64 also the same for both parts (`both_*`)
     more = ("steps", "boundaries", "launches_per_boundary", "main_shape",
             "main_ms", "main_bound_ms", "main_launches_per_boundary",
             "scan_bytes", "scan_ms", "max_lane_steps", "center_ms",
@@ -2138,7 +2192,10 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
             "check_steps", "us_step", "plan", "ptxas", "floor_ms",
             "floor_us_step", "limit",
             "launch_per_step_ms", "step_tables", "also_replaces", "device_ms",
-            "library_device_ms", "shape", "ptx_sass", "shapes")
+            "library_device_ms", "floor_device_ms", "shape", "ptx_sass",
+            "shapes",
+            "walk_steps", "both_ms", "both_walk_steps", "both_bound_ms",
+            "both_plan")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},

@@ -12,10 +12,10 @@ a hash of their source and flags so an edited source is rebuilt:
   flush-to-zero: the kernels must round every f32 operation exactly as
   the plain versions do).  Each library has a plain C interface and is
   loaded with ctypes; every entry point returns `cudaGetLastError()`.
-  Each library links its own copy of the CUDA runtime, so every call first
+  Each library links its own copy of the CUDA runtime, so a call first
   makes the caller's current torch device the library's own current device
-  (`set_device`, csrc/common.cuh): a thread that drives one card of several
-  launches there.
+  (`set_device`, csrc/common.cuh) where that thread has not set it there
+  already: a thread that drives one card of several launches there.
 
 Every library is written under a temporary name and moved into place with
 `os.replace`, so concurrent builders (parallel test workers, several
@@ -154,30 +154,78 @@ def cuda_library(name: str) -> ctypes.CDLL:
         return _loaded[key]
 
 
+_functions: dict = {}
+_thread = threading.local()
+
+
 def cuda_function(lib_name: str, fn_name: str, argtypes):
     """Entry point `fn_name` of the CUDA library `lib_name`, typed: every
     entry point returns the cudaError_t of its launches.  The returned
     callable launches on the calling thread's current torch device (a
     caller whose tensors lie on another card enters
-    `torch.cuda.device(dev)` first)."""
+    `torch.cuda.device(dev)` first).  Bound once: later calls return the
+    same callable without a lock, and it calls the library's `set_device`
+    only where the thread's current device is not the one it last set in
+    that library's runtime."""
+    fn = _functions.get((lib_name, fn_name))
+    if fn is None:
+        fn = _bind(lib_name, fn_name, argtypes)
+    return fn
+
+
+def _bind(lib_name, fn_name, argtypes):
     import torch
 
     lib = cuda_library(lib_name)
-    fn = getattr(lib, fn_name)
-    set_device = lib.set_device
     with _lock:
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
-        if set_device.argtypes is None:
-            set_device.restype = ctypes.c_int
-            set_device.argtypes = [ctypes.c_int]
+        key = (lib_name, fn_name)
+        if key in _functions:
+            return _functions[key]
+        fn = getattr(lib, fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        set_device = lib.set_device
+        set_device.restype = ctypes.c_int
+        set_device.argtypes = [ctypes.c_int]
+        current_device = _current_device()
 
-    def launch(*args):
-        rc = set_device(torch.cuda.current_device())
-        return rc if rc else fn(*args)
+        def launch(*args):
+            dev = current_device()
+            seen = _thread.__dict__.setdefault("devices", {})
+            if seen.get(lib_name) != dev:
+                rc = set_device(dev)
+                if rc:
+                    return rc
+                seen[lib_name] = dev
+            return fn(*args)
 
-    return launch
+        _functions[key] = launch
+        return launch
+
+
+def _current_device():
+    """torch's current CUDA device index, read without its lazy-init check
+    (a launch follows the card's first use)."""
+    import torch
+
+    return getattr(torch._C, "_cuda_getDevice", torch.cuda.current_device)
+
+
+_raw_stream = None
+
+
+def current_raw_stream() -> int:
+    """The handle of the current device's current CUDA stream, as a library
+    entry point takes it (without making a `torch.cuda.Stream`)."""
+    global _raw_stream
+    if _raw_stream is None:
+        import torch
+
+        get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+        device = _current_device()
+        _raw_stream = ((lambda: get(device())) if get is not None else
+                       (lambda: torch.cuda.current_stream().cuda_stream))
+    return _raw_stream()
 
 
 def check(rc: int, what: str):

@@ -13,58 +13,90 @@
 //   copy_dst_slice: dense input -> shared -> (+ addend) -> strided slice;
 //                   everything outside the slice stays as it was
 // A block stages up to SCRATCH_WORDS words (static shared memory, 36 KB:
-// the probes' largest slice, (72, 128), in one block) with `cp.async`:
-// 16-byte moves where every row of the slice and both bases are 16-byte
-// aligned (ncols, col0 and C multiples of 4), else 4-byte moves; a 128-byte
-// row (C = 32, P3) takes the 16-byte path, a column slice that is not
-// aligned the 4-byte one.
+// the probes' largest slice, (72, 128), in one block).  Two routes, which
+// the launch chooses (`copy_route`):
+// - bulk: where every row of the slice and both bases are 16-byte aligned
+//   and a row is a multiple of 16 bytes (ncols, col0 and C multiples of 4),
+//   Hopper's bulk asynchronous copies (the TMA engine, the counterpart of
+//   the TPU's DMA): one bulk copy a row into shared memory (one for the
+//   whole slice where its rows are contiguous), issued by the lanes of
+//   warp 0 and counted by one mbarrier, then one bulk copy a row out (one
+//   for a dense side); the threads touch the words only to add a nonzero
+//   addend;
+// - words: any other slice, 4-byte `cp.async` moves into shared memory and
+//   4-byte stores out, a warp a row.
+// No index is divided: the threads walk rows and columns.
 //
 // Bound on the card: bytes (the slice read once and written once); the
 // probes' slices are a few KB, so a call is a launch.
 #include "common.cuh"
 
-using mapad::cp_async16;
 using mapad::cp_async4;
 using mapad::cp_async_wait_all;
 
+// every field 8 bytes: the wrapper fills them as one int64 array
 struct CopyArgs {
   const int* src;
   int* dst;
-  int ld;  // words per row of the strided side
-  int row0, col0, nrows, ncols;
-  int addend;  // copy_dst_slice only
+  cudaStream_t stream;
+  long long ld;  // words per row of the strided side
+  long long row0, col0, nrows, ncols;
+  long long addend;  // copy_dst_slice only
 };
 
 constexpr int COPY_THREADS = 256;
+constexpr int COPY_WARPS = COPY_THREADS / 32;
 constexpr int SCRATCH_WORDS = 72 * 128;
 
-// the slice's word k (row-major over the slice) in the strided array
-__device__ __forceinline__ size_t strided(const CopyArgs& a, int r0, int k) {
-  return (size_t)(a.row0 + r0 + k / a.ncols) * a.ld + a.col0 + k % a.ncols;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-extern "C" __global__ void __launch_bounds__(COPY_THREADS)
-    copy_src_slice_kernel(CopyArgs a, int rows_per_block, int vec) {
-  __shared__ __align__(16) int scratch[SCRATCH_WORDS];
-  const int r0 = blockIdx.x * rows_per_block;
-  const int n = min(rows_per_block, a.nrows - r0) * a.ncols;
-  if (vec) {
-    for (int k = threadIdx.x * 4; k < n; k += COPY_THREADS * 4)
-      cp_async16(scratch + k, a.src + strided(a, r0, k));
-  } else {
-    for (int k = threadIdx.x; k < n; k += COPY_THREADS)
-      cp_async4(scratch + k, a.src + strided(a, r0, k));
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  int* out = a.dst + (size_t)r0 * a.ncols;
-  if (vec) {
-    for (int k = threadIdx.x * 4; k < n; k += COPY_THREADS * 4)
-      *reinterpret_cast<int4*>(out + k) =
-          *reinterpret_cast<const int4*>(scratch + k);
-  } else {
-    for (int k = threadIdx.x; k < n; k += COPY_THREADS) out[k] = scratch[k];
-  }
+// the mbarrier of a block's bulk loads: one arrival (lane 0's, which also
+// announces the bytes), then the copies' completions
+__device__ __forceinline__ void bar_init(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar)
+      : "memory");
+}
+
+// global -> shared, `bytes` (a multiple of 16, both ends 16-byte aligned)
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// shared -> global, the same conditions
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
+                                           unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(gmem), "r"(smem_addr(smem)), "r"(bytes)
+               : "memory");
+}
+
+// the bulk stores issued by this thread have read shared memory
+__device__ __forceinline__ void bulk_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ int add_wrap(int v, int d) {
@@ -72,53 +104,125 @@ __device__ __forceinline__ int add_wrap(int v, int d) {
 }
 
 extern "C" __global__ void __launch_bounds__(COPY_THREADS)
-    copy_dst_slice_kernel(CopyArgs a, int rows_per_block, int vec) {
-  __shared__ __align__(16) int scratch[SCRATCH_WORDS];
+    copy_src_slice_kernel(CopyArgs a, int rows_per_block, int bulk) {
+  __shared__ __align__(128) int scratch[SCRATCH_WORDS];
+  __shared__ __align__(8) unsigned long long bar;
   const int r0 = blockIdx.x * rows_per_block;
-  const int n = min(rows_per_block, a.nrows - r0) * a.ncols;
-  const int* in = a.src + (size_t)r0 * a.ncols;
-  if (vec) {
-    for (int k = threadIdx.x * 4; k < n; k += COPY_THREADS * 4)
-      cp_async16(scratch + k, in + k);
-  } else {
-    for (int k = threadIdx.x; k < n; k += COPY_THREADS)
-      cp_async4(scratch + k, in + k);
+  const int rows = min(rows_per_block, (int)a.nrows - r0);
+  const int nc = (int)a.ncols;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int* src = a.src + (a.row0 + r0) * a.ld + a.col0;
+  int* out = a.dst + (size_t)r0 * nc;
+  if (bulk) {
+    if (warp != 0) return;
+    const unsigned b = smem_addr(&bar);
+    const unsigned row_bytes = (unsigned)nc * 4u;
+    if (lane == 0) bar_init(b, row_bytes * rows);
+    __syncwarp();
+    if (a.ld == nc) {
+      if (lane == 0) bulk_load(scratch, src, row_bytes * rows, b);
+    } else {
+      for (int r = lane; r < rows; r += 32)
+        bulk_load(scratch + r * nc, src + r * a.ld, row_bytes, b);
+    }
+    if (lane == 0) {
+      bar_wait(b);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk_store(out, scratch, row_bytes * rows);
+      bulk_store_wait();
+    }
+    return;
   }
+  for (int r = warp; r < rows; r += COPY_WARPS)
+    for (int c = lane; c < nc; c += 32)
+      cp_async4(scratch + r * nc + c, src + r * a.ld + c);
   cp_async_wait_all();
   __syncthreads();
-  if (vec) {
-    for (int k = threadIdx.x * 4; k < n; k += COPY_THREADS * 4) {
-      int4 v = *reinterpret_cast<const int4*>(scratch + k);
-      v.x = add_wrap(v.x, a.addend);
-      v.y = add_wrap(v.y, a.addend);
-      v.z = add_wrap(v.z, a.addend);
-      v.w = add_wrap(v.w, a.addend);
-      *reinterpret_cast<int4*>(a.dst + strided(a, r0, k)) = v;
-    }
-  } else {
-    for (int k = threadIdx.x; k < n; k += COPY_THREADS)
-      a.dst[strided(a, r0, k)] = add_wrap(scratch[k], a.addend);
-  }
+  for (int k = threadIdx.x; k < rows * nc; k += COPY_THREADS)
+    out[k] = scratch[k];
 }
 
-static int launch_copy(void (*kernel)(CopyArgs, int, int), const CopyArgs* a,
-                       cudaStream_t stream) {
-  if (a->nrows < 1 || a->ncols < 1 || a->ncols > SCRATCH_WORDS)
+extern "C" __global__ void __launch_bounds__(COPY_THREADS)
+    copy_dst_slice_kernel(CopyArgs a, int rows_per_block, int bulk) {
+  __shared__ __align__(128) int scratch[SCRATCH_WORDS];
+  __shared__ __align__(8) unsigned long long bar;
+  const int r0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, (int)a.nrows - r0);
+  const int nc = (int)a.ncols, n = rows * nc;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int* in = a.src + (size_t)r0 * nc;
+  int* dst = a.dst + (a.row0 + r0) * a.ld + a.col0;
+  if (bulk) {
+    if (a.addend == 0 && warp != 0) return;
+    const unsigned b = smem_addr(&bar);
+    const unsigned row_bytes = (unsigned)nc * 4u;
+    if (threadIdx.x == 0) {
+      bar_init(b, row_bytes * rows);
+      bulk_load(scratch, in, row_bytes * rows, b);
+    }
+    if (a.addend != 0) {
+      __syncthreads();  // the barrier is initialised before anyone waits
+      bar_wait(b);
+      for (int k = threadIdx.x * 4; k < n; k += COPY_THREADS * 4) {
+        int4 v = *reinterpret_cast<const int4*>(scratch + k);
+        v.x = add_wrap(v.x, (int)a.addend);
+        v.y = add_wrap(v.y, (int)a.addend);
+        v.z = add_wrap(v.z, (int)a.addend);
+        v.w = add_wrap(v.w, (int)a.addend);
+        *reinterpret_cast<int4*>(scratch + k) = v;
+      }
+      // the threads' writes, before the copy engine reads them
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (warp != 0) return;
+    } else {
+      __syncwarp();
+      bar_wait(b);
+    }
+    if (a.ld == nc) {
+      if (lane == 0) bulk_store(dst, scratch, row_bytes * rows);
+    } else {
+      for (int r = lane; r < rows; r += 32)
+        bulk_store(dst + r * a.ld, scratch + r * nc, row_bytes);
+    }
+    bulk_store_wait();
+    return;
+  }
+  for (int k = threadIdx.x; k < n; k += COPY_THREADS)
+    cp_async4(scratch + k, in + k);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int r = warp; r < rows; r += COPY_WARPS)
+    for (int c = lane; c < nc; c += 32)
+      dst[r * a.ld + c] = add_wrap(scratch[r * nc + c], (int)a.addend);
+}
+
+// 1 (the bulk route) where the bulk copies can move the slice: both bases
+// 16-byte aligned and every row of the slice a multiple of 16 bytes that
+// starts 16-byte aligned (ncols, col0 and ld multiples of 4 words); else 0
+// (the 4-byte route)
+extern "C" int copy_route(const CopyArgs* a) {
+  return a->ncols % 4 == 0 && a->col0 % 4 == 0 && a->ld % 4 == 0 &&
+         (size_t)a->src % 16 == 0 && (size_t)a->dst % 16 == 0;
+}
+
+static int launch_copy(void (*kernel)(CopyArgs, int, int),
+                       const CopyArgs* a) {
+  if (a->nrows < 1 || a->ncols < 1 || a->ncols > SCRATCH_WORDS ||
+      a->nrows >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const int vec = a->ncols % 4 == 0 && a->col0 % 4 == 0 && a->ld % 4 == 0 &&
-                  (size_t)a->src % 16 == 0 && (size_t)a->dst % 16 == 0;
-  const int fit = SCRATCH_WORDS / a->ncols;  // >= 1 by the check above
-  const int rpb = a->nrows < fit ? a->nrows : fit;
-  LAUNCH(kernel, (a->nrows + rpb - 1) / rpb, COPY_THREADS, stream, *a, rpb,
-         vec);
+  const int fit = SCRATCH_WORDS / (int)a->ncols;  // >= 1 by the check above
+  const int rpb = a->nrows < fit ? (int)a->nrows : fit;
+  LAUNCH(kernel, ((int)a->nrows + rpb - 1) / rpb, COPY_THREADS, a->stream,
+         *a, rpb, copy_route(a));
   CHECK_LAUNCH();
   return 0;
 }
 
-extern "C" int copy_src_slice(const CopyArgs* a, cudaStream_t stream) {
-  return launch_copy(copy_src_slice_kernel, a, stream);
+extern "C" int copy_src_slice(const CopyArgs* a) {
+  return launch_copy(copy_src_slice_kernel, a);
 }
 
-extern "C" int copy_dst_slice(const CopyArgs* a, cudaStream_t stream) {
-  return launch_copy(copy_dst_slice_kernel, a, stream);
+extern "C" int copy_dst_slice(const CopyArgs* a) {
+  return launch_copy(copy_dst_slice_kernel, a);
 }

@@ -8,6 +8,10 @@ under tools/ that reach `pl.pallas_call`), ported to the H100 as P1-P4:
                  step (K2, csrc/pool_search.cu) on the card
   k10_time       not a probe: K10 (csrc/search_batch.cu) timed against
                  variants of its source, and its phases' SM cycles
+  k7_time        not a probe: K7 (csrc/bi_d.cu) timed against variants of
+                 its source, its occupancy, and its phases' SM cycles
+  copy_host      the host side of one P2 copy, part by part, beside the
+                 PyTorch call that does the same
   _probe_shapes  P2: a slice of each of eight shapes staged through shared
                  memory, from a strided source or into a strided destination
   _t9            P3: row 7 of a (1024, 32) table through a (1, 32) scratch
@@ -18,13 +22,16 @@ Kernels and wrappers: `dma.py` (csrc/probe_dma.cu, csrc/probe_copy.cu).
 Each runs as `python -m mapad_tpu_torch.tools.<name>` on the card; their
 functions take `device="cpu"` to run the plain versions (the tests do), and
 raise without a card otherwise.  This module holds what they share: the
-card's name, two ways to time a call, and the edit-and-build of kernel
-variants that k2_phases and k10_time (SM cycles and times of K10, the
-batch search, against older or hand-edited copies of its source) share.
+card's name, two ways to time a call, and the harness of k2_phases,
+k10_time and k7_time (a kernel against older or hand-edited copies of its
+source): the edit and parallel build of the variants with their ptxas
+figures, the in-turn order, the CUDA-event runs, the bit-for-bit check
+and the readout of the phases' SM cycles.
 """
 
 from __future__ import annotations
 
+import os
 import subprocess
 
 
@@ -67,6 +74,82 @@ def nvcc_all(jobs, flags=()) -> dict:
             raise RuntimeError(f"building {name} failed:\n{log}")
         libs[name] = (ctypes.CDLL(so), log)
     return libs
+
+
+def build_variants(sources, out_dir: str, prefix: str,
+                   flags=("-Xptxas", "-v")) -> dict:
+    """nvcc every (name, text) of `sources` at once, each written to
+    `out_dir` first, with `flags` (by default ptxas's figures) -> {name:
+    (ctypes library, nvcc's output)}."""
+    jobs = []
+    for name, text in sources:
+        cu = os.path.join(out_dir, f"{prefix}_{name}.cu")
+        with open(cu, "w") as f:
+            f.write(text)
+        jobs.append((name, cu, os.path.join(out_dir,
+                                            f"lib{prefix}_{name}.so")))
+    return nvcc_all(jobs, flags)
+
+
+def variant_sources(paths) -> list:
+    """(name, text) of each variant source file, named by its stem."""
+    out = []
+    for path in paths:
+        with open(path) as f:
+            out.append((os.path.splitext(os.path.basename(path))[0],
+                        f.read()))
+    return out
+
+
+def in_turns(names) -> list:
+    """The order the variants run in: each once, then again in reverse, so
+    that a drift of the card's clock falls on both sides alike."""
+    names = list(names)
+    return names + names[::-1]
+
+
+def event_runs(call, n: int = 3) -> list:
+    """ms of each of `n` calls of call(), each between two CUDA events."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        call()
+        ev[1].record()
+        ev[1].synchronize()
+        out.append(ev[0].elapsed_time(ev[1]))
+    return out
+
+
+def same_bits(got, want, what: str):
+    """Raise unless each tensor of `got` equals its own in `want` bit for
+    bit (f32 compared as their int32 bits)."""
+    import torch
+
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == torch.float32:
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what}: field {k} differs")
+
+
+def print_phases(unit: str, phases, cyc, steps, extra: str = ""):
+    """Print the SM cycles a step of each phase on the longest `unit` (the
+    most steps, then the most cycles) and their mean over all its steps.
+    cyc: (units, phases) cycles, steps: (units,) steps, both float64."""
+    import torch
+
+    top = steps == steps.max()
+    i = int(torch.where(top, cyc.sum(1), -1.0).argmax())
+    mine = cyc[i] / max(float(steps[i]), 1.0)
+    mean = cyc.sum(0) / max(float(steps.sum()), 1.0)
+    print(f"  cycles a step, longest {unit} ({i}, {int(steps[i])} steps): "
+          + ", ".join(f"{p} {float(c):.0f}" for p, c in zip(phases, mine))
+          + f" (sum {float(mine.sum()):.0f}); mean over {unit} steps: "
+          + ", ".join(f"{p} {float(c):.0f}" for p, c in zip(phases, mean))
+          + f" (sum {float(mean.sum()):.0f}){extra}", flush=True)
 
 
 def cuda_ms(fn, reps: int) -> float:

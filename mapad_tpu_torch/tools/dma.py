@@ -20,10 +20,12 @@ kernel's name where it launches.  Nothing here is on a mapping path.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
-from .._build import LAUNCHES, check, cuda_function, require
+from .._build import (LAUNCHES, check, cuda_function, current_raw_stream,
+                      require)
 
 STEP_MUL = 1237  # index stride per step (tools/bench_dma.py:39)
 ACC_MOD = 7
@@ -141,49 +143,77 @@ def gather_steps(rows, blk, steps: int, t0: int = 0, acc=None, chk=None,
 
 
 class _CopyArgs(ctypes.Structure):
-    """Mirror of `struct CopyArgs` in csrc/probe_copy.cu."""
+    """Mirror of `struct CopyArgs` in csrc/probe_copy.cu: nine 8-byte
+    fields, so that a call fills them as one int64 array."""
 
-    _fields_ = [
-        ("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
-        ("ld", ctypes.c_int), ("row0", ctypes.c_int), ("col0", ctypes.c_int),
-        ("nrows", ctypes.c_int), ("ncols", ctypes.c_int),
-        ("addend", ctypes.c_int),
-    ]
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p),
+                ("stream", ctypes.c_void_p)] + [
+        (f, ctypes.c_longlong) for f in
+        ("ld", "row0", "col0", "nrows", "ncols", "addend")]
+
+
+def _strided(x, what):
+    """(R, C) of x's (R, prod(rest)) view, checked, without making it."""
+    n = x.numel()
+    if not (x.dtype == torch.int32 and x.ndim >= 2 and x.is_contiguous()
+            and 0 < n < 2**31):
+        raise ValueError(f"{what} must be a contiguous int32 array of 2 or "
+                         "more dims")
+    return x.shape[0], n // x.shape[0]
 
 
 def _matrix(x, what):
-    """x as the (R, prod(rest)) int32 view the kernels index."""
-    require(x.dtype == torch.int32 and x.ndim >= 2 and x.is_contiguous()
-            and 0 < x.numel() < 2**31,
-            f"{what} must be a contiguous int32 array of 2 or more dims")
+    """x as the (R, prod(rest)) int32 view the plain versions index."""
+    _strided(x, what)
     return x.reshape(x.shape[0], -1)
 
 
-def _check_slice(m, row0, nrows, col0, ncols):
-    R, C = m.shape
-    require(0 <= row0 and nrows >= 1 and row0 + nrows <= R
-            and 0 <= col0 and ncols >= 1 and col0 + ncols <= C,
-            f"slice [{row0}:{row0 + nrows}, {col0}:{col0 + ncols}] outside "
-            f"({R}, {C})")
+def _check_slice(R, C, row0, nrows, col0, ncols):
+    """Raise where the slice leaves the (R, C) view or a row of it the
+    staging buffer; the text is made only then."""
+    if (0 <= row0 and nrows >= 1 and row0 + nrows <= R and 0 <= col0
+            and ncols >= 1 and col0 + ncols <= C
+            and ncols <= SCRATCH_WORDS):
+        return
     require(ncols <= SCRATCH_WORDS,
             f"a slice row of {ncols} words exceeds the {SCRATCH_WORDS}-word "
             "staging buffer")
+    require(False, f"slice [{row0}:{row0 + nrows}, {col0}:{col0 + ncols}] "
+            f"outside ({R}, {C})")
+
+
+class _Copy(threading.local):
+    """A thread's launch of the copy kernels: the entry points, typed once,
+    and one argument block, filled in place as an int64 array each call."""
+
+    def __init__(self):
+        self.args = _CopyArgs()
+        self.fields = (ctypes.c_longlong * 9).from_buffer(self.args)
+        self.fns = {name: cuda_function("probe_copy", name,
+                                        [ctypes.POINTER(_CopyArgs)])
+                    for name in ("copy_src_slice", "copy_dst_slice")}
+
+
+_copy = None
 
 
 def _launch_copy(name, src, dst, ld, row0, col0, nrows, ncols, addend):
-    fn = cuda_function("probe_copy", name,
-                       [ctypes.POINTER(_CopyArgs), ctypes.c_void_p])
-    args = _CopyArgs(src.data_ptr(), dst.data_ptr(), ld, row0, col0, nrows,
-                     ncols, addend)
+    global _copy
+    if _copy is None:
+        _copy = _Copy()
+    c = _copy
+    c.fields[:] = (src, dst, current_raw_stream(), ld, row0, col0, nrows,
+                   ncols, addend)
     LAUNCHES.add(name)
-    check(fn(ctypes.byref(args), torch.cuda.current_stream().cuda_stream),
-          name)
+    rc = c.fns[name](c.args)
+    if rc:
+        check(rc, name)
 
 
 def copy_src_slice_plain(x, row0: int, nrows: int, col0: int, ncols: int):
     """Plain PyTorch `copy_src_slice`."""
     m = _matrix(x, "x")
-    _check_slice(m, row0, nrows, col0, ncols)
+    _check_slice(*m.shape, row0, nrows, col0, ncols)
     scratch = torch.empty((nrows, ncols), dtype=x.dtype, device=x.device)
     scratch.copy_(m[row0:row0 + nrows, col0:col0 + ncols])
     return scratch
@@ -192,31 +222,35 @@ def copy_src_slice_plain(x, row0: int, nrows: int, col0: int, ncols: int):
 def copy_src_slice(x, row0: int, nrows: int, col0: int, ncols: int):
     """Rows [row0, row0+nrows) x columns [col0, col0+ncols) of x, viewed as
     (R, prod(rest)), staged through shared memory into a new dense
-    (nrows, ncols) int32 tensor."""
+    (nrows, ncols) int32 tensor.  On the card: the current device's
+    current stream."""
     if not x.is_cuda:
         return copy_src_slice_plain(x, row0, nrows, col0, ncols)
-    m = _matrix(x, "x")
-    _check_slice(m, row0, nrows, col0, ncols)
+    R, C = _strided(x, "x")
+    _check_slice(R, C, row0, nrows, col0, ncols)
     out = torch.empty((nrows, ncols), dtype=torch.int32, device=x.device)
-    _launch_copy("copy_src_slice", m, out, m.shape[1], row0, col0, nrows,
-                 ncols, 0)
+    _launch_copy("copy_src_slice", x.data_ptr(), out.data_ptr(), C, row0,
+                 col0, nrows, ncols, 0)
     return out
 
 
 def _check_dst(inp, out, row0, col0, addend):
-    src, m = _matrix(inp, "inp"), _matrix(out, "out")
+    """((nrows, ncols) of inp, (R, C) of out), checked."""
+    nrows, ncols = _strided(inp, "inp")
+    R, C = _strided(out, "out")
     require(inp.device == out.device, "inp and out must be on one device")
-    _check_slice(m, row0, src.shape[0], col0, src.shape[1])
+    _check_slice(R, C, row0, nrows, col0, ncols)
     require(-2**31 <= addend < 2**31, "addend must fit int32")
     a0, b0 = inp.data_ptr(), out.data_ptr()
     require(a0 + inp.numel() * 4 <= b0 or b0 + out.numel() * 4 <= a0,
             "inp must not overlap out")
-    return src, m
+    return (nrows, ncols), (R, C), a0, b0
 
 
 def copy_dst_slice_plain(inp, out, row0: int, col0: int, addend: int = 0):
     """Plain PyTorch `copy_dst_slice`."""
-    src, m = _check_dst(inp, out, row0, col0, addend)
+    _check_dst(inp, out, row0, col0, addend)
+    src, m = _matrix(inp, "inp"), _matrix(out, "out")
     scratch = src.clone()
     scratch += addend
     m[row0:row0 + src.shape[0], col0:col0 + src.shape[1]] = scratch
@@ -227,10 +261,12 @@ def copy_dst_slice(inp, out, row0: int, col0: int, addend: int = 0):
     """inp, viewed as (nrows, prod(rest)), plus `addend` (int32, wrapping)
     staged through shared memory into rows [row0, row0+nrows) x columns
     [col0, col0+ncols) of `out` viewed as (R, prod(rest)), in place; every
-    other element of `out` stays as it was.  Returns out."""
+    other element of `out` stays as it was.  Returns out.  On the card: the
+    current device's current stream."""
     if not out.is_cuda:
         return copy_dst_slice_plain(inp, out, row0, col0, addend)
-    src, m = _check_dst(inp, out, row0, col0, addend)
-    _launch_copy("copy_dst_slice", src, m, m.shape[1], row0, col0,
-                 src.shape[0], src.shape[1], addend)
+    (nrows, ncols), (_R, C), a0, b0 = _check_dst(inp, out, row0, col0,
+                                                 addend)
+    _launch_copy("copy_dst_slice", a0, b0, C, row0, col0, nrows, ncols,
+                 addend)
     return out

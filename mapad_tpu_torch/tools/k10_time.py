@@ -47,7 +47,8 @@ import torch
 
 from .. import _build
 from ..ops.fm import resolve_device
-from . import apply_edits, nvcc_all
+from . import (apply_edits, build_variants, event_runs, in_turns,
+               print_phases, same_bits, variant_sources)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -110,26 +111,13 @@ def instrument(src: str) -> str:
 
 
 def build(sources, out_dir):
-    """nvcc every source at once, printing each one's -Xptxas -v figures
-    -> {name: (ctypes library, has a plan)}; a (name, text) source is
-    written out first."""
-    jobs, planned = [], {}
-    for path in sources:
-        if isinstance(path, tuple):
-            name, text = path
-            path = os.path.join(out_dir, f"{name}.cu")
-            with open(path, "w") as f:
-                f.write(text)
-        else:
-            name = os.path.splitext(os.path.basename(path))[0]
-        with open(path) as f:
-            planned[name] = "batch_card" in f.read()
-        jobs.append((name, path, os.path.join(out_dir, f"libk10_{name}.so")))
-    libs = {}
-    for name, (lib, log) in nvcc_all(jobs, ("-Xptxas", "-v")).items():
+    """nvcc every (name, text) source at once, printing each one's -Xptxas
+    -v figures -> {name: (ctypes library, has a plan)}."""
+    libs = build_variants(sources, out_dir, "k10")
+    for name, (_lib, log) in libs.items():
         _ptxas(name, log)
-        libs[name] = (lib, planned[name])
-    return libs
+    planned = {name: "batch_card" in text for name, text in sources}
+    return {name: (lib, planned[name]) for name, (lib, _log) in libs.items()}
 
 
 def _ptxas(name, log):
@@ -204,11 +192,11 @@ def main(argv=None) -> int:
     variants = [a for a in argv if a != "--phases"]
     out_dir = os.path.join(_build.BUILD_DIR, "k10_time")
     os.makedirs(out_dir, exist_ok=True)
-    checkout_src = os.path.join(_build.CSRC, "search_batch.cu")
-    sources = [(CHECKOUT, open(checkout_src).read()), *variants]
+    with open(os.path.join(_build.CSRC, "search_batch.cu")) as f:
+        checkout_src = f.read()
+    sources = [(CHECKOUT, checkout_src)] + variant_sources(variants)
     if phases:
-        sources.append((f"phases_{CHECKOUT}",
-                        instrument(open(checkout_src).read())))
+        sources.append((f"phases_{CHECKOUT}", instrument(checkout_src)))
     libs = build(sources, out_dir)
     del libs[CHECKOUT]  # built for its figures: the wrapper runs its own
     print(card(), flush=True)
@@ -242,7 +230,7 @@ def main(argv=None) -> int:
 
     timed = [n for n in libs if not n.startswith("phases_")] + [
         f"chunks{c}" for c in chunks]
-    order = [CHECKOUT, *timed] + [*timed, CHECKOUT][::-1]
+    order = in_turns([CHECKOUT, *timed])
     for what, a in _inputs():
         L, M = a[1].shape
         S = a[-1].max_steps
@@ -255,19 +243,8 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 if want is None:
                     want = res
-                for k, (g, w) in enumerate(zip(res, want)):
-                    if not torch.equal(g, w):
-                        raise AssertionError(f"{name}: field {k} differs "
-                                             "from the checkout's kernel")
-                times = []
-                for _ in range(3):
-                    ev = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                    ev[0].record()
-                    srch._search_batch_cuda(*a)
-                    ev[1].record()
-                    ev[1].synchronize()
-                    times.append(ev[0].elapsed_time(ev[1]))
+                same_bits(res, want, f"{name} against the checkout's kernel")
+                times = event_runs(lambda: srch._search_batch_cuda(*a))
             finally:
                 use(CHECKOUT)
             ms = sorted(times)[1]
@@ -291,17 +268,7 @@ def _print_phases(lib, lane_steps, L):
     n = min(L, MAX_LANES)
     cyc = torch.tensor(list(out), dtype=torch.float64).view(MAX_LANES, 8)[
         :n, :len(PHASES)]
-    steps = lane_steps[:n].double()
-    top = steps == steps.max()
-    lane = int(torch.where(top, cyc.sum(1), -1.0).argmax())
-    mine = cyc[lane] / max(float(steps[lane]), 1.0)
-    mean = cyc.sum(0) / max(float(steps.sum()), 1.0)
-    print(f"  cycles a step, longest lane ({lane}, {int(steps[lane])} "
-          f"steps): " + ", ".join(
-              f"{p} {float(c):.0f}" for p, c in zip(PHASES, mine))
-          + f" (sum {float(mine.sum()):.0f}); mean over lane-steps: "
-          + ", ".join(f"{p} {float(c):.0f}" for p, c in zip(PHASES, mean)),
-          flush=True)
+    print_phases("lane", PHASES, cyc, lane_steps[:n].double())
 
 
 if __name__ == "__main__":

@@ -44,7 +44,7 @@ import torch
 
 from .. import _build
 from ..ops.fm import resolve_device
-from . import apply_edits, nvcc_all
+from . import apply_edits, build_variants, same_bits, variant_sources
 
 PHASES = ("scan", "stage", "argmax", "K1+LUT", "cands", "barrier", "refill")
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -110,15 +110,10 @@ def instrument(src: str) -> str:
 
 def build(sources, out_dir):
     """nvcc every instrumented source at once -> {name: ctypes library}."""
-    jobs = []
-    for path in sources:
-        name = os.path.splitext(os.path.basename(path))[0]
-        cu = os.path.join(out_dir, f"k2_phases_{name}.cu")
-        with open(path) as f, open(cu, "w") as g:
-            g.write(instrument(f.read()))
-        jobs.append((name, cu,
-                     os.path.join(out_dir, f"libk2_phases_{name}.so")))
-    return {name: lib for name, (lib, _log) in nvcc_all(jobs).items()}
+    libs = build_variants([(name, instrument(text)) for name, text in
+                           variant_sources(sources)], out_dir, "k2_phases",
+                          flags=())
+    return {name: lib for name, (lib, _log) in libs.items()}
 
 
 def _inputs(big):
@@ -184,10 +179,7 @@ def main(argv=None) -> int:
             sp2.cuda_function = fn
             try:
                 got = sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*a), cfg)
-                for k, (g, w) in enumerate(zip(got, want)):
-                    if not torch.equal(g, w):
-                        raise AssertionError(f"{name}: field {k} differs "
-                                             "from the checkout's kernel")
+                same_bits(got, want, f"{name} against the checkout's kernel")
                 ms = []
                 for _ in range(3):
                     _build.check(lib.k2_phase_reset(), "k2_phase_reset")

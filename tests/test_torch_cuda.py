@@ -15,6 +15,8 @@ Needs an NVIDIA GPU with nvcc; skips elsewhere.  On the card:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -201,6 +203,115 @@ def test_bi_d_kernel(fmd, cuda, big, forward_part, longest):
         got = bi_d.compute_bi_d(idx, *t, forward_part, st)
         want = bi_d.compute_bi_d_plain(idx, *t, forward_part, st)
         _equal((got,), (want,), ("bi_d", st))
+    assert bool((got != 0).any())
+
+
+def _bid_block(L, M, longest, seed, full=0):
+    """Reads cut from the bench reference with a few invalid symbols, an
+    empty read, a read of `longest` with no forward part, one with no
+    backward part and `full` reads of length M."""
+    ref = bench_ref()
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, longest + 1, size=L).astype(np.int32)
+    n[0] = 0 if L > 1 else longest
+    n[min(1, L - 1)] = longest
+    n[L - full:] = M if full else n[L - full:]
+    split = (n * rng.uniform(0.3, 1, size=L)).astype(np.int32)
+    split[min(1, L - 1)] = n[min(1, L - 1)]
+    if L > 2:
+        split[2] = 0
+    rank = np.zeros((L, M), np.int32)
+    pen = np.zeros((L, M), np.float32)
+    for i in range(L):
+        st = int(rng.integers(0, len(ref) - M))
+        rank[i, : n[i]] = [b"ACGT".index(c) + 1
+                           for c in ref[st : st + n[i]]]
+        for _ in range(3):
+            if n[i]:
+                rank[i, rng.integers(0, n[i])] = rng.integers(-1, 7)
+        pen[i, : n[i]] = -rng.uniform(0.1, 5, size=n[i]).astype(np.float32)
+    return rank, pen, n, split
+
+
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("forward_part", [False, True])
+@pytest.mark.parametrize("L,M,longest,full", [
+    (1, 128, 128, 1),     # one read of length M: a block of 15 or 16 warps
+    (70, 112, 100, 0),    # a read a block
+    (800, 128, 120, 20),  # above one wave of blocks, reads of length M
+    (4096, 128, 120, 0),  # path 2's block size
+])
+def test_bi_d_kernel_at_the_plans_edges(fmd, cuda, big, forward_part, L, M,
+                                        longest, full):
+    """K7 against its plain version under each plan `bid_card_plan`
+    makes: a read a block of 15 walks (backward only) or 30 on 16 warps,
+    45 warps or more resident on an SM."""
+    from mapad_tpu_torch.ops import bi_d, fm
+
+    idx = fm.DeviceFmIndex.from_host(fmd, big=big, device=cuda)
+    rank, pen, n, split = _bid_block(L, M, longest, L + M, full)
+    t = [torch.from_numpy(a).to(cuda) for a in (rank, pen, n, split)]
+    steps = (int(split.max()), int((n - split).max()))
+    got = bi_d.compute_bi_d(idx, *t, forward_part, steps)
+    want = bi_d.compute_bi_d_plain(idx, *t, forward_part, steps)
+    _equal((got,), (want,), ("bi_d", L, M))
+    plan = bi_d.bid_card_plan(t[0].device, M, 2 if forward_part else 1,
+                              big)
+    assert plan.warps == (16 if forward_part else 15)
+    assert plan.smem == bi_d.bid_smem(M, 2 if forward_part else 1)
+    assert plan.resident_warps >= 45, plan
+
+
+def test_bi_d_kernel_on_a_one_row_index(cuda):
+    """An index of one row (a 420 bp genome): every interval lies in one
+    row, so K1 takes its one-row path with ranges up to the whole row."""
+    from mapad_tpu_torch.index.builder import build_auxiliary_structures
+    from mapad_tpu_torch.ops import bi_d, fm
+
+    rng = np.random.default_rng(5)
+    genome = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=420))
+    tiny = build_auxiliary_structures(genome, b"ACGT")[0]
+    for big in (False, True):
+        idx = fm.DeviceFmIndex.from_host(tiny, big=big, device=cuda)
+        assert idx.rows.shape[0] == 1
+        L, M = 40, 128
+        rank = np.zeros((L, M), np.int32)
+        pen = -rng.uniform(0.1, 5, size=(L, M)).astype(np.float32)
+        n = rng.integers(20, M + 1, size=L).astype(np.int32)
+        split = (n * rng.uniform(0, 1, size=L)).astype(np.int32)
+        for i in range(L):
+            st = int(rng.integers(0, len(genome) - M))
+            rank[i, : n[i]] = [b"ACGT".index(c) + 1
+                               for c in genome[st : st + n[i]]]
+            rank[i, rng.integers(0, n[i])] = rng.integers(1, 5)
+        t = [torch.from_numpy(a).to(cuda) for a in (rank, pen, n, split)]
+        steps = (int(split.max()), int((n - split).max()))
+        for fwd in (False, True):
+            got = bi_d.compute_bi_d(idx, *t, fwd, steps)
+            want = bi_d.compute_bi_d_plain(idx, *t, fwd, steps)
+            _equal((got,), (want,), ("bi_d one row", big, fwd))
+
+
+@pytest.mark.parametrize("forward_part", [False, True])
+def test_bi_d_kernel_with_counts_above_2_32(fmd, cuda, forward_part):
+    """Big mode with the checkpoints and `less` shifted past 2^32, as K1's
+    test does: intervals above 2^32, row numbers past the index (clamped)
+    through the kernel's multiply-high division."""
+    from mapad_tpu_torch.ops import bi_d, fm
+
+    idx = fm.DeviceFmIndex.from_host(fmd, big=True, device=cuda)
+    rows = idx.rows.clone()
+    cp = ((rows[:, 0:6].long() & 0xFFFFFFFF)
+          | (rows[:, 6:12].long() << 32)) + ((3 << 32) + 12345)
+    rows[:, 0:6] = (cp & 0xFFFFFFFF).to(torch.int32)
+    rows[:, 6:12] = (cp >> 32).to(torch.int32)
+    shifted = idx._replace(rows=rows, less=idx.less + ((5 << 32) + 999))
+    rank, pen, n, split = _bid_block(96, 128, 110, 5, 4)
+    t = [torch.from_numpy(a).to(cuda) for a in (rank, pen, n, split)]
+    steps = (int(split.max()), int((n - split).max()))
+    got = bi_d.compute_bi_d(shifted, *t, forward_part, steps)
+    want = bi_d.compute_bi_d_plain(shifted, *t, forward_part, steps)
+    _equal((got,), (want,), "bi_d above 2^32")
     assert bool((got != 0).any())
 
 
@@ -927,6 +1038,154 @@ def test_copy_dst_slice_leaves_the_rest_untouched(probe_cuda, shape, row0,
     keep = torch.ones_like(m, dtype=torch.bool)
     keep[row0:r1, col0:c1] = False
     assert torch.equal(m[keep], b[keep])
+
+
+def _copy_route(src, dst, ld, col0, ncols):
+    """The route csrc/probe_copy.cu's launch takes for this slice: 1 the
+    bulk copies, 0 the 4-byte one."""
+    from mapad_tpu_torch import _build
+    from mapad_tpu_torch.tools import dma
+
+    fn = _build.cuda_function("probe_copy", "copy_route",
+                              [ctypes.POINTER(dma._CopyArgs)])
+    return fn(ctypes.byref(dma._CopyArgs(src.data_ptr(), dst.data_ptr(),
+                                         None, ld, 0, col0, 1, ncols, 0)))
+
+
+def test_copy_route_of_the_probe_cases(probe_cuda):
+    """Every P2-P4 slice, from and into tensors as the allocator gives
+    them, takes the bulk copies."""
+    from mapad_tpu_torch.tools import _dump_pair, _probe_shapes, _t9
+
+    cases = [(name, shape, _probe_shapes.slice_args(shape, sl), kind == "src")
+             for name, kind, shape, sl, _blk in _probe_shapes.SHAPES]
+    cases += [("P3", (_t9.NB, _t9.W), (_t9.ROW, 1, 0, _t9.W), True),
+              ("P4 k_src", (8, _dump_pair.W), (_dump_pair.SRC_ROW, 1, 0,
+                                               _dump_pair.W), True),
+              ("P4 k_dst", (8, _dump_pair.W), (_dump_pair.DST_ROW, 1, 0,
+                                               _dump_pair.W), False)]
+    assert len(cases) == 11
+    for what, shape, sl, strided_src in cases:
+        _row0, nrows, col0, ncols = sl
+        x = torch.zeros(shape, dtype=torch.int32, device=probe_cuda)
+        dense = torch.zeros((nrows, ncols), dtype=torch.int32,
+                            device=probe_cuda)
+        ld = x.numel() // shape[0]
+        pair = (x, dense) if strided_src else (dense, x)
+        assert _copy_route(*pair, ld, col0, ncols) == 1, what
+
+
+@pytest.mark.parametrize("shape,row0,nrows,col0,ncols,shift,route", [
+    ((64, 8, 128), 3, 1, 0, 1024, 0, "bulk"),   # contiguous rows: one copy
+    ((64, 256), 3, 4, 128, 128, 0, "bulk"),     # a copy a strided row
+    ((300, 132), 20, 250, 4, 124, 0, "bulk"),   # several blocks
+    ((64, 128), 6, 2, 0, 128, 1, "words"),      # a base off 16 bytes
+    ((64, 130), 1, 9, 3, 101, 0, "words"),      # nothing aligned
+    ((300, 128), 20, 250, 2, 120, 0, "words"),  # rows off 16 bytes
+])
+def test_copy_routes_on_the_card(probe_cuda, shape, row0, nrows, col0, ncols,
+                                 shift, route):
+    """Both kernels by both routes, the route as the launch chooses it:
+    `copy_src_slice` against torch slicing, `copy_dst_slice` (+ addend)
+    into the same slice with every word outside it untouched."""
+    from mapad_tpu_torch.tools import dma
+
+    g = torch.Generator(device=probe_cuda)
+    g.manual_seed(nrows + ncols)
+    n = int(np.prod(shape))
+    base = torch.randint(-2**31, 2**31 - 1, (n + 4,), dtype=torch.int32,
+                         device=probe_cuda, generator=g)
+    x = base[shift:shift + n].view(shape)
+    C = n // shape[0]
+    out = torch.empty((nrows, ncols), dtype=torch.int32, device=probe_cuda)
+    want_route = 1 if route == "bulk" else 0
+    assert _copy_route(x, out, C, col0, ncols) == want_route
+    got = dma.copy_src_slice(x, row0, nrows, col0, ncols)
+    m = x.reshape(shape[0], -1)
+    assert torch.equal(got, m[row0:row0 + nrows, col0:col0 + ncols])
+    inp = torch.randint(-2**31, 2**31 - 1, (nrows, ncols), dtype=torch.int32,
+                        device=probe_cuda, generator=g)
+    for addend in (0, -3):
+        before = x.clone()
+        dst_base = base.clone()
+        dst = dst_base[shift:shift + n].view(shape)
+        assert _copy_route(inp, dst, C, col0, ncols) == want_route
+        dma.copy_dst_slice(inp, dst, row0, col0, addend)
+        torch.cuda.synchronize()
+        md, mb = dst.reshape(shape[0], -1), before.reshape(shape[0], -1)
+        assert torch.equal(md[row0:row0 + nrows, col0:col0 + ncols],
+                           inp + addend)
+        keep = torch.ones_like(md, dtype=torch.bool)
+        keep[row0:row0 + nrows, col0:col0 + ncols] = False
+        assert torch.equal(md[keep], mb[keep])
+        assert torch.equal(dst_base[:shift], base[:shift])
+        assert torch.equal(dst_base[shift + n:], base[shift + n:])
+
+
+def test_launches_follow_the_current_card_over_distinct_cards(probe_cuda):
+    """Where the machine has several cards: a thread that moves between
+    them in a seeded order (by `torch.cuda.device` and by `set_device`),
+    and a second thread beside it in the reverse order, launch two
+    libraries' kernels (the copies and P1) on whichever card is current,
+    each result against its plain version.  `_build.cuda_function` sets a
+    library's device only where the thread's current card has changed, so
+    a launch that kept a card it left would meet another card's stream and
+    fail."""
+    import threading
+
+    from mapad_tpu_torch.tools import dma
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs more than one card")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    rng = np.random.default_rng(11)
+    data = {}
+    for d in cards:
+        x = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, size=(64, 256),
+                                          dtype=np.int32)).to(d)
+        rows = torch.from_numpy(rng.integers(0, 100, size=(4096, 128),
+                                             dtype=np.int32)).to(d)
+        blk = torch.from_numpy(rng.integers(0, 4096, size=64,
+                                            dtype=np.int32)).to(d)
+        data[d] = (x, rows, blk, dma.copy_src_slice_plain(x, 3, 5, 4, 100),
+                   dma.gather_steps_plain(rows, blk, 6))
+    order = [cards[i] for i in rng.integers(0, n, size=48)]
+    failures = []
+
+    def one(d, k):
+        x, rows, blk, want_copy, want_gather = data[d]
+        got = dma.copy_src_slice(x, 3, 5, 4, 100)
+        out = torch.full((64, 256), 7, dtype=torch.int32, device=d)
+        dma.copy_dst_slice(want_copy, out, 10, 8, 0)
+        acc, chk = dma.gather_steps(rows, blk, 6)
+        # torch's own work on another card between two launches
+        torch.ones(3, device=cards[(d.index + 1) % n]).sum()
+        if not (torch.equal(got, want_copy)
+                and torch.equal(out[10:15, 8:108], want_copy)
+                and torch.equal(acc, want_gather[0])
+                and torch.equal(chk, want_gather[1])):
+            failures.append((k, str(d)))
+
+    def walk(seq, tag):
+        try:
+            for k, d in enumerate(seq):
+                if k % 2:
+                    with torch.cuda.device(d):
+                        one(d, (tag, k))
+                else:
+                    torch.cuda.set_device(d)
+                    one(d, (tag, k))
+            torch.cuda.synchronize()
+        except Exception as e:  # noqa: BLE001 -- reported below
+            failures.append((tag, repr(e)))
+
+    other = threading.Thread(target=walk, args=(order[::-1], "second"))
+    other.start()
+    walk(order, "first")
+    other.join()
+    torch.cuda.set_device(cards[0])
+    assert not failures, failures
 
 
 def test_probe_tools_on_the_card(probe_cuda, tmp_path):

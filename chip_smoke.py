@@ -79,6 +79,15 @@ shards of 8,192) against its shards run unsharded, each timed beside the
 same shards run one after the other; then `shard_rebase` alone against
 its plain version.
 
+K3 (one cooperative launch a call, both widths) and K6 are timed three
+ways: by CUDA events around calls back to back, on the host alone, and,
+after path 8, by the profiler's card time; K3's rows also carry the walk's
+floor, the deepest walked chain's op words times the card's dependent-load
+latency (measured at the start: `tools/dma.py` `load_latency_ns`, one
+thread through 256 MB with the L2 flushed), and its plan and ptxas
+figures.  The launch counts of paths 1-4 and 7 hold K3 at one launch a
+call: one an invocation and one a store boundary.
+
 Last, the probe phase: the ports of the TPU round's DMA probes (P1-P4,
 mapad_tpu_torch/tools/; on no mapping path).  P1 (`probe_dma`) is held
 against its plain version at the TPU probe's defaults (L=1024, W=128,
@@ -354,7 +363,8 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
     args = (idx_d, *consts, params, cfg, slut)
     state, k2_ms = k2_timed(torch, sp2, args)
     res = sp2._extract_chains_cuda(*state, cfg)
-    k3_ms = timed(torch, lambda: sp2._extract_chains_cuda(*state, cfg), 5)
+    k3 = k3_numbers(torch, sp2, state, cfg, res, big)
+    k3_ms = k3["ms"]
     torch.cuda.synchronize()
     t = time.perf_counter()
     pstate = sp2._pool_loop_plain(*args)
@@ -380,16 +390,23 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
     rows["extract_chains" + sfx] = dict(
         route="cuda", source="mapad_tpu_torch/csrc/extract_chains.cu",
         replaces="mapad_tpu/ops/search_pool2.py:617", max_abs_err=err,
-        ms=k3_ms, plain_ms=k3_plain_ms, bound_ms=bound_ms(k3_bytes),
-        bound_by="bytes", library_ms=None,
+        plain_ms=k3_plain_ms, bound_ms=bound_ms(k3_bytes),
+        bound_by="bytes", library_ms=None, **k3,
     )
+    CARD_LATER.append((f"K3 extract_chains{sfx}", rows["extract_chains" + sfx],
+                       lambda: sp2._extract_chains_cuda(*state, cfg)))
     log(f"K2+K3{sfx} L={L} S={cfg.total_steps} CAP={cfg.read_step_cap} "
         f"C={cfg.max_chains} M={M} on {r} reads: bit-exact; {steps} steps, "
         f"{int(res.n_chains)} chains; K2 {k2_ms:.2f} ms "
         f"({k2_ms * 1e3 / max(steps, 1):.3f} us/step; bound "
         f"{bound_ms(k2_bytes) * 1e3 / max(steps, 1):.3f} us/step; plan "
         f"{rows['pool_search' + sfx]['plan']}), plain {k2_plain_ms:.1f} ms; "
-        f"K3 {k3_ms:.3f} ms, plain {k3_plain_ms:.1f} ms")
+        f"K3 {k3_ms:.4f} ms by events (host {k3['host_ms']:.4f} ms, "
+        f"{k3['launches_per_call']} launch a "
+        f"call; walk floor {k3['walk_floor_ms']:.4f} ms: the deepest chain's "
+        f"{k3['deepest_chain']} words x {LOAD_NS['DRAM']:.1f} ns; bytes "
+        f"bound {bound_ms(k3_bytes):.5f} ms; plan {k3['plan']}), plain "
+        f"{k3_plain_ms:.1f} ms")
 
     # K5 on that result
     packed = eng._pack_result(res)
@@ -498,6 +515,14 @@ def k7_plan(bi_d, dev, rank, fwd, big):
     return dict(plan._asdict(), resident_warps=plan.resident_warps)
 
 
+def k3_forms(logs):
+    """The ptxas figures of both forms of K3's kernel, by form."""
+    return {f"K3 {'int64' if 'extract_kernelIl' in entry else 'int32'}":
+            figs for entry, figs in ptxas_entries(
+                logs.get("extract_chains", ""))
+            if "extract_kernel" in entry}
+
+
 def k10_form(logs):
     """The ptxas figures of K10's kernel, under "K10"."""
     return {"K10": figs for entry, figs in ptxas_entries(
@@ -506,7 +531,9 @@ def k10_form(logs):
 
 def check_k2_launches(launches, what, boundaries=0, sfx="", name=None):
     """K2 counts 1 init + 1 a store generation, and K1 one inline launch a
-    K2 generation (K7's inline K1 aside): so K2 = 2 x K1 - boundaries."""
+    K2 generation (K7's inline K1 aside): so K2 = 2 x K1 - boundaries.
+    Where the run counts K3, one launch a call: a call an invocation and
+    one a store boundary."""
     k2 = launches[name or "pool_search" + sfx]
     k1 = launches["extend_batch" + sfx] - launches.get("bi_d" + sfx, 0)
     log(f"  K2 launches {k2}: {k2 - k1} invocations (init) + {k1} "
@@ -514,6 +541,14 @@ def check_k2_launches(launches, what, boundaries=0, sfx="", name=None):
     if k1 < 1 or k2 != 2 * k1 - boundaries:
         raise AssertionError(f"{what}: K2 {k2} launches, K1 in K2 {k1}, "
                              f"{boundaries} boundaries")
+    k3 = launches.get("extract_chains" + sfx)
+    if k3 is None or name is not None:
+        return
+    log(f"  K3 launches {k3}: one a call, {k2 - k1} invocations + "
+        f"{boundaries} store boundaries")
+    if k3 != k2 - k1 + boundaries:
+        raise AssertionError(f"{what}: K3 {k3} launches for {k2 - k1} "
+                             f"invocations and {boundaries} boundaries")
 
 
 def extract_bytes(torch, cfg, res, big):
@@ -524,6 +559,67 @@ def extract_bytes(torch, cfg, res, big):
     walked = int((res.c_ops[:n_ext] != 0).sum())
     return (int(res.steps) * cfg.lanes * 8
             + walked * (11 if big else 8) * 4 + nbytes(*res))
+
+
+# the card's dependent-load latency, ns (`dma.load_latency_ns`, measured
+# once at the start): through 256 MB with the L2 flushed ("DRAM")
+LOAD_NS: dict = {}
+
+
+# (kernel, its row, a call): the rows whose card time the profiler takes
+# after the paths, so that no profiler session comes before a path's timing
+CARD_LATER: list = []
+
+
+def split_ms(torch, fn, reps, name):
+    """A kernel's time split: (ms a call by CUDA events around `reps`
+    calls back to back, on the host alone; the launches of `name` one call
+    makes).  The card time comes later (`CARD_LATER`)."""
+    from mapad_tpu_torch import tools
+    from mapad_tpu_torch._build import LAUNCHES
+
+    ms = timed(torch, fn, reps)
+    host = tools.host_us(fn, reps) / 1e3
+    torch.cuda.synchronize()
+    before = LAUNCHES.get(name)
+    fn()
+    torch.cuda.synchronize()
+    return ms, host, LAUNCHES.get(name) - before
+
+
+def card_times(torch):
+    """The profiler's card time a call of each row of `CARD_LATER`."""
+    from mapad_tpu_torch import tools
+
+    for name, row, fn in CARD_LATER:
+        row["device_ms"] = tools.device_ms(fn, 20)
+        log(f"{name}: card {row['device_ms']:.4f} ms a call (profiler), "
+            f"{row['ms']:.4f} by events, host {row['host_ms']:.4f}; bound "
+            f"{row['bound_ms']:.5f}"
+            + (f", walk floor {row['walk_floor_ms']:.4f}"
+               if "walk_floor_ms" in row else ""))
+    CARD_LATER.clear()
+
+
+def k3_numbers(torch, sp2, state, cfg, res, big):
+    """A K3 row's time by events and on the host (its card time comes
+    after the paths), its launches a call, the deepest walked chain (its
+    non-zero op words) and the walk's floor (those words x the
+    dependent-load latency), its launch plan and ptxas figures."""
+    name = "extract_chains" + ("_i64" if big else "")
+    ms, host, per_call = split_ms(
+        torch, lambda: sp2._extract_chains_cuda(*state, cfg), 20, name)
+    n_ext = min(int(res.n_chains), cfg.max_chains)
+    depth = int((res.c_ops[:n_ext] != 0).sum(1).max()) if n_ext else 0
+    plan = sp2.extract_card_plan(res.c_ops.device, cfg.lanes,
+                                 cfg.max_chains, cfg.max_len + 16, big)
+    if per_call != 1:
+        raise AssertionError(f"{name}: {per_call} launches a call")
+    return dict(ms=ms, host_ms=host, launches_per_call=per_call,
+                deepest_chain=depth,
+                walk_floor_ms=depth * LOAD_NS["DRAM"] / 1e6,
+                load_ns=LOAD_NS["DRAM"], plan=dict(plan._asdict()),
+                ptxas=PTXAS.get(f"K3 {'int64' if big else 'int32'}"))
 
 
 def compact_bytes(cfg, big):
@@ -1416,17 +1512,22 @@ def check_kernels_big(torch, np, engine, reads):
     rank, code, n, score_lut, pen, split, scale, thresh, repr_mm = dense
     touched = table_rows_touched(torch, blob, code.reshape(-1), off,
                                  tab.shape[0], R, M, _DEV_LUT_Q)
-    rows["unpack_prep_full"] = dict(
+    ms, host, per_call = split_ms(torch, k6, 20, "unpack_prep_full")
+    rows["unpack_prep_full"] = row = dict(
         route="cuda", source="mapad_tpu_torch/csrc/unpack_prep.cu",
         replaces="mapad_tpu/ops/engine.py:292", max_abs_err=err,
-        ms=timed(torch, k6, 20), plain_ms=timed(torch, k6_plain, 3),
+        ms=ms, plain_ms=timed(torch, k6_plain, 3),
         bound_ms=bound_ms(nbytes(blob, rank, code, score_lut, pen)
                           + touched * 20),
-        bound_by="bytes", library_ms=None,
+        bound_by="bytes", library_ms=None, host_ms=host,
+        launches_per_call=per_call,
     )
-    log(f"K6 unpack_prep_full R={R} M={M}: bit-exact, "
-        f"{rows['unpack_prep_full']['ms']:.4f} ms (plain "
-        f"{rows['unpack_prep_full']['plain_ms']:.4f} ms)")
+    CARD_LATER.append(("K6 unpack_prep_full", row, k6))
+    if per_call != 1:
+        raise AssertionError(f"unpack_prep_full: {per_call} launches a call")
+    log(f"K6 unpack_prep_full R={R} M={M}: bit-exact, {row['ms']:.4f} ms "
+        f"by events (host {row['host_ms']:.4f} ms, one launch a call; bound "
+        f"{row['bound_ms']:.5f} ms), plain {row['plain_ms']:.4f} ms")
 
     # K7 at R=4096, M=128: the main path's backward part, then both parts
     steps = prep["bid_steps"]
@@ -1773,10 +1874,13 @@ def main() -> int:
     PTXAS.update(k2_forms(logs))
     PTXAS.update(k10_form(logs))
     PTXAS.update(k7_forms(logs))
+    PTXAS.update(k3_forms(logs))
     for form, figs in sorted(PTXAS.items()):
         kernel = ("K10 search_batch_kernel" if form == "K10"
                   else f"{form[:2]} bi_d_kernel, {form[3:]}"
                   if form.startswith("K7")
+                  else f"{form[:2]} extract_kernel, {form[3:]}"
+                  if form.startswith("K3")
                   else f"K2 pool_search_kernel, {form}")
         log(f"  {kernel}: {figs}")
 
@@ -1792,6 +1896,16 @@ def main() -> int:
         probe_rows, probe_launches = probe_phase(torch, card)
         return finish(torch, probe_rows, probe_launches,
                       {name: "probes" for name in probe_rows}, card, t_start)
+
+    # the dependent-load latency K3's walk floor counts in
+    from mapad_tpu_torch.tools.dma import load_latency_ns
+
+    flush = torch.empty(1 << 25, dtype=torch.int32, device="cuda")
+    LOAD_NS["DRAM"] = load_latency_ns(torch.device("cuda", 0), 1 << 26,
+                                      flush=flush)
+    del flush
+    log(f"dependent load: {LOAD_NS['DRAM']:.1f} ns (one thread, a random "
+        f"cycle through 256 MB, the L2 flushed first)")
 
     # --- path 1: small genome through the CLI ---
     fasta, fastq, reads = write_workload(np, GENOME_SIZE, 42, "")
@@ -2117,8 +2231,10 @@ def main() -> int:
     # --- path 8: multi-host mapping, two processes on this machine ---
     path8(cli, fasta, fastq, native_bam, args.seed)
 
-    # --- the probe phase: P1-P4, on no mapping path; last, so that the
-    # profiler it runs cannot touch any path's timing ---
+    # --- the profiler's card times of K3 and K6, then the probe phase:
+    # P1-P4, on no mapping path; last, so that the profiler they run
+    # cannot touch any path's timing ---
+    card_times(torch)
     probe_rows, probe_launches = probe_phase(torch, card)
     rows.update(probe_rows)
     launches.update(probe_launches)
@@ -2179,7 +2295,12 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     # an empty kernel's, `floor_device_ms`), the shape of their headline,
     # every probe shape's numbers and their PTX and SASS instruction counts; the bi_d rows the walk steps of their run,
     # their launch plan (with the resident warps an SM) and ptxas figures,
-    # bi_d_i64 also the same for both parts (`both_*`)
+    # bi_d_i64 also the same for both parts (`both_*`); the extract_chains
+    # rows (K3) and unpack_prep_full (K6) their time split: `device_ms`
+    # (the profiler's card time), `host_ms` (the wrapper on the host) and
+    # their launches a call; K3 also its deepest walked chain (op words),
+    # the dependent-load latency (`load_ns`) and their product, the walk's
+    # floor (`walk_floor_ms`), its launch plan and ptxas figures
     more = ("steps", "boundaries", "launches_per_boundary", "main_shape",
             "main_ms", "main_bound_ms", "main_launches_per_boundary",
             "scan_bytes", "scan_ms", "max_lane_steps", "center_ms",
@@ -2195,7 +2316,8 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
             "library_device_ms", "floor_device_ms", "shape", "ptx_sass",
             "shapes",
             "walk_steps", "both_ms", "both_walk_steps", "both_bound_ms",
-            "both_plan")
+            "both_plan", "host_ms", "launches_per_call", "walk_floor_ms",
+            "deepest_chain", "load_ns")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},

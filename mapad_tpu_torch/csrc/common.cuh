@@ -131,14 +131,18 @@ struct ExtractArgs {
   int R, L, S, C, MW, track, big;
   int first;  // no store boundary before this extraction
   int final;  // the extraction after the loop (else: at a store boundary)
-  int* lane_cnt;    // (L,) scratch: marked entries per lane
-  int* lane_off;    // (L,) scratch: lane-order exclusive prefix sum
-  int* lane_first;  // (L,) scratch: first marked block per lane (or S)
+  // (1 + blocks,) the grid barrier's slots: the last tag, then a block's
+  // (zeroed once for the loop state the extractions share)
+  int* flags;
+  // (4L,) scratch: marked entries of each of the (at most 4) parts of a
+  // lane's rounds, and each part's first marked block (or S)
+  int* lane_cnt;
+  int* lane_first;
   int* c_lane;      // (C,) scratch: lane of each compacted entry
   int* e_slot;      // (C,) scratch: its in-store slot
-  // (4,) scratch: lane and block of the first mark, the offset at which
-  // this extraction appends, and how many entries it appends
-  int* pad;
+  // (L, S / 128 + 2) scratch: marked entries of each round of 128 mask
+  // words of a lane
+  int* round_cnt;
   int* c_read;
   int* c_slot;
   uint8_t* c_abandon;

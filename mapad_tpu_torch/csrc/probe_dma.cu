@@ -157,3 +157,21 @@ extern "C" int probe_dma_gather(const GatherArgs* in, int per_step,
   CHECK_LAUNCH();
   return 0;
 }
+
+// The card's dependent-load latency: one thread follows `hops` links of a
+// cycle through `next`, starting from at[0] and leaving where it stopped
+// there (so a call goes on where the last one stopped and no hop repeats).
+// K3's walk (csrc/extract_chains.cu) is a chain of such loads: its floor
+// is the deepest chain's hops times this.
+static __global__ void chase_kernel(const int* next, int hops, int* at) {
+  int p = at[0];
+  for (int i = 0; i < hops; ++i) p = next[p];
+  at[0] = p;
+}
+
+extern "C" int probe_chase(const int* next, int hops, int* at,
+                           cudaStream_t stream) {
+  LAUNCH(chase_kernel, 1, 1, stream, next, hops, at);
+  CHECK_LAUNCH();
+  return 0;
+}

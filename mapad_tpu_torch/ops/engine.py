@@ -84,7 +84,8 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .._build import LAUNCHES, check, cuda_function, require
+from .._build import (LAUNCHES, check, cuda_function, current_raw_stream,
+                      require)
 from ..index.fmd import BiInterval
 from ..map import EditOperation, HitInterval
 from ..models.bounds import Continuous, TestBound
@@ -134,13 +135,15 @@ DEFAULT_TIERS = ((2048, None),)
 
 
 def _consts(blob, R):
-    """The five per-read consts at the head of every upload blob: views."""
-
-    def f32(x):
-        return x.view(torch.float32)
-
-    return (blob[:R], blob[R : 2 * R], f32(blob[2 * R : 3 * R]),
-            f32(blob[3 * R : 4 * R]), f32(blob[4 * R : 5 * R]))
+    """The five per-read consts at the head of every upload blob (a
+    contiguous int32 vector): views (n, split; then scale, thresh, repr_mm
+    as f32)."""
+    o = blob.storage_offset()
+    f = blob.view(torch.float32)
+    return (blob.as_strided((R,), (1,), o), blob.as_strided((R,), (1,), o + R),
+            f.as_strided((R,), (1,), o + 2 * R),
+            f.as_strided((R,), (1,), o + 3 * R),
+            f.as_strided((R,), (1,), o + 4 * R))
 
 
 def _cq_cells(cqseg, n, off, tab_rows, R, M, Q):
@@ -274,35 +277,65 @@ class _UnpackFullArgs(ctypes.Structure):
     ]
 
 
+class _K6(threading.local):
+    """A thread's launch of K6: the entry point, typed once, and one
+    argument block, its table fields set (and the tables checked) only
+    when the tables change."""
+
+    def __init__(self):
+        self.args = _UnpackFullArgs()
+        self.fn = cuda_function("unpack_prep", "unpack_prep_full",
+                                [ctypes.POINTER(_UnpackFullArgs),
+                                 ctypes.c_void_p])
+        self.tables = (None, None, None)
+
+
+_k6 = None
+
+
 def _unpack_prep_full(blob, tab, pen_tab, off, R, M, Q):
     """K6 wrapper: the plain version for CPU tensors, the kernel for CUDA
-    tensors (never a fallback)."""
+    tensors (never a fallback).  On the card the four dense outputs are
+    views of one allocation: score_lut, rank, code, pen."""
     if not blob.is_cuda:
         return _unpack_prep_full_plain(blob, tab, pen_tab, off, R, M, Q)
-    for t, dt in ((blob, torch.int32), (tab, torch.float32),
-                  (pen_tab, torch.float32), (off, torch.int32)):
-        require(t.is_cuda and t.dtype == dt and t.is_contiguous(),
-                "unpack_prep_full takes contiguous CUDA tensors")
-    require(blob.numel() == 5 * R + _cq_words(R * M), "blob size")
-    require(tab.dim() == 2 and tab.shape[1] == 4
-            and pen_tab.shape == (tab.shape[0],), "LUT table shapes")
-    dev = blob.device
-    rank = torch.empty((R, M), dtype=torch.int32, device=dev)
-    code = torch.empty((R, M), dtype=torch.int32, device=dev)
-    score_lut = torch.empty((R, M, 4), dtype=torch.float32, device=dev)
-    pen = torch.empty((R, M), dtype=torch.float32, device=dev)
-    args = _UnpackFullArgs(
-        blob.data_ptr(), tab.data_ptr(), pen_tab.data_ptr(), off.data_ptr(),
-        tab.shape[0], off.shape[0], R, M, Q, rank.data_ptr(),
-        code.data_ptr(), score_lut.data_ptr(), pen.data_ptr(),
-    )
-    fn = cuda_function("unpack_prep", "unpack_prep_full",
-                       [ctypes.POINTER(_UnpackFullArgs), ctypes.c_void_p])
+    global _k6
+    if _k6 is None:
+        _k6 = _K6()
+    k, a = _k6, _k6.args
+    t = k.tables
+    if t[0] is not tab or t[1] is not pen_tab or t[2] is not off:
+        for x, dt in ((tab, torch.float32), (pen_tab, torch.float32),
+                      (off, torch.int32)):
+            require(x.is_cuda and x.dtype == dt and x.is_contiguous(),
+                    "unpack_prep_full takes contiguous CUDA tensors")
+        require(tab.dim() == 2 and tab.shape[1] == 4
+                and pen_tab.shape == (tab.shape[0],), "LUT table shapes")
+        a.tab, a.pen_tab, a.off = (tab.data_ptr(), pen_tab.data_ptr(),
+                                   off.data_ptr())
+        a.tab_rows, a.n_off = tab.shape[0], off.shape[0]
+        k.tables = (tab, pen_tab, off)
+    RM = R * M
+    require(blob.dtype == torch.int32 and blob.is_contiguous()
+            and blob.numel() == 5 * R + _cq_words(RM),
+            "unpack_prep_full takes the contiguous int32 blob of R reads")
+    # score_lut first: the kernel stores its rows 16 bytes at a time
+    buf = torch.empty(7 * RM, dtype=torch.int32, device=blob.device)
+    p = buf.data_ptr()
+    a.blob, a.R, a.M, a.Q = blob.data_ptr(), R, M, Q
+    a.score_lut, a.rank, a.code, a.pen = p, p + 16 * RM, p + 20 * RM, \
+        p + 24 * RM
     LAUNCHES.add("unpack_prep_full")
-    check(fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
-          "unpack_prep_full")
+    rc = k.fn(a, current_raw_stream())
+    if rc:
+        check(rc, "unpack_prep_full")
+    f = buf.view(torch.float32)
     n, split, scale, thresh, repr_mm = _consts(blob, R)
-    return rank, code, n, score_lut, pen, split, scale, thresh, repr_mm
+    return (buf.as_strided((R, M), (M, 1), 4 * RM),
+            buf.as_strided((R, M), (M, 1), 5 * RM), n,
+            f.as_strided((R, M, 4), (4 * M, 4, 1), 0),
+            f.as_strided((R, M), (M, 1), 6 * RM), split, scale, thresh,
+            repr_mm)
 
 
 # --- K5: pack the result --------------------------------------------------

@@ -44,13 +44,21 @@ practice a chain of dependent reads and a grid barrier a step, whose floor
 P1 (csrc/probe_dma.cu) measures.
 
 K3 (`extract_chains` + `fold_read_steps` + tail, search_pool2.py:617-737,
-921-971): per-lane counts of completion/abandon entries from the 9-bit
-block masks the step kernel writes, a lane-order prefix sum (giving the
-first C entries in ascending (lane, slot) order, as JAX's top_k of
-negated keys does), an in-order emit per lane, then one thread per chain
-gathers its fields and walks MW-1 ancestors into `c_ops`; the per-read
-step fold is an exact `atomicMax`.  Bound: bytes -- the block masks
-(4 B per lane per executed step) plus ~MW dependent 32 B reads per chain.
+921-971): one cooperative launch a call (csrc/extract_chains.cu), its
+blocks all co-resident (`extract_plan`), in three phases behind two grid
+barriers: per-lane counts of completion/abandon entries from the 9-bit
+block masks the step kernel writes; every block's own lane-order prefix
+sum of them (giving the first C entries in ascending (lane, slot) order,
+as JAX's top_k of negated keys does) and an in-order emit of the rounds
+of masks that hold marks; then the walks, 1 to 32 chains a warp (their
+fields, and MW-1 ancestors into `c_ops`), beside the per-read step fold
+(an exact `atomicMax`) and the unused entries on the last warps.  The
+host makes one allocation for the result and the scratch
+(`_result_layout`) and fills a few fields of an argument block kept with
+the loop state (`_Extraction`).  Bound: bytes --
+the block masks and the finish log (4 B each per lane per executed step),
+the frames walked and the result -- or the walk's latency: the deepest
+chain's dependent loads.
 With store generations K3 also runs at every boundary: it then scans only
 the steps run since the last boundary, writes its chains behind the
 earlier ones (offset min(chains so far, C), entries past C dropped) with
@@ -79,12 +87,14 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import functools
 import time
 from typing import NamedTuple
 
 import torch
 
-from .._build import LAUNCHES, check, cuda_function, require
+from .._build import (LAUNCHES, check, cuda_function, current_raw_stream,
+                      require)
 from .bi_d import compute_bi_d, compute_bi_d_plain
 from .fm import DeviceFmIndex, extend_batch_plain
 from .search import (
@@ -668,6 +678,7 @@ N_LANE_STATE = 16
 NFP_BIG = NF + 3  # words of a stored frame with int64 intervals
 # glob[]: the device-side loop counters (enum Glob of csrc/common.cuh)
 G_STEP, G_NEXT_READ, G_DONE, G_LIMIT, G_LIVE = 0, 1, 2, 3, 4
+G_BASE, G_CUM, G_ACC_N, G_ACC_NCH = 5, 6, 7, 8
 N_GLOB = 12
 
 
@@ -708,6 +719,13 @@ class _CompactArgs(ctypes.Structure):
     ]
 
 
+# the result and scratch pointers of `struct ExtractArgs`, in its order
+_EXT_PTRS = ("lane_cnt", "lane_first", "c_lane", "e_slot", "round_cnt",
+             "c_read", "c_slot", "c_abandon", "c_lower", "c_lrev", "c_size",
+             "c_score", "c_ops", "n_chains", "lane_read", "lane_unfinished",
+             "next_read", "steps", "read_steps")
+
+
 class _ExtractArgs(ctypes.Structure):
     """Mirror of `struct ExtractArgs` in csrc/common.cuh."""
 
@@ -718,19 +736,8 @@ class _ExtractArgs(ctypes.Structure):
         ("R", ctypes.c_int), ("L", ctypes.c_int), ("S", ctypes.c_int),
         ("C", ctypes.c_int), ("MW", ctypes.c_int), ("track", ctypes.c_int),
         ("big", ctypes.c_int), ("first", ctypes.c_int),
-        ("final", ctypes.c_int),
-        ("lane_cnt", ctypes.c_void_p), ("lane_off", ctypes.c_void_p),
-        ("lane_first", ctypes.c_void_p), ("c_lane", ctypes.c_void_p),
-        ("e_slot", ctypes.c_void_p), ("pad", ctypes.c_void_p),
-        ("c_read", ctypes.c_void_p), ("c_slot", ctypes.c_void_p),
-        ("c_abandon", ctypes.c_void_p), ("c_lower", ctypes.c_void_p),
-        ("c_lrev", ctypes.c_void_p), ("c_size", ctypes.c_void_p),
-        ("c_score", ctypes.c_void_p), ("c_ops", ctypes.c_void_p),
-        ("n_chains", ctypes.c_void_p), ("lane_read", ctypes.c_void_p),
-        ("lane_unfinished", ctypes.c_void_p),
-        ("next_read", ctypes.c_void_p), ("steps", ctypes.c_void_p),
-        ("read_steps", ctypes.c_void_p),
-    ]
+        ("final", ctypes.c_int), ("flags", ctypes.c_void_p),
+    ] + [(name, ctypes.c_void_p) for name in _EXT_PTRS]
 
 
 # the launch plan of K2 (csrc/pool_search.cu): a warp a lane
@@ -824,7 +831,8 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
                     config: PoolConfig, slut, boundary_log=None):
     """K2 and K8 wrapper: one launch of the persistent step kernel a store
     generation; with store generations, run K3 and K8 at every boundary
-    and go on.  Returns the loop state `_extract_chains_cuda` reads.
+    and go on.  Returns the loop state `_extract_chains_cuda` reads:
+    (store, bmask, lane, glob, fin_log, R, big, its `_Extraction`).
     `boundary_log`: a list that receives a (start, end) pair of CUDA events
     around every K8 call."""
     dev = n.device
@@ -865,9 +873,10 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
     lane = empty(N_LANE_STATE, L)
     glob = empty(N_GLOB)
     fin_log = empty(L, S) if track else None
-    # each block's tagged count of finished lanes, by step parity (zeroed:
-    # no tag is 0)
-    flags = torch.zeros(2 * (-(-L // 4) * 4), dtype=i32, device=dev)
+    # each block's tagged count of finished lanes, by step parity, then
+    # K3's barrier slots (zeroed: no tag is 0)
+    k2_flags = 2 * (-(-L // 4) * 4)
+    flags = torch.zeros(k2_flags + EXT_FLAGS, dtype=i32, device=dev)
     args = _PoolArgs(
         index.rows.data_ptr(), index.less.data_ptr(),
         index.sentinels.data_ptr(), index.rows.shape[0], index.occ_k,
@@ -903,10 +912,12 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
         check(pool_run(ctypes.byref(args), ctypes.byref(plan),
                        flags.data_ptr(), stream.cuda_stream), name)
 
-    out = None
-    boundaries = 0
+    ext = _Extraction(store, bmask, lane, glob, fin_log, R, big, config,
+                      flags[k2_flags:])
+    state = (store, bmask, lane, glob, fin_log, R, big, ext)
     while True:
         run_generation()
+        boundaries = ext.boundaries
         if boundaries + 1 >= GENS:
             break
         # the spill test of the JAX package's outer loop: a full store,
@@ -914,9 +925,6 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
         g = glob.tolist()
         if not (g[G_STEP] >= S and not g[G_DONE] and g[G_LIVE] >= MIN_LIVE):
             break
-        if out is None:
-            out = _alloc_result(config, R, big, dev)
-        state = (store, bmask, lane, glob, fin_log, R, big, out, boundaries)
         _extract_chains_cuda(*state, config, final=False)
         k8 = "pool_compact" + sfx
         compact = cuda_function(
@@ -945,65 +953,246 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
             boundary_log.append(ev)
         # the step kernels go on in the rotated rings
         args.consumed, args.bm_key = c_args.consumed_next, c_args.bm_key_next
-        boundaries += 1
-    return store, bmask, lane, glob, fin_log, R, big, out, boundaries
+        ext.boundaries += 1
+    return state
+
+
+# the launch plan of K3 (csrc/extract_chains.cu)
+EXT_WARPS = 8           # EXT_MAX_WARPS: warps a block
+EXT_BLOCKS_PER_SM = 2   # the most blocks the plan puts on an SM
+EXT_MAX_BLOCKS = 1024   # slots of its grid barrier
+EXT_STAGE = 32 * 33     # a warp's staged op words (32 rows of 32, padded)
+EXT_MISC = 40           # a block's warp totals, total and first lane
+EXT_FLAGS = 1 + EXT_MAX_BLOCKS
+
+
+class ExtractPlan(NamedTuple):
+    """Where K3 runs: `blocks` blocks of `warps` warps, all co-resident,
+    and the dynamic shared memory of a block (the L + 1 lane offsets, the
+    block's totals and each warp's staged op words).  Mirrors `struct
+    ExtractPlan` in csrc/extract_chains.cu."""
+
+    blocks: int
+    warps: int
+    smem: int
+
+
+def extract_plan(L: int, C: int, MW: int, sms: int, smem_block: int,
+                 blocks_per_sm) -> ExtractPlan:
+    """K3's launch plan for L lanes, C entries of MW op words, on a card of
+    `sms` SMs whose block may use `smem_block` bytes of shared memory
+    without opting in.  `blocks_per_sm(threads, smem)`: the blocks of that
+    shape one SM holds at once (the occupancy query, with the registers of
+    the kernel form that runs: the frame width, NFW, enters there).
+
+    A warp counts and emits a lane, walks 1 to 32 entries (as few as the
+    warps allow: a hop waits for the slowest load of the warp) or folds a
+    lane's finish log, so the grid wants C + L warps; it takes at most two
+    blocks an SM, as many as the SM holds at once (all co-resident), and
+    at least one block.  MW sets only the walk's rounds of 32 columns, not
+    the shape.  Raises where a block does not fit a block's or an SM's
+    limits."""
+    require(1 <= L <= 1024, "the chain extraction runs 1 to 1024 lanes")
+    require(C >= 1 and MW >= 1 and C * MW < 2**31,
+            "the chain log must hold 1 to 2^31 - 1 op words")
+    warps = EXT_WARPS
+    smem = 4 * (((L + 4) & ~3) + EXT_MISC + warps * EXT_STAGE)
+    require(smem <= smem_block,
+            f"{smem} B of shared memory exceed a block's {smem_block}")
+    per_sm = min(blocks_per_sm(32 * warps, smem), EXT_BLOCKS_PER_SM)
+    require(per_sm >= 1,
+            f"an SM cannot hold a block of {32 * warps} threads and {smem} "
+            "B of shared memory")
+    blocks = max(1, min(per_sm * sms, EXT_MAX_BLOCKS, -(-(C + L) // warps)))
+    return ExtractPlan(blocks, warps, smem)
+
+
+class _ExtractPlanC(ctypes.Structure):
+    """Mirror of `struct ExtractPlan` in csrc/extract_chains.cu."""
+
+    _fields_ = [("blocks", ctypes.c_int), ("warps", ctypes.c_int),
+                ("smem", ctypes.c_int)]
+
+
+_ext_plans: dict = {}
+
+
+def extract_card_plan(dev: torch.device, L: int, C: int, MW: int,
+                      big: bool) -> ExtractPlan:
+    """`extract_plan` with the figures of the card `dev` and of the kernel
+    form that runs, cached by shape (a few queries of the runtime, no
+    launch)."""
+    key = (dev.index, L, C, MW, bool(big))
+    plan = _ext_plans.get(key)
+    if plan is not None:
+        return plan
+    card = cuda_function("extract_chains", "extract_card",
+                         [ctypes.POINTER(ctypes.c_int)])
+    occupancy = cuda_function("extract_chains", "extract_occupancy",
+                              [ctypes.c_int] * 3
+                              + [ctypes.POINTER(ctypes.c_int)])
+    with torch.cuda.device(dev):
+        fig = (ctypes.c_int * 2)()
+        check(card(fig), "extract_card")
+
+        def blocks_per_sm(threads, smem):
+            out = ctypes.c_int(0)
+            check(occupancy(int(big), threads, smem, ctypes.byref(out)),
+                  "extract_occupancy")
+            return out.value
+
+        plan = _ext_plans[key] = extract_plan(L, C, MW, fig[0], fig[1],
+                                              blocks_per_sm)
+    return plan
+
+
+def _align4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+class _Layout(NamedTuple):
+    words: int      # int32 words of the allocation
+    at: dict        # name -> word offset of each part
+    ptrs: tuple     # byte offset of each pointer of _EXT_PTRS
+
+
+@functools.lru_cache(maxsize=64)
+def _result_layout(L: int, C: int, MW: int, R: int, S: int,
+                   big: bool) -> _Layout:
+    """K3's result and scratch in one int32 allocation, each part at a
+    16-byte boundary: the C-long rows of read, slot and score, those of
+    lower, lrev and size (int64 rows of twice the words with `big`),
+    c_ops, read_steps (R + 1), lane_read, the three scalars (n_chains,
+    next_read, steps), the bool rows (c_abandon, then lane_unfinished at
+    byte Cp), then the scratch: lane_cnt and lane_first (four parts a
+    lane), c_lane, e_slot and round_cnt (S // 128 + 2 rounds of mask words
+    a lane)."""
+    Cp = _align4(C)
+    k = 2 if big else 1
+    at, words = {}, 0
+    for name, n in (("rows", 3 * Cp), ("iv", 3 * Cp * k), ("c_ops", C * MW),
+                    ("read_steps", R + 1), ("lane_read", L), ("scalars", 3),
+                    ("bools", (Cp + L + 3) // 4), ("lane_cnt", 4 * L),
+                    ("lane_first", 4 * L), ("c_lane", C), ("e_slot", C),
+                    ("round_cnt", L * (S // 128 + 2))):
+        at[name] = words
+        words += _align4(n)
+    b = {name: 4 * w for name, w in at.items()}
+    b.update(
+        c_read=b["rows"], c_slot=b["rows"] + 4 * Cp,
+        c_score=b["rows"] + 8 * Cp, c_lower=b["iv"],
+        c_lrev=b["iv"] + 4 * k * Cp, c_size=b["iv"] + 8 * k * Cp,
+        n_chains=b["scalars"], next_read=b["scalars"] + 4,
+        steps=b["scalars"] + 8, c_abandon=b["bools"],
+        lane_unfinished=b["bools"] + Cp)
+    return _Layout(words, at, tuple(b[name] for name in _EXT_PTRS))
 
 
 def _alloc_result(config, R, big, dev):
-    L, C = config.lanes, config.max_chains
-    MW = config.max_len + 16
-    idt = torch.int64 if big else torch.int32
+    """One allocation for K3's result and scratch (`_result_layout`)."""
+    lay = _result_layout(config.lanes, config.max_chains,
+                         config.max_len + 16, R, config.total_steps,
+                         bool(big))
+    return torch.empty(lay.words, dtype=torch.int32, device=dev)
 
-    def empty(*shape, dtype=torch.int32):
-        return torch.empty(shape, dtype=dtype, device=dev)
 
-    return dict(
-        c_read=empty(C), c_slot=empty(C),
-        c_abandon=empty(C, dtype=torch.bool), c_lower=empty(C, dtype=idt),
-        c_lrev=empty(C, dtype=idt), c_size=empty(C, dtype=idt),
-        c_score=empty(C, dtype=torch.float32), c_ops=empty(C, MW),
-        n_chains=empty(), lane_read=empty(L),
-        lane_unfinished=empty(L, dtype=torch.bool), next_read=empty(),
-        steps=empty(), read_steps=empty(R + 1),
+def _pool_result(buf, config, R, big) -> PoolResult:
+    """The PoolResult fields: views of K3's one allocation."""
+    L, C, MW = config.lanes, config.max_chains, config.max_len + 16
+    at = _result_layout(L, C, MW, R, config.total_steps, bool(big)).at
+    Cp = _align4(C)
+
+    def rows(t, n):
+        t = t.view(n, Cp)
+        return (t if Cp == C else t[:, :C]).unbind(0)
+
+    r0 = at["rows"]
+    if big:
+        read, slot, score = rows(buf[r0 : r0 + 3 * Cp], 3)
+        lower, lrev, size = rows(
+            buf[at["iv"] : at["iv"] + 6 * Cp].view(torch.int64), 3)
+    else:  # the interval rows follow the other three
+        read, slot, score, lower, lrev, size = rows(buf[r0 : r0 + 6 * Cp], 6)
+    n_chains, next_read, steps = buf[at["scalars"] : at["scalars"] + 3
+                                     ].unbind(0)
+    flags = buf[at["bools"] : at["bools"] + (Cp + L + 3) // 4].view(torch.bool)
+    return PoolResult(
+        c_read=read, c_slot=slot, c_abandon=flags[:C], c_lower=lower,
+        c_lrev=lrev, c_size=size, c_score=score.view(torch.float32),
+        c_ops=buf[at["c_ops"] : at["c_ops"] + C * MW].view(C, MW),
+        n_chains=n_chains,
+        lane_read=buf[at["lane_read"] : at["lane_read"] + L],
+        lane_unfinished=flags[Cp : Cp + L], next_read=next_read, steps=steps,
+        read_steps=buf[at["read_steps"] : at["read_steps"] + R],
     )
 
 
-def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, out,
-                         boundaries, config, final=True):
-    """K3 wrapper: compaction, ancestor walk and step fold on the card.
-    `out`: the result buffers the earlier boundaries of this invocation
-    wrote into (None: none yet); `boundaries`: how many there were.  Not
-    `final`: an extraction at a store boundary, which appends its chains
-    and folds its steps and leaves the tail fields to the last one."""
-    dev = store.device
-    L, C = config.lanes, config.max_chains
-    MW = config.max_len + 16
+_ext_fn = None
+
+
+class _Extraction:
+    """K3's launches on one invocation's loop state: the argument block,
+    filled once (then a call sets `first`, `final` and the result's
+    pointers), the launch plan, the grid barrier's slots (`flags`, zeroed
+    once), the result the store boundaries write into (None before the
+    first) and how many boundaries there were."""
+
+    def __init__(self, store, bmask, lane, glob, fin_log, R, big, config,
+                 flags):
+        global _ext_fn
+        if _ext_fn is None:
+            _ext_fn = cuda_function(
+                "extract_chains", "extract_chains",
+                [ctypes.POINTER(_ExtractArgs),
+                 ctypes.POINTER(_ExtractPlanC), ctypes.c_void_p])
+        L, C, MW = config.lanes, config.max_chains, config.max_len + 16
+        self.flags = flags
+        self.plan = _ExtractPlanC(*extract_card_plan(store.device, L, C, MW,
+                                                     big))
+        self.args = _ExtractArgs(
+            store.data_ptr(), bmask.data_ptr(), lane.data_ptr(),
+            glob.data_ptr(),
+            fin_log.data_ptr() if fin_log is not None else None,
+            R, L, config.total_steps, C, MW, int(fin_log is not None),
+            int(big), 0, 0, flags.data_ptr())
+        self.ptrs = (ctypes.c_void_p * len(_EXT_PTRS)).from_buffer(
+            self.args, _ExtractArgs.lane_cnt.offset)
+        self.offsets = _result_layout(L, C, MW, R, config.total_steps,
+                                      bool(big)).ptrs
+        self.name = "extract_chains_i64" if big else "extract_chains"
+        self.out = None
+        self.boundaries = 0
+
+    def launch(self, out, final, fn=None):
+        """One extraction into `out` (`_alloc_result`'s), on the current
+        stream; `fn`: another build's entry of the same form."""
+        a = self.args
+        a.first = self.boundaries == 0
+        a.final = final
+        base = out.data_ptr()
+        self.ptrs[:] = [base + b for b in self.offsets]
+        rc = (fn or _ext_fn)(a, self.plan, current_raw_stream())
+        if rc:
+            check(rc, "extract_chains")
+
+
+def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, ext,
+                         config, final=True):
+    """K3 wrapper: compaction, ancestor walk and step fold on the card in
+    one launch.  `ext`: the loop state's `_Extraction`.  Not `final`: an
+    extraction at a store boundary, which appends its chains into the
+    result the boundaries share and folds its steps, and leaves the tail
+    fields to the last one."""
+    out = ext.out
     if out is None:
-        out = _alloc_result(config, R, big, dev)
-    scratch = torch.empty(3 * L + 2 * C + 4, dtype=torch.int32, device=dev)
-    first = boundaries == 0
-    args = _ExtractArgs(
-        store.data_ptr(), bmask.data_ptr(), lane.data_ptr(),
-        glob.data_ptr(), fin_log.data_ptr() if fin_log is not None else None,
-        R, L, config.total_steps, C, MW,
-        int(fin_log is not None), int(big), int(first), int(final),
-        *[scratch[k:].data_ptr()
-          for k in (0, L, 2 * L, 3 * L, 3 * L + C, 3 * L + 2 * C)],
-        *[out[k].data_ptr() for k in (
-            "c_read", "c_slot", "c_abandon", "c_lower", "c_lrev", "c_size",
-            "c_score", "c_ops", "n_chains", "lane_read", "lane_unfinished",
-            "next_read", "steps", "read_steps")],
-    )
-    fn = cuda_function("extract_chains", "extract_chains",
-                       [ctypes.POINTER(_ExtractArgs), ctypes.c_void_p])
-    # count, compaction scan, emit, ancestor walk (+ fold init, step fold)
-    LAUNCHES.add("extract_chains_i64" if big else "extract_chains",
-                 4 + int(first) + int(fin_log is not None))
-    check(fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream),
-          "extract_chains")
+        out = _alloc_result(config, R, big, store.device)
+        if not final:
+            ext.out = out
+    LAUNCHES.add(ext.name)
+    ext.launch(out, final)
     if not final:
         return None
-    return PoolResult(**dict(out, read_steps=out["read_steps"][:R]))
+    return _pool_result(out, config, R, big)
 
 
 def _dense_slut(index: DeviceFmIndex, dense, n, split, config: PoolConfig,

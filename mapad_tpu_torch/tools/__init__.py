@@ -10,6 +10,9 @@ under tools/ that reach `pl.pallas_call`), ported to the H100 as P1-P4:
                  variants of its source, and its phases' SM cycles
   k7_time        not a probe: K7 (csrc/bi_d.cu) timed against variants of
                  its source, its occupancy, and its phases' SM cycles
+  k3_time        not a probe: K3 (csrc/extract_chains.cu) and K6 timed
+                 against variants of their sources, each time split into
+                 card and host, and K3's walk floor and phases
   copy_host      the host side of one P2 copy, part by part, beside the
                  PyTorch call that does the same
   _probe_shapes  P2: a slice of each of eight shapes staged through shared
@@ -22,11 +25,12 @@ Kernels and wrappers: `dma.py` (csrc/probe_dma.cu, csrc/probe_copy.cu).
 Each runs as `python -m mapad_tpu_torch.tools.<name>` on the card; their
 functions take `device="cpu"` to run the plain versions (the tests do), and
 raise without a card otherwise.  This module holds what they share: the
-card's name, two ways to time a call, and the harness of k2_phases,
-k10_time and k7_time (a kernel against older or hand-edited copies of its
-source): the edit and parallel build of the variants with their ptxas
-figures, the in-turn order, the CUDA-event runs, the bit-for-bit check
-and the readout of the phases' SM cycles.
+card's name, three ways to time a call (its host part among them), and
+the harness of k2_phases, k10_time, k7_time and k3_time (a kernel against
+older or hand-edited copies of its source): the edit and parallel build
+of the variants with their ptxas figures, the in-turn order, the
+CUDA-event runs, the bit-for-bit check and the readout of the phases' SM
+cycles.
 """
 
 from __future__ import annotations
@@ -150,6 +154,23 @@ def print_phases(unit: str, phases, cyc, steps, extra: str = ""):
           + f" (sum {float(mine.sum()):.0f}); mean over {unit} steps: "
           + ", ".join(f"{p} {float(c):.0f}" for p, c in zip(phases, mean))
           + f" (sum {float(mean.sum()):.0f}){extra}", flush=True)
+
+
+def host_us(fn, reps: int) -> float:
+    """us a call of fn() takes on the host, the card left to run behind
+    it (a warm-up call first; the card synchronized before and after)."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter_ns() - t
+    torch.cuda.synchronize()
+    return dt / reps / 1e3
 
 
 def cuda_ms(fn, reps: int) -> float:

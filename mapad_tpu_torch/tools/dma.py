@@ -15,6 +15,9 @@ each with its plain PyTorch version beside it.
 Each wrapper runs the plain version for a tensor on the CPU and the kernel
 for a CUDA tensor (never a fallback), and adds to `LAUNCHES` under its
 kernel's name where it launches.  Nothing here is on a mapping path.
+
+- `load_latency_ns` (kernel `probe_chase`, no TPU counterpart) measures the
+  card's dependent-load latency, the unit of K3's walk floor.
 """
 
 from __future__ import annotations
@@ -270,3 +273,40 @@ def copy_dst_slice(inp, out, row0: int, col0: int, addend: int = 0):
     _launch_copy("copy_dst_slice", a0, b0, C, row0, col0, nrows, ncols,
                  addend)
     return out
+
+
+# --- the card's dependent-load latency (K3's walk floor) ------------------
+
+
+def load_latency_ns(dev, n_ints: int, hops: int = 20000, flush=None,
+                    runs: int = 3) -> float:
+    """ns a dependent load takes on the card `dev`: one thread chasing a
+    random cycle through `n_ints` int32 words, `hops` links a call, the
+    median of `runs` calls by CUDA events (after one call that is not
+    timed).  `flush`: a tensor zeroed before each timed call (not timed),
+    so that a cycle larger than it finds none of its words in the L2."""
+    import torch
+
+    from . import event_runs
+
+    require(dev.type == "cuda", "the latency probe runs on the card")
+    perm = torch.randperm(n_ints, device=dev, dtype=torch.int64)
+    nxt = torch.empty(n_ints, dtype=torch.int32, device=dev)
+    nxt[perm] = perm.roll(-1).to(torch.int32)
+    del perm
+    at = torch.zeros(1, dtype=torch.int32, device=dev)
+    fn = cuda_function("probe_dma", "probe_chase",
+                       [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                        ctypes.c_void_p])
+
+    def call():
+        LAUNCHES.add("probe_chase")
+        check(fn(nxt.data_ptr(), hops, at.data_ptr(), current_raw_stream()),
+              "probe_chase")
+    call()
+    ms = []
+    for _ in range(runs):
+        if flush is not None:
+            flush.zero_()
+        ms += event_runs(call, 1)
+    return sorted(ms)[len(ms) // 2] * 1e6 / hops

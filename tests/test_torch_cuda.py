@@ -2,7 +2,9 @@
 the card, at small shapes that reach the edge cases (abandon markers, chain
 log overflow, an exhausted step budget, the RLE and raw Bi-D blobs, store
 boundaries with and without overlap of the moved window, the bidirectional
-search), with int32 intervals and with the int64 intervals of big mode;
+search, K3's one launch at its edges on synthetic loop states, K6 with
+blob words that hold two reads' cells), with int32 intervals and with the
+int64 intervals of big mode;
 the fixed-batch search (K10) and its engine; and the pool search over
 several shards (K9 and its `shard_rebase`), on one card and, where the
 machine has them, over distinct cards; and the ports of the TPU's DMA
@@ -514,11 +516,247 @@ def test_pool_compact_kernel(fmd, cuda, case, track, big):
     eng, cfg, prep = _prepped(fmd, cuda, cfg_kw, 0, big=big, reads=reads,
                               R=96)
     cfg = cfg._replace(track_read_steps=track)
+    from mapad_tpu_torch._build import LAUNCHES
+
+    LAUNCHES.reset()
     got, want, fired = _pool_both(eng, cfg, prep, cuda)
     _equal(tuple(got), tuple(want), case)
     assert fired >= least and (least or not fired), fired
     if fired:
         assert int(got.steps) > cfg.total_steps
+    # K3: one launch at each boundary and one at the end
+    assert LAUNCHES.get("extract_chains" + ("_i64" if big else "")) == \
+        fired + 1
+
+
+# K3 at its edges, on synthetic loop states (frames, marks, parents, the
+# finish log and the counters drawn from a seed), kernel against the plain
+# extraction: the final extraction and the ones at store boundaries (the
+# loop counters G_BASE, G_CUM, G_ACC_N, G_ACC_NCH as after earlier
+# boundaries, the entries those wrote already in the result).  Masks and
+# finish-log words outside the steps an extraction reads hold garbage.
+K3_EDGES = {
+    "final": dict(L=8, S=130, steps=101, C=64, max_len=48),
+    "no_marks": dict(L=8, S=37, steps=30, C=40, max_len=20, no_marks=True),
+    "no_marks_full": dict(L=8, S=37, steps=37, C=40, max_len=20,
+                          no_marks=True),
+    "past_C": dict(L=8, S=130, steps=120, C=24, max_len=48, mark_p=0.2),
+    # chains of more than MW - 1 hops: cut at MW words
+    "full_MW": dict(L=8, S=203, steps=190, C=100, max_len=20, deep=True,
+                    mark_p=0.03),
+    # the most lanes, C at the production's 16,384 (a full grid)
+    "wide": dict(L=1024, S=45, steps=45, C=16384, max_len=128, deep=True,
+                 mark_p=0.04),
+    "boundary_first": dict(L=8, S=130, steps=130, C=64, max_len=48,
+                           final=False, cum=7),
+    "boundary_later": dict(L=8, S=130, steps=130, base=17, C=64, max_len=48,
+                           final=False, first=False, cum=33, acc_n=20,
+                           acc_nch=50),
+    "boundary_past_C": dict(L=40, S=130, steps=130, base=9, C=48, max_len=48,
+                            final=False, first=False, cum=3, acc_n=40,
+                            acc_nch=45, mark_p=0.1),
+    "final_after_boundaries": dict(L=8, S=130, steps=90, base=13, C=64,
+                                   max_len=48, first=False, cum=5, acc_n=30,
+                                   acc_nch=31),
+    "final_log_full": dict(L=8, S=130, steps=90, base=13, C=64, max_len=48,
+                           first=False, cum=5, acc_n=70, acc_nch=71),
+}
+
+
+def _k3_state(seed, L, S, steps, C, max_len, big, track, R=40, base=0,
+              mark_p=0.05, deep=False, no_marks=False, cum=0, acc_n=0,
+              acc_nch=0, final=True, first=True):
+    """A synthetic loop state -> (the plain store (L, S+1, 9, NF) in the
+    interval type, the card's (L, S+1, 9, NFW) int32 words, the masks,
+    the plain and the card's finish log, the lane state, glob)."""
+    from mapad_tpu_torch.ops.search import (
+        CANDS, F_GAPS, F_LOWER, F_LREV, F_OP, F_PARENT, F_SCOREBITS, F_SIZE,
+        F_STARTLEN, NF, OP_COMP_BIT, OP_VALID_BIT)
+    from mapad_tpu_torch.ops.search_pool import OP_ABANDON_BIT
+
+    rng = np.random.default_rng(seed)
+    ROOT = S * CANDS
+    lo, hi = S - steps, S - base
+    st = np.zeros((L, S + 1, CANDS, NF), dtype=np.int64)
+    shp = (L, steps, CANDS)
+    w = st[:, lo:S]
+    span = 2**33 if big else 2**31 - 1
+    w[..., F_LOWER] = rng.integers(-span, span, shp)
+    w[..., F_LREV] = rng.integers(0, span, shp)
+    w[..., F_SIZE] = rng.integers(0, 2**35 if big else 2**20, shp)
+    w[..., F_GAPS] = rng.integers(0, R, shp)
+    w[..., F_STARTLEN] = rng.integers(0, 2**20, shp)
+    w[..., F_SCOREBITS] = rng.integers(-2**31, 2**31 - 1, shp)
+    op = OP_VALID_BIT | rng.integers(0, 1 << 17, shp)
+    blk = np.arange(lo, S)[None, :, None]
+    if not no_marks:
+        m = (rng.random(shp) < mark_p) & (blk < hi)
+        ab = rng.random(shp) < 0.3
+        op |= np.where(m & ~ab, OP_COMP_BIT, 0)
+        op |= np.where(m & ab, OP_ABANDON_BIT, 0)
+    w[..., F_OP] = op
+    # a parent: a frame of an earlier step (a higher block), or ROOT
+    pb = blk + (1 if deep else rng.integers(1, 6, shp))
+    root = (pb >= S) | ((not deep) & (rng.random(shp) >= 0.9))
+    w[..., F_PARENT] = np.where(
+        root, ROOT, np.minimum(pb, S - 1) * CANDS + rng.integers(0, CANDS,
+                                                                   shp))
+    NFW = NF + 3 if big else NF
+    dev_st = np.zeros((L, S + 1, CANDS, NFW), dtype=np.int64)
+    dev_st[..., :NF] = st
+    if big:
+        for k, f in enumerate((F_LOWER, F_LREV, F_SIZE)):
+            dev_st[..., NF + k] = st[..., f] >> 32
+    dev_st = (dev_st & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    marks = (st[:, :S, :, F_OP] & (OP_COMP_BIT | OP_ABANDON_BIT)) != 0
+    bmask = (marks.astype(np.int32) << np.arange(CANDS)).sum(2).astype(
+        np.int32)
+    win = np.zeros(S, bool)
+    win[lo:hi] = True
+    bmask = np.where(win, bmask, rng.integers(0, 512, (L, S))).astype(
+        np.int32)
+    swin = np.zeros(S, bool)
+    swin[base:steps] = True
+    ev = (rng.random((L, S)) < 0.1) & swin
+    vals = rng.integers(0, R + 1, (L, S)) * 4096 + rng.integers(0, 4096,
+                                                                  (L, S))
+    fin = np.where(ev, vals, -1).astype(np.int32)
+    fin_dev = np.where(swin, fin, rng.integers(-5, 2**24, (L, S))).astype(
+        np.int32)
+    lane = rng.integers(0, 4096, (16, L)).astype(np.int32)
+    lane[0] = rng.integers(-1, R + 2, L)  # LS_READ_ID
+    lane[2] = rng.integers(0, 2, L)       # LS_DONE
+    glob = np.zeros(12, dtype=np.int32)
+    glob[[0, 1, 5, 6, 7, 8]] = (steps, int(rng.integers(0, R + 1)), base,
+                                cum, acc_n, acc_nch)
+    plain_st = st if big else st.astype(np.int32)
+    return plain_st, dev_st, bmask, fin, fin_dev, lane, glob
+
+
+def _k3_earlier(res, n, R, first, track, seed=99):
+    """Fill the first n entries of a result (and read_steps, unless this
+    is the first extraction: folded steps with `track`, else the -1 the
+    first one wrote) as earlier extractions left them."""
+    rng = np.random.default_rng(seed)
+    for f in res[:8]:
+        shape = f[:n].shape
+        if f.dtype == torch.bool:
+            v = torch.from_numpy(rng.integers(0, 2, shape).astype(bool))
+        elif f.dtype == torch.float32:
+            v = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32))
+        else:
+            v = torch.from_numpy(rng.integers(-100, 100, shape)).to(f.dtype)
+        f[:n] = v.to(f.device)
+    if not first:
+        res.read_steps[:] = torch.from_numpy(rng.integers(
+            -1, 4000 if track else 0, R).astype(np.int32)).to(
+                res.read_steps.device)
+
+
+@pytest.mark.parametrize("case", sorted(K3_EDGES))
+@pytest.mark.parametrize("track", [True, False])
+@pytest.mark.parametrize("big", [False, True])
+def test_extract_chains_kernel_at_its_edges(cuda, case, track, big):
+    """K3 in one launch against the plain extraction (the final one: every
+    PoolResult field; one at a store boundary: the entries it appends,
+    read_steps and the loop counters it moves)."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+    from mapad_tpu_torch.ops.search_pool import PoolConfig
+
+    kw = dict(K3_EDGES[case])
+    final, first = kw.get("final", True), kw.get("first", True)
+    R, C, L = 40, kw["C"], kw["L"]
+    acc_n, acc_nch = kw.get("acc_n", 0), kw.get("acc_nch", 0)
+    cfg = PoolConfig(max_len=kw["max_len"], lanes=L, total_steps=kw["S"],
+                     read_step_cap=kw["S"], max_chains=C,
+                     track_read_steps=track)
+    plain_st, dev_st, bmask, fin, fin_dev, lane, glob = _k3_state(
+        len(case), big=big, track=track, R=R, **kw)
+    t = [torch.from_numpy(x).to(cuda) for x in (dev_st, bmask, lane, glob)]
+    fin_d = torch.from_numpy(fin_dev).to(cuda) if track else None
+    ext = sp2._Extraction(*t, fin_d, R, big, cfg, torch.zeros(
+        sp2.EXT_FLAGS, dtype=torch.int32, device=cuda))
+    ext.boundaries = 0 if first else 1
+    ext.out = sp2._alloc_result(cfg, R, big, cuda)
+    _k3_earlier(sp2._pool_result(ext.out, cfg, R, big), min(acc_n, C), R,
+                first, track)
+    LAUNCHES.reset()
+    with torch.cuda.device(cuda):
+        got = sp2._extract_chains_cuda(*t, fin_d, R, big, ext, cfg,
+                                       final=final)
+        torch.cuda.synchronize()
+    assert LAUNCHES.get("extract_chains" + ("_i64" if big else "")) == 1
+
+    # the plain version, from the same earlier entries
+    idt = torch.int64 if big else torch.int32
+    cpu = torch.device("cpu")
+    acc = sp2._ChainLog(cfg, idt, cpu)
+    pre = sp2._pool_result(sp2._alloc_result(cfg, R, big, cpu), cfg, R, big)
+    _k3_earlier(pre, min(acc_n, C), R, first, track)
+    for name, f in zip(("read", "slot", "ab", "lower", "lrev", "size",
+                        "score", "ops"), pre[:8]):
+        acc.f[name][:C] = f
+    acc.n, acc.nch = acc_n, torch.tensor(acc_nch, dtype=torch.int32)
+    rs = torch.full((R + 1,), -1, dtype=torch.int32)
+    if not first:
+        rs[:R] = pre.read_steps
+        rs[R] = int(ext.out[sp2._result_layout(
+            L, C, kw["max_len"] + 16, R, kw["S"], big).at["read_steps"] + R])
+    st, fin_t, lane_t = (torch.from_numpy(x) for x in (plain_st, fin, lane))
+    steps, cum = int(glob[0]), int(glob[6])
+    if final:
+        want = sp2._extract_chains_plain(
+            st, fin_t, lane_t[0], (lane_t[2] == 0) & (lane_t[0] < R),
+            lane_t[4], int(glob[1]), steps, R, cum, acc, rs, cfg)
+        _equal(tuple(x.cpu() for x in got), tuple(want), case)
+        return
+    assert got is None
+    acc.append(*sp2._extract_plain(st, cfg, cum * 9))
+    if track:
+        sp2._fold_read_steps(fin_t, rs, R)
+    res = sp2._pool_result(ext.out, cfg, R, big)
+    hi = min(acc.n, C)
+    _equal(tuple(f[:hi].cpu() for f in res[:8]),
+           tuple(acc.f[n][:hi] for n in ("read", "slot", "ab", "lower",
+                                          "lrev", "size", "score", "ops")),
+           case)
+    g = t[3].cpu()
+    assert (int(g[7]), int(g[8])) == (acc.n, int(acc.nch))
+    if track or first:
+        assert torch.equal(res.read_steps.cpu(), rs[:R])
+
+
+@pytest.mark.parametrize("R", [41, 1])
+def test_unpack_prep_full_kernel_cells_across_reads(fmd, cuda, R):
+    """K6 at M=34: a read's 34 cells end inside a blob word, so words hold
+    the cells of two reads; lengths 0 to M and every class and quality."""
+    from mapad_tpu_torch.ops import engine as teng
+    from mapad_tpu_torch.ops.prep import _DEV_LUT_Q
+
+    M = 34
+    # the all-length tables serve any M up to the engine's max_len
+    eng, _cfg, _prep = _prepped(fmd, cuda, dict(lanes=8, total_steps=256), 1,
+                                big=True)
+    tab, pen_tab, off = eng._device_lut()
+    rng = np.random.default_rng(R)
+    cells = (rng.integers(0, 5, R * M) << 7) | rng.integers(0, 128, R * M)
+    cells = np.concatenate([cells, np.zeros((-len(cells)) % 3, np.int64)])
+    words = (cells[0::3] | (cells[1::3] << 10) | (cells[2::3] << 20))
+    consts = np.concatenate([
+        rng.integers(0, M + 1, R), rng.integers(0, M + 1, R),
+        rng.standard_normal(3 * R).astype(np.float32).view(np.int32)])
+    blob = torch.from_numpy(np.concatenate([consts, words]).astype(
+        np.int32)).to(cuda)
+    got = teng._unpack_prep_full(blob, tab, pen_tab, off, R, M, _DEV_LUT_Q)
+    want = teng._unpack_prep_full_plain(blob, tab, pen_tab, off, R, M,
+                                        _DEV_LUT_Q)
+    _equal(got, want, "unpack_prep_full, M=34")
+    # a second call with the same tables, and one with the tables copied
+    got = teng._unpack_prep_full(blob, tab.clone(), pen_tab.clone(),
+                                 off.clone(), R, M, _DEV_LUT_Q)
+    _equal(got, want, "unpack_prep_full, the tables copied")
 
 
 def _center_params(model):

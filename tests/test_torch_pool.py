@@ -50,15 +50,35 @@ CASES = {
     "budget": dict(reads=dict(seed=7), cfg=dict(lanes=8, total_steps=96,
                                                 read_step_cap=64,
                                                 max_chains=512)),
+    # exogenous reads only: no block marked anywhere, the unused entries
+    # copy lane 0's slot 0 (an unwritten block: zeros)
+    "no_marks": dict(reads="exogenous", cfg=dict(
+        lanes=8, total_steps=2048, read_step_cap=2048, max_chains=64)),
+    # the same with the store full: slot 0 is written
+    "no_marks_full": dict(reads="exogenous", cfg=dict(
+        lanes=8, total_steps=10, read_step_cap=10, max_chains=64)),
 }
+
+
+def _exogenous_reads(n=R, seed=11):
+    """Random reads of 30-80 bases: none maps, none reaches the cap."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    return [bytes(rng.choice(bases, size=int(rng.integers(30, 80))))
+            for _ in range(n)]
 
 
 def _check_case(bench, case, **mode):
     spec = CASES[case]
-    jr, tr, eng = run_pool_both(bench, bench_reads(**spec["reads"]), R,
-                                **mode, **spec["cfg"])
+    reads = (_exogenous_reads() if spec["reads"] == "exogenous"
+             else bench_reads(**spec["reads"]))
+    jr, tr, eng = run_pool_both(bench, reads, R, **mode, **spec["cfg"])
     assert_pool_results_equal(jr, tr, case)
     n = int(jr.n_chains)
+    if case.startswith("no_marks"):
+        assert n == 0
+        full = int(jr.steps) == spec["cfg"]["total_steps"]
+        assert full == (case == "no_marks_full")
     if case == "abandon":
         assert jr.c_abandon[: min(n, jr.c_read.shape[0])].any()
     if case == "overflow":

@@ -79,9 +79,12 @@ shards of 8,192) against its shards run unsharded, each timed beside the
 same shards run one after the other; then `shard_rebase` alone against
 its plain version.
 
-K3 (one cooperative launch a call, both widths) and K6 are timed three
-ways: by CUDA events around calls back to back, on the host alone, and,
-after path 8, by the profiler's card time; K3's rows also carry the walk's
+K3 (one cooperative launch a call, both widths), K4, K5 and K6 are timed
+three ways: by CUDA events around calls back to back, on the host alone,
+and, after path 8, by the profiler's card time.  K5 is held against its
+plain version through both its entries, on K3's one allocation (as the
+engine's path calls it, and as it is timed) and on the PoolResult; K4 and
+K5 rows carry their launch plans.  K3's rows also carry the walk's
 floor, the deepest walked chain's op words times the card's dependent-load
 latency (measured at the start: `tools/dma.py` `load_latency_ns`, one
 thread through 256 MB with the L2 flushed), and its plan and ptxas
@@ -408,21 +411,38 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
         f"bound {bound_ms(k3_bytes):.5f} ms; plan {k3['plan']}), plain "
         f"{k3_plain_ms:.1f} ms")
 
-    # K5 on that result
-    packed = eng._pack_result(res)
-    err = compare(torch, (packed,), (eng._pack_result_plain(res),),
-                  "pack_result" + sfx)
-    rows["pack_result" + sfx] = dict(
+    # K5 on that result: through the engine's entry on K3's one allocation
+    # (as `_run_block` calls it) and through the PoolResult entry
+    name = "pack_result" + sfx
+    want = eng._pack_result_plain(res)
+    buf = sp2._extract_chains_cuda(*state, cfg, views=False)
+    err = compare(torch, (eng._pack_buffer(buf, cfg, r, big),), (want,),
+                  name + " (K3's allocation)")
+    err = max(err, compare(torch, (eng._pack_result(res),), (want,),
+                           name + " (PoolResult)"))
+
+    def k5():
+        return eng._pack_buffer(buf, cfg, r, big)
+
+    ms, host, per_call = split_ms(torch, k5, 20, name)
+    if per_call != 1:
+        raise AssertionError(f"{name}: {per_call} launches a call")
+    rows[name] = row = dict(
         route="cuda", source="mapad_tpu_torch/csrc/pack_result.cu",
         replaces="mapad_tpu/ops/engine.py:1591", max_abs_err=err,
-        ms=timed(torch, lambda: eng._pack_result(res), 20),
-        plain_ms=timed(torch, lambda: eng._pack_result_plain(res), 5),
-        bound_ms=bound_ms(nbytes(*res, packed)), bound_by="bytes",
-        library_ms=None,
+        ms=ms, plain_ms=timed(torch, lambda: eng._pack_result_plain(res), 5),
+        bound_ms=bound_ms(nbytes(*res, want)), bound_by="bytes",
+        library_ms=None, host_ms=host, launches_per_call=per_call,
+        result_entry_ms=timed(torch, lambda: eng._pack_result(res), 20),
+        plan=dict(eng.pack_plan(cfg.max_chains, cfg.max_len + 16, cfg.lanes,
+                                r, big)._asdict()),
     )
-    log(f"K5 pack_result{sfx} C={cfg.max_chains}: bit-exact, "
-        f"{rows['pack_result' + sfx]['ms']:.4f} ms (plain "
-        f"{rows['pack_result' + sfx]['plain_ms']:.4f} ms)")
+    CARD_LATER.append((f"K5 {name}", row, k5))
+    log(f"K5 {name} C={cfg.max_chains}: bit-exact through both entries, "
+        f"{row['ms']:.4f} ms by events on K3's allocation (host "
+        f"{row['host_ms']:.4f} ms, one launch a call; the PoolResult entry "
+        f"{row['result_entry_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms; "
+        f"plan {row['plan']}), plain {row['plain_ms']:.4f} ms")
     return rows
 
 
@@ -592,10 +612,12 @@ def card_times(torch):
     from mapad_tpu_torch import tools
 
     for name, row, fn in CARD_LATER:
-        row["device_ms"] = tools.device_ms(fn, 20)
-        log(f"{name}: card {row['device_ms']:.4f} ms a call (profiler), "
-            f"{row['ms']:.4f} by events, host {row['host_ms']:.4f}; bound "
-            f"{row['bound_ms']:.5f}"
+        row["device_ms"] = dev = tools.device_ms(fn, 20)
+        log(f"{name}: card "
+            + ("not measured (the profiler saw no device time)"
+               if dev is None else f"{dev:.4f} ms a call (profiler)")
+            + f", {row['ms']:.4f} by events, host {row['host_ms']:.4f}; "
+            f"bound {row['bound_ms']:.5f}"
             + (f", walk floor {row['walk_floor_ms']:.4f}"
                if "walk_floor_ms" in row else ""))
     CARD_LATER.clear()
@@ -1447,16 +1469,23 @@ def check_kernels(torch, np, engine, reads):
     # LUT/Bi-D rows written
     touched = table_rows_touched(torch, blob, parts[5][:, 4].to(torch.int32),
                                  off, tab.shape[0], R, M, _DEV_LUT_Q)
-    rows["unpack_prep"] = dict(
+    ms, host, per_call = split_ms(torch, k4, 20, "unpack_prep")
+    if per_call != 1:
+        raise AssertionError(f"unpack_prep: {per_call} launches a call")
+    rows["unpack_prep"] = row = dict(
         route="cuda", source="mapad_tpu_torch/csrc/unpack_prep.cu",
         replaces="mapad_tpu/ops/engine.py:231", max_abs_err=err,
-        ms=timed(torch, k4, 20), plain_ms=timed(torch, k4_plain, 3),
+        ms=ms, plain_ms=timed(torch, k4_plain, 3),
         bound_ms=bound_ms(nbytes(blob, parts[5]) + touched * 16),
-        bound_by="bytes", library_ms=None,
+        bound_by="bytes", library_ms=None, host_ms=host,
+        launches_per_call=per_call,
+        plan=dict(eng.unpack_plan(R, M, True)._asdict()),
     )
-    log(f"K4 unpack_prep R={R} M={M} rle: bit-exact, "
-        f"{rows['unpack_prep']['ms']:.4f} ms (plain "
-        f"{rows['unpack_prep']['plain_ms']:.4f} ms)")
+    CARD_LATER.append(("K4 unpack_prep", row, k4))
+    log(f"K4 unpack_prep R={R} M={M} rle: bit-exact, {row['ms']:.4f} ms by "
+        f"events (host {row['host_ms']:.4f} ms, one launch a call; bound "
+        f"{row['bound_ms']:.5f} ms; plan {row['plan']}), plain "
+        f"{row['plain_ms']:.4f} ms")
 
     idx_d = engine.device_index
     rows["extend_batch"] = k1_check(torch, fm, idx_d, "extend_batch",

@@ -349,4 +349,69 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// Hopper's bulk asynchronous copies (the TMA engine) between global and
+// shared memory, counted by an mbarrier: the counterpart of a TPU kernel's
+// whole-block `make_async_copy`.  Both addresses 16-byte aligned, the size
+// a multiple of 16 bytes.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// the mbarrier of a block's bulk loads: one arrival (the caller's, which
+// also announces the bytes), then the copies' completions
+__device__ __forceinline__ void bar_init(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(unsigned bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar)
+      : "memory");
+}
+
+// global -> shared, `bytes` (a multiple of 16, both ends 16-byte aligned)
+__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
+      "l"(gmem), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// the threads' writes to shared memory, before the copy engine reads them
+// (then a __syncthreads before the bulk store is issued)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// shared -> global, the same conditions
+__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
+                                           unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(gmem), "r"(smem_addr(smem)), "r"(bytes)
+               : "memory");
+}
+
+// the bulk stores issued by this thread have read shared memory
+__device__ __forceinline__ void bulk_store_wait() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return ((uintptr_t)p & 15) == 0;
+}
+
 }  // namespace mapad

@@ -31,8 +31,15 @@
 // probes' slices are a few KB, so a call is a launch.
 #include "common.cuh"
 
+using mapad::bar_init;
+using mapad::bar_wait;
+using mapad::bulk_load;
+using mapad::bulk_store;
+using mapad::bulk_store_wait;
 using mapad::cp_async4;
 using mapad::cp_async_wait_all;
+using mapad::fence_proxy_async;
+using mapad::smem_addr;
 
 // every field 8 bytes: the wrapper fills them as one int64 array
 struct CopyArgs {
@@ -47,57 +54,6 @@ struct CopyArgs {
 constexpr int COPY_THREADS = 256;
 constexpr int COPY_WARPS = COPY_THREADS / 32;
 constexpr int SCRATCH_WORDS = 72 * 128;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// the mbarrier of a block's bulk loads: one arrival (lane 0's, which also
-// announces the bytes), then the copies' completions
-__device__ __forceinline__ void bar_init(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_wait(unsigned bar) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(bar)
-      : "memory");
-}
-
-// global -> shared, `bytes` (a multiple of 16, both ends 16-byte aligned)
-__device__ __forceinline__ void bulk_load(void* smem, const void* gmem,
-                                          unsigned bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(smem)),
-      "l"(gmem), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// shared -> global, the same conditions
-__device__ __forceinline__ void bulk_store(void* gmem, const void* smem,
-                                           unsigned bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(gmem), "r"(smem_addr(smem)), "r"(bytes)
-               : "memory");
-}
-
-// the bulk stores issued by this thread have read shared memory
-__device__ __forceinline__ void bulk_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
 
 __device__ __forceinline__ int add_wrap(int v, int d) {
   return (int)((unsigned)v + (unsigned)d);
@@ -127,7 +83,7 @@ extern "C" __global__ void __launch_bounds__(COPY_THREADS)
     }
     if (lane == 0) {
       bar_wait(b);
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       bulk_store(out, scratch, row_bytes * rows);
       bulk_store_wait();
     }
@@ -172,7 +128,7 @@ extern "C" __global__ void __launch_bounds__(COPY_THREADS)
         *reinterpret_cast<int4*>(scratch + k) = v;
       }
       // the threads' writes, before the copy engine reads them
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();
       __syncthreads();
       if (warp != 0) return;
     } else {

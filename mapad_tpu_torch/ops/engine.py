@@ -36,17 +36,24 @@ Three kernels live in this module, each beside its plain PyTorch version:
 
 - K4 `_unpack_prep_lut` (csrc/unpack_prep.cu) replaces `_unpack_prep_lut`
   and `_unpack_cq10` (mapad_tpu/ops/engine.py:220-288).  Bound: bytes, the
-  24 B LUT/Bi-D row written per cell (25 MB at R=8192, M=128).
-- K5 `_pack_result` (csrc/pack_result.cu) replaces `_pack_result`
-  (mapad_tpu/ops/engine.py:1589-1634).  Bound: bytes, the C*MW op words
-  read (8.4 MB at C=16384, MW=128).  int64 fields travel as int32 pairs.
+  24 B LUT/Bi-D row written per cell (25 MB at R=8192, M=128).  A block
+  takes whole reads (`unpack_plan`), stages their inputs and its output
+  rows in shared memory and stores the rows in bulk.
+- K5 `_pack_result` / `_pack_buffer` (csrc/pack_result.cu) replaces
+  `_pack_result` (mapad_tpu/ops/engine.py:1589-1634).  Bound: bytes, the
+  C*MW op words read (9.4 MB at C=16384, MW=144).  int64 fields travel as
+  int32 pairs.  One launch of three regions (`pack_plan`); on the engine's
+  path it reads K3's one allocation through its layout and writes into
+  it, so no PoolResult is made there.
 - K6 `_unpack_prep_full` (csrc/unpack_prep.cu) replaces `_unpack_prep_full`
   (mapad_tpu/ops/engine.py:291-323).  Bound: bytes, the 28 B of rank,
   code, four scores and penalty written per cell (14.7 MB at R=4096,
   M=128).
 
 The wrappers take the plain version for CPU tensors only (the tests); on
-a CUDA tensor they launch the kernel or raise.
+a CUDA tensor they launch the kernel or raise.  Each keeps a thread's
+argument block and typed entry, checked and filled once per shape or
+table, and sets only the pointers a call.
 
 Batch mode (`mode="batch"`, small index only) is `search_chunk` over
 fixed batches of `lanes` reads through a list of tiers, `(max_steps,
@@ -75,11 +82,13 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import logging
 import os
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -123,7 +132,12 @@ from .search import (
     k_mismatch_search_batch,
 )
 from .search_pool import PoolConfig, PoolResult
-from .search_pool2 import k_mismatch_search_pool2
+from .search_pool2 import (
+    _packed_words,
+    _pool_result,
+    _result_layout,
+    k_mismatch_search_pool2,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -137,7 +151,8 @@ DEFAULT_TIERS = ((2048, None),)
 def _consts(blob, R):
     """The five per-read consts at the head of every upload blob (a
     contiguous int32 vector): views (n, split; then scale, thresh, repr_mm
-    as f32)."""
+    as f32).  Five `as_strided` cost 7.0 us on the card's host against
+    16.6 us by two `split`s (`tools/k45_time.py`)."""
     o = blob.storage_offset()
     f = blob.view(torch.float32)
     return (blob.as_strided((R,), (1,), o), blob.as_strided((R,), (1,), o + R),
@@ -213,28 +228,114 @@ class _UnpackArgs(ctypes.Structure):
     ]
 
 
+UNPACK_THREADS = 256
+UNPACK_CELLS = 1024  # cells a block of K4 takes, about: whole reads
+
+
+class UnpackPlan(NamedTuple):
+    """Where K4 runs (mirrors `struct UnpackPlan` in csrc/unpack_prep.cu):
+    `blocks` blocks of `threads`, each over `reads` whole reads, and a
+    block's `smem` bytes of shared memory by the word offsets of its parts:
+    the staged output rows at 0 (6 words a cell and 2 of phase), the cell
+    words, the reads' n, the run values (RLE) or the raw Bi-D, the break
+    bytes as 16-bit lanes (RLE), each part with 3 words of slack for the
+    16-byte phase of its source and at a 16-byte boundary."""
+
+    blocks: int
+    reads: int
+    threads: int
+    smem: int
+    cq_at: int
+    n_at: int
+    bid_at: int
+    brk_at: int
+
+
+@functools.lru_cache(maxsize=64)
+def unpack_plan(R: int, M: int, rle: bool) -> UnpackPlan:
+    """K4's launch plan: a pure function of the block's shape."""
+    reads = max(1, min(R, UNPACK_CELLS // M))
+    cells = reads * M
+    at, words = {}, 0
+    for name, n in (("stage", 6 * cells + 2), ("cq", cells // 3 + 5),
+                    ("n", reads + 3),
+                    ("bid", (_BID_SEG * reads if rle else cells) + 3),
+                    ("brk", _BID_SEG // 2 * reads if rle else 0)):
+        at[name] = words
+        words += (n + 3) & ~3
+    return UnpackPlan(-(-R // reads), reads, UNPACK_THREADS, 4 * words,
+                      at["cq"], at["n"], at["bid"], at["brk"])
+
+
+class _UnpackPlanC(ctypes.Structure):
+    """Mirror of `struct UnpackPlan` in csrc/unpack_prep.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in UnpackPlan._fields]
+
+
+def _blob_words(R, M, rle):
+    """int32 words of the small upload blob K4 unpacks."""
+    bid = (_BID_SEG // 4 + _BID_SEG) * R if rle else R * M
+    return 5 * R + bid + _cq_words(R * M)
+
+
+class _K4(threading.local):
+    """A thread's launch of K4: the entry point, typed once, and one
+    argument block, its table fields set (and the tables checked) only when
+    the tables change, its shape and plan only when the shape changes; a
+    call sets the blob's and the output's pointers."""
+
+    def __init__(self):
+        self.args = _UnpackArgs()
+        self.fn = cuda_function("unpack_prep", "unpack_prep",
+                                [ctypes.POINTER(_UnpackArgs),
+                                 ctypes.POINTER(_UnpackPlanC),
+                                 ctypes.c_void_p])
+        self.tables = (None, None)
+        self.shape = None
+        self.plan = None
+        self.words = 0
+
+
+_k4 = None
+
+
 def _unpack_prep_lut(blob, tab, off, R, M, Q, rle=False):
     """K4 wrapper: the plain version for CPU tensors, the kernel for CUDA
     tensors (never a fallback)."""
     if not blob.is_cuda:
         return _unpack_prep_lut_plain(blob, tab, off, R, M, Q, rle)
-    for t, dt in ((blob, torch.int32), (tab, torch.float32),
-                  (off, torch.int32)):
-        require(t.is_cuda and t.dtype == dt and t.is_contiguous(),
-                "unpack_prep takes contiguous CUDA tensors")
-    words = 5 * R + ((_BID_SEG // 4 + _BID_SEG) * R if rle else R * M)
-    require(blob.numel() == words + _cq_words(R * M), "blob size")
-    require(tab.dim() == 2 and tab.shape[1] == 4, "LUT table shape")
+    global _k4
+    if _k4 is None:
+        _k4 = _K4()
+    k, a = _k4, _k4.args
+    if k.tables[0] is not tab or k.tables[1] is not off:
+        for t, dt in ((tab, torch.float32), (off, torch.int32)):
+            require(t.is_cuda and t.dtype == dt and t.is_contiguous(),
+                    "unpack_prep takes contiguous CUDA tensors")
+        require(tab.dim() == 2 and tab.shape[1] == 4
+                and tab.data_ptr() % 16 == 0, "LUT table shape")
+        a.tab, a.off = tab.data_ptr(), off.data_ptr()
+        a.tab_rows, a.n_off = tab.shape[0], off.shape[0]
+        k.tables = (tab, off)
+    shape = (R, M, Q, bool(rle))
+    if k.shape != shape:
+        require(R >= 1 and M >= 1 and 6 * R * M < 2**31,
+                "unpack_prep: the block exceeds 32-bit indexes")
+        require(not rle or M <= 255, "the RLE's u8 breaks need M <= 255")
+        a.R, a.M, a.Q, a.rle = R, M, Q, int(rle)
+        k.plan = _UnpackPlanC(*unpack_plan(R, M, bool(rle)))
+        k.words = _blob_words(R, M, rle)
+        k.shape = shape
+    require(blob.dtype == torch.int32 and blob.is_contiguous()
+            and blob.numel() == k.words,
+            "unpack_prep takes the contiguous int32 blob of R reads")
     slut = torch.empty((R * M, 6), dtype=torch.float32, device=blob.device)
-    args = _UnpackArgs(blob.data_ptr(), tab.data_ptr(), off.data_ptr(),
-                       tab.shape[0], off.shape[0], R, M, Q, int(rle),
-                       slut.data_ptr())
-    fn = cuda_function("unpack_prep", "unpack_prep",
-                       [ctypes.POINTER(_UnpackArgs), ctypes.c_void_p])
+    a.blob, a.slut = blob.data_ptr(), slut.data_ptr()
     LAUNCHES.add("unpack_prep")
-    check(fn(ctypes.byref(args),
-             torch.cuda.current_stream(blob.device).cuda_stream),
-          "unpack_prep")
+    rc = k.fn(a, k.plan, current_raw_stream())
+    if rc:
+        check(rc, "unpack_prep")
     return (*_consts(blob, R), slut)
 
 
@@ -375,61 +476,178 @@ def _pack_result_plain(res: PoolResult) -> torch.Tensor:
 
 
 class _PackArgs(ctypes.Structure):
-    """Mirror of `struct PackArgs` in csrc/pack_result.cu."""
+    """Mirror of `struct PackArgs` in csrc/pack_result.cu: a pointer to each
+    PoolResult field, then the output's."""
 
-    _fields_ = [(f, ctypes.c_void_p) for f in PoolResult._fields] + [
-        ("C", ctypes.c_int), ("MW", ctypes.c_int), ("L", ctypes.c_int),
-        ("R", ctypes.c_int), ("opbits", ctypes.c_int), ("K", ctypes.c_int),
-        ("pb", ctypes.c_int), ("big", ctypes.c_int), ("out", ctypes.c_void_p),
-    ]
+    _fields_ = [("f", ctypes.c_void_p * len(PoolResult._fields)),
+                ("out", ctypes.c_void_p)] + [
+        (f, ctypes.c_int)
+        for f in ("C", "MW", "L", "R", "opbits", "K", "pb", "big")]
 
 
-def _packed_words(C, MW, L, R, big=False) -> int:
-    _opbits, K, _pb = _wire_opbits(MW)
-    return (10 if big else 7) * C + C * (-(-MW // K)) * 2 + 3 + 2 * L + R
+PACK_THREADS = 256
+PACK_TILE_BYTES = 18432  # a tile of whole chain rows: 32 at MW = 144
+
+
+class PackPlan(NamedTuple):
+    """Where K5 runs (mirrors `struct PackPlan` in csrc/pack_result.cu):
+    one launch of head, ops and tail blocks of `threads`, in that order; a
+    head block takes four words a thread of one of the seven head fields,
+    an ops block `rows` chain rows (a multiple of 4) staged in `smem` bytes
+    of shared memory, a tail block a word a thread."""
+
+    threads: int
+    head_blocks: int
+    ops_blocks: int
+    tail_blocks: int
+    rows: int
+    smem: int
+
+
+def _head_words(C, big):
+    """Words on the wire of the seven head fields, in order: c_read,
+    c_slot, c_abandon, c_lower, c_lrev, c_size (int32 pairs with `big`),
+    c_score."""
+    w = 2 * C if big else C
+    return (C, C, C, w, w, w, C)
+
+
+@functools.lru_cache(maxsize=64)
+def pack_plan(C: int, MW: int, L: int, R: int, big: bool) -> PackPlan:
+    """K5's launch plan: a pure function of the result's shape (R = 0
+    where it has no read_steps)."""
+    T = PACK_THREADS
+    head = sum(-(-(-(-n // 4)) // T) for n in _head_words(C, big))
+    rows = min(max(4, PACK_TILE_BYTES // (4 * MW) & ~3), (C + 3) & ~3)
+    return PackPlan(T, head, -(-C // rows), -(-(3 + 2 * L + R) // T), rows,
+                    4 * rows * MW)
+
+
+class _PackPlanC(ctypes.Structure):
+    """Mirror of `struct PackPlan` in csrc/pack_result.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in PackPlan._fields]
+
+
+class _K5(threading.local):
+    """A thread's launches of K5: the entry point, typed once, and one
+    argument block, its sizes and plan set (and checked) only when the
+    result's shape changes; a call sets the 15 pointers."""
+
+    def __init__(self):
+        self.args = _PackArgs()
+        self.ptrs = (ctypes.c_void_p * (len(PoolResult._fields) + 1)
+                     ).from_buffer(self.args)
+        self.fn = cuda_function("pack_result", "pack_result",
+                                [ctypes.POINTER(_PackArgs),
+                                 ctypes.POINTER(_PackPlanC),
+                                 ctypes.c_void_p])
+        self.shape = None
+        self.plan = None
+        self.words = 0  # of the packed result
+
+    def set_shape(self, C, MW, L, R, big):
+        if self.shape == (C, MW, L, R, big):
+            return
+        self.words = _packed_words(C, MW, L, R, big)
+        require(C >= 1 and C * MW < 2**31 and self.words < 2**31,
+                "pack_result: the result exceeds 32-bit indexes")
+        opbits, K, pb = _wire_opbits(MW)
+        a = self.args
+        a.C, a.MW, a.L, a.R = C, MW, L, R
+        a.opbits, a.K, a.pb, a.big = opbits, K, pb, int(big)
+        self.plan = _PackPlanC(*pack_plan(C, MW, L, R, big))
+        self.shape = (C, MW, L, R, big)
+
+    def launch(self, big):
+        LAUNCHES.add("pack_result_i64" if big else "pack_result")
+        rc = self.fn(self.args, self.plan, current_raw_stream())
+        if rc:
+            check(rc, "pack_result")
+
+
+_k5 = None
+
+
+def _k5_local() -> _K5:
+    global _k5
+    if _k5 is None:
+        _k5 = _K5()
+    return _k5
 
 
 def _pack_result(res: PoolResult) -> torch.Tensor:
-    """K5 wrapper: the plain version for CPU tensors, the kernel for CUDA
-    tensors (never a fallback)."""
+    """K5 wrapper on a PoolResult: the plain version for CPU tensors, the
+    kernel for CUDA tensors (never a fallback)."""
     if not res.c_read.is_cuda:
         return _pack_result_plain(res)
-    C, MW = res.c_ops.shape
-    L = res.lane_read.shape[0]
-    R = res.read_steps.shape[0]
     for t in res:
-        require(t.is_cuda and t.is_contiguous(),
+        require(t is None or (t.is_cuda and t.is_contiguous()),
                 "pack_result takes contiguous CUDA tensors")
-    opbits, K, pb = _wire_opbits(MW)
-    big = res.c_lower.dtype == torch.int64
     require(res.c_lrev.dtype == res.c_size.dtype == res.c_lower.dtype,
             "interval fields must share one type")
-    total = _packed_words(C, MW, L, R, big)
-    out = torch.empty(total, dtype=torch.int32, device=res.c_read.device)
-    args = _PackArgs(*[t.data_ptr() for t in res], C, MW, L, R, opbits, K,
-                     pb, int(big), out.data_ptr())
-    fn = cuda_function("pack_result", "pack_result",
-                       [ctypes.POINTER(_PackArgs), ctypes.c_longlong,
-                        ctypes.c_void_p])
-    LAUNCHES.add("pack_result_i64" if big else "pack_result")
-    check(fn(ctypes.byref(args), total,
-             torch.cuda.current_stream(out.device).cuda_stream),
-          "pack_result")
+    C, MW = res.c_ops.shape
+    L = res.lane_read.shape[0]
+    R = 0 if res.read_steps is None else res.read_steps.shape[0]
+    big = res.c_lower.dtype == torch.int64
+    k = _k5_local()
+    k.set_shape(C, MW, L, R, big)
+    out = torch.empty(k.words, dtype=torch.int32, device=res.c_read.device)
+    k.ptrs[:] = [None if t is None else t.data_ptr() for t in res] + [
+        out.data_ptr()]
+    k.launch(big)
     return out
+
+
+def _pack_buffer(buf, config, R, big) -> torch.Tensor:
+    """K5 on K3's one allocation (`_result_layout`; the engine's path): the
+    fields read through the layout's offsets, no PoolResult made, the
+    packed words written into the allocation's `packed` part and returned
+    as a view of it.  On the CPU the plain version over the views."""
+    L, C, MW = config.lanes, config.max_chains, config.max_len + 16
+    if not buf.is_cuda:
+        return _pack_result_plain(_pool_result(buf, config, R, big))
+    lay = _result_layout(L, C, MW, R, config.total_steps, bool(big))
+    require(buf.dtype == torch.int32 and buf.numel() == lay.words,
+            "pack_result takes K3's int32 allocation of this shape")
+    k = _k5_local()
+    k.set_shape(C, MW, L, R, big)
+    base = buf.data_ptr()
+    k.ptrs[:] = [base + b for b in lay.pack]
+    k.launch(big)
+    at = lay.at["packed"]
+    return buf[at : at + k.words]
 
 
 _NP_DTYPE = {torch.int32: np.int32, torch.int64: np.int64,
              torch.float32: np.float32, torch.bool: np.bool_}
 
 
-def _result_spec(res: PoolResult) -> PoolResult:
+def _spec(fields) -> PoolResult:
     """Shape/dtype stand-ins (zero-stride numpy views) that tell the numpy
-    `_unpack_result` how to read the packed buffer."""
+    `_unpack_result` how to read the packed buffer, from each field's
+    (shape, torch dtype) or None."""
     return PoolResult(*[
-        None if t is None
-        else np.broadcast_to(np.zeros((), _NP_DTYPE[t.dtype]), tuple(t.shape))
-        for t in res
+        None if f is None
+        else np.broadcast_to(np.zeros((), _NP_DTYPE[f[1]]), tuple(f[0]))
+        for f in fields
     ])
+
+
+def _result_spec(res: PoolResult) -> PoolResult:
+    """`_spec` of a PoolResult's tensors."""
+    return _spec(None if t is None else (t.shape, t.dtype) for t in res)
+
+
+@functools.lru_cache(maxsize=64)
+def _buffer_spec(L, C, MW, R, big) -> PoolResult:
+    """`_spec` of the PoolResult K3's allocation holds, from its shape
+    alone (`_pack_buffer`'s words)."""
+    i32, idt = torch.int32, torch.int64 if big else torch.int32
+    return _spec((((C,), i32), ((C,), i32), ((C,), torch.bool), ((C,), idt),
+                  ((C,), idt), ((C,), idt), ((C,), torch.float32),
+                  ((C, MW), i32), ((), i32), ((L,), i32), ((L,), torch.bool),
+                  ((), i32), ((), i32), ((R,), i32)))
 
 
 def _track(words, split):
@@ -1280,7 +1498,9 @@ class DeviceSearchEngine:
         device and stream are current): upload + K4 (or K6 + K7), K2 + K3
         (a shard's with its id rebase: `search_shard`), K5 and the async
         copy of the packed result into pinned host memory on a side stream.
-        Returns (result spec, host buffer, copy-done event or None).  The
+        Returns (result spec, host buffer, copy-done event or None).
+        Unsharded, K5 packs K3's one allocation as it is (`_pack_buffer`),
+        and the spec comes from the shapes: no PoolResult is made.  The
         step loop polls the card, so this thread's busy time is close to
         the card's time for the invocation (`_stats["device_s"]`, summed
         over the shards)."""
@@ -1293,16 +1513,21 @@ class DeviceSearchEngine:
             copy_stream = self._shards.streams[shard][1]
         with on_dev:
             consts, kw = self._upload(prep, dev)
+            R = prep["L"]
             if shard is None:
-                res = k_mismatch_search_pool2(self.device_index, *consts,
-                                              params, cfg, **kw)
+                big = self.device_index.big
+                buf = k_mismatch_search_pool2(self.device_index, *consts,
+                                              params, cfg, views=False, **kw)
+                packed = _pack_buffer(buf, cfg, R, big)
+                spec = _buffer_spec(cfg.lanes, cfg.max_chains,
+                                    cfg.max_len + 16, R, big)
             else:
-                Rl = prep["L"]
                 res = search_shard(self._mesh_index[shard], consts, params,
-                                   cfg, shard * Rl, self.n_shards * Rl, **kw)
-            packed = _pack_result(res)
+                                   cfg, shard * R, self.n_shards * R, **kw)
+                packed = _pack_result(res)
+                spec = _result_spec(res)
             if dev.type != "cuda":
-                out = _result_spec(res), packed.numpy(), None
+                out = spec, packed.numpy(), None
             else:
                 host = torch.empty(packed.shape, dtype=torch.int32,
                                    pin_memory=True)
@@ -1312,7 +1537,7 @@ class DeviceSearchEngine:
                     done = torch.cuda.Event()
                     done.record(copy_stream)
                 packed.record_stream(copy_stream)
-                out = _result_spec(res), host, done
+                out = spec, host, done
         with self._stats_lock:
             self._stats["device_s"] += time.perf_counter() - t0
         return out

@@ -97,6 +97,7 @@ from .._build import (LAUNCHES, check, cuda_function, current_raw_stream,
                       require)
 from .bi_d import compute_bi_d, compute_bi_d_plain
 from .fm import DeviceFmIndex, extend_batch_plain
+from .prep import _wire_opbits
 from .search import (
     CANDS,
     F_GAPS,
@@ -1050,10 +1051,19 @@ def _align4(n: int) -> int:
     return (n + 3) & ~3
 
 
+def _packed_words(C, MW, L, R, big=False) -> int:
+    """int32 words of the packed result (K5, ops/engine.py): the head
+    fields, C x ceil(MW / K) int64 of wire ops, the tail; R = 0 where the
+    result has no read_steps."""
+    _opbits, K, _pb = _wire_opbits(MW)
+    return (10 if big else 7) * C + C * (-(-MW // K)) * 2 + 3 + 2 * L + R
+
+
 class _Layout(NamedTuple):
     words: int      # int32 words of the allocation
     at: dict        # name -> word offset of each part
     ptrs: tuple     # byte offset of each pointer of _EXT_PTRS
+    pack: tuple     # byte offsets of the PoolResult fields, then `packed`
 
 
 @functools.lru_cache(maxsize=64)
@@ -1066,7 +1076,7 @@ def _result_layout(L: int, C: int, MW: int, R: int, S: int,
     next_read, steps), the bool rows (c_abandon, then lane_unfinished at
     byte Cp), then the scratch: lane_cnt and lane_first (four parts a
     lane), c_lane, e_slot and round_cnt (S // 128 + 2 rounds of mask words
-    a lane)."""
+    a lane); last the packed result K5 writes on the engine's path."""
     Cp = _align4(C)
     k = 2 if big else 1
     at, words = {}, 0
@@ -1074,7 +1084,8 @@ def _result_layout(L: int, C: int, MW: int, R: int, S: int,
                     ("read_steps", R + 1), ("lane_read", L), ("scalars", 3),
                     ("bools", (Cp + L + 3) // 4), ("lane_cnt", 4 * L),
                     ("lane_first", 4 * L), ("c_lane", C), ("e_slot", C),
-                    ("round_cnt", L * (S // 128 + 2))):
+                    ("round_cnt", L * (S // 128 + 2)),
+                    ("packed", _packed_words(C, MW, L, R, big))):
         at[name] = words
         words += _align4(n)
     b = {name: 4 * w for name, w in at.items()}
@@ -1085,7 +1096,9 @@ def _result_layout(L: int, C: int, MW: int, R: int, S: int,
         n_chains=b["scalars"], next_read=b["scalars"] + 4,
         steps=b["scalars"] + 8, c_abandon=b["bools"],
         lane_unfinished=b["bools"] + Cp)
-    return _Layout(words, at, tuple(b[name] for name in _EXT_PTRS))
+    return _Layout(words, at, tuple(b[name] for name in _EXT_PTRS),
+                   tuple(b[name] for name in PoolResult._fields)
+                   + (b["packed"],))
 
 
 def _alloc_result(config, R, big, dev):
@@ -1177,12 +1190,13 @@ class _Extraction:
 
 
 def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, ext,
-                         config, final=True):
+                         config, final=True, views=True):
     """K3 wrapper: compaction, ancestor walk and step fold on the card in
     one launch.  `ext`: the loop state's `_Extraction`.  Not `final`: an
     extraction at a store boundary, which appends its chains into the
     result the boundaries share and folds its steps, and leaves the tail
-    fields to the last one."""
+    fields to the last one.  Not `views`: the final result as the one
+    allocation (`_result_layout`), no PoolResult made of it."""
     out = ext.out
     if out is None:
         out = _alloc_result(config, R, big, store.device)
@@ -1192,7 +1206,7 @@ def _extract_chains_cuda(store, bmask, lane, glob, fin_log, R, big, ext,
     ext.launch(out, final)
     if not final:
         return None
-    return _pool_result(out, config, R, big)
+    return _pool_result(out, config, R, big) if views else out
 
 
 def _dense_slut(index: DeviceFmIndex, dense, n, split, config: PoolConfig,
@@ -1220,7 +1234,7 @@ def _dense_slut(index: DeviceFmIndex, dense, n, split, config: PoolConfig,
 def k_mismatch_search_pool2(index: DeviceFmIndex, n, split, cutoff_scale,
                             cutoff_thresh, repr_mm, params: SearchParams,
                             config: PoolConfig, slut=None, dense=None,
-                            bid_steps=None) -> PoolResult:
+                            bid_steps=None, views: bool = True):
     """One pool invocation over R reads: K2 then K3, with K3 and K8 at
     every store boundary when `config.generations` allows more than one.
 
@@ -1231,7 +1245,10 @@ def k_mismatch_search_pool2(index: DeviceFmIndex, n, split, cutoff_scale,
     (R, M, 4) f32, pen (R, M) f32), from which the rows are made on the
     device (K7); `bid_steps` then carries the host-known longest parts
     (ops/bi_d.py).  CPU tensors take the plain versions, CUDA tensors the
-    kernels."""
+    kernels.  Returns the PoolResult, or with `views=False` (the engine's
+    path, which packs it with K5) the one allocation of `_result_layout`
+    that holds it: K3's own on the card, the plain result copied into one
+    on the CPU."""
     _check_config(config, n.shape[0])
     require((slut is None) != (dense is None),
             "pass either the packed LUT/Bi-D rows or the dense inputs")
@@ -1239,6 +1256,14 @@ def k_mismatch_search_pool2(index: DeviceFmIndex, n, split, cutoff_scale,
         slut = _dense_slut(index, dense, n, split, config, bid_steps)
     args = (index, n, split, cutoff_scale, cutoff_thresh, repr_mm, params,
             config, slut)
-    if not n.is_cuda:
-        return _extract_chains_plain(*_pool_loop_plain(*args), config)
-    return _extract_chains_cuda(*_pool_loop_cuda(*args), config)
+    if n.is_cuda:
+        return _extract_chains_cuda(*_pool_loop_cuda(*args), config,
+                                    views=views)
+    res = _extract_chains_plain(*_pool_loop_plain(*args), config)
+    if views:
+        return res
+    big = res.c_lower.dtype == torch.int64
+    buf = _alloc_result(config, n.shape[0], big, n.device)
+    for part, field in zip(_pool_result(buf, config, n.shape[0], big), res):
+        part.copy_(field)
+    return buf

@@ -13,6 +13,10 @@ under tools/ that reach `pl.pallas_call`), ported to the H100 as P1-P4:
   k3_time        not a probe: K3 (csrc/extract_chains.cu) and K6 timed
                  against variants of their sources, each time split into
                  card and host, and K3's walk floor and phases
+  k45_time       not a probe: K4 (csrc/unpack_prep.cu) and K5
+                 (csrc/pack_result.cu) timed against variants of their
+                 sources, each time split into card and host, and the
+                 engine's host time from K3's wrapper to K5's return
   copy_host      the host side of one P2 copy, part by part, beside the
                  PyTorch call that does the same
   _probe_shapes  P2: a slice of each of eight shapes staged through shared
@@ -26,11 +30,11 @@ Each runs as `python -m mapad_tpu_torch.tools.<name>` on the card; their
 functions take `device="cpu"` to run the plain versions (the tests do), and
 raise without a card otherwise.  This module holds what they share: the
 card's name, three ways to time a call (its host part among them), and
-the harness of k2_phases, k10_time, k7_time and k3_time (a kernel against
-older or hand-edited copies of its source): the edit and parallel build
-of the variants with their ptxas figures, the in-turn order, the
-CUDA-event runs, the bit-for-bit check and the readout of the phases' SM
-cycles.
+the harness of k2_phases, k10_time, k7_time, k3_time and k45_time (a
+kernel against older or hand-edited copies of its source): the edit and
+parallel build of the variants with their ptxas figures, the in-turn
+order, the CUDA-event runs, the bit-for-bit check and the readout of the
+phases' SM cycles.
 """
 
 from __future__ import annotations
@@ -190,20 +194,25 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps: int):
+def device_ms(fn, reps: int, tries: int = 3):
     """Mean ms a call of fn() keeps the card busy, from `torch.profiler`:
     the device time of every kernel and copy it ran (`key_averages()`), over
-    `reps` calls.  None when the profiler saw no device activity."""
+    `reps` calls.  A profiler session can come back without device activity
+    (most often the first one of a process, while its tracer starts up), so
+    up to `tries` sessions are made; None when none of them saw any."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    return None

@@ -350,6 +350,157 @@ def test_pool_search_and_pack_kernels(fmd, cuda, case, track, big):
            "pack_result")
 
 
+def _random_result(buf, cfg, R, big, seed):
+    """Random words in every PoolResult field of K3's allocation (0/1 in
+    the bools, op words with pos < MW)."""
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+
+    rng = np.random.default_rng(seed)
+    res = sp2._pool_result(buf, cfg, R, big)
+    for f in res:
+        if f.dtype == torch.bool:
+            v = rng.integers(0, 2, f.shape).astype(bool)
+        elif f.dtype == torch.float32:
+            v = rng.standard_normal(f.shape).astype(np.float32)
+        elif f.dtype == torch.int64:
+            v = rng.integers(-2**40, 2**40, f.shape)
+        else:
+            v = rng.integers(-2**31, 2**31 - 1, f.shape).astype(np.int32)
+        f.copy_(torch.from_numpy(np.asarray(v)).to(f.device))
+    C, MW = res.c_ops.shape
+    ops = (rng.integers(0, 4, (C, MW)) | rng.integers(0, MW, (C, MW)) << 2
+           | rng.integers(0, 4, (C, MW)) << 17
+           | rng.integers(0, 2, (C, MW)) << 20
+           | rng.integers(0, 8, (C, MW)) << 21)
+    res.c_ops.copy_(torch.from_numpy(ops.astype(np.int32)))
+    return res
+
+
+# (L, C, max_len, R) of K5's checks: pool_check's shape (MW = 144, K = 4),
+# MW = 37 with C % 4 != 0 (the ragged last tile by cp.async), MW = 128
+# (K = 5) with C % 4 == 3, one of each
+PACK_EDGES = [(512, 16384, 128, 1024), (8, 33, 21, 41), (13, 1023, 112, 7),
+              (4, 64, 128, 9), (1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("entry", ["buffer", "result", "apart"])
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("shape", PACK_EDGES, ids=str)
+def test_pack_result_kernel_at_its_edges(cuda, shape, big, entry):
+    """K5 in one launch against its plain version: on K3's allocation
+    through `_pack_buffer`, on the PoolResult views of it, and on fields
+    apart, each at a 4-byte but not 16-byte phase and without
+    read_steps."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops import engine as teng
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+    from mapad_tpu_torch.ops.search_pool import PoolConfig, PoolResult
+
+    L, C, max_len, R = shape
+    cfg = PoolConfig(max_len=max_len, lanes=L, total_steps=64,
+                     read_step_cap=60, max_chains=C)
+    buf = sp2._alloc_result(cfg, R, big, cuda)
+    res = _random_result(buf, cfg, R, big, seed=C + L + big)
+    if entry == "apart":
+        rng = np.random.default_rng(C)
+        parts = []
+        for f in res[:13]:
+            n = f.numel() * f.element_size()
+            at = max(4, f.element_size()) * int(rng.integers(1, 4))
+            raw = torch.zeros(n + 32, dtype=torch.uint8, device=cuda)
+            v = raw[at : at + n].view(f.dtype).view(f.shape)
+            v.copy_(f)
+            parts.append(v)
+        res = PoolResult(*parts, None)
+    want = teng._pack_result_plain(PoolResult(*[
+        None if f is None else f.cpu() for f in res]))
+    LAUNCHES.reset()
+    got = (teng._pack_buffer(buf, cfg, R, big) if entry == "buffer"
+           else teng._pack_result(res))
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("pack_result_i64" if big else "pack_result") == 1
+    _equal((got.cpu(),), (want,), f"pack_result {entry}")
+
+
+# (R, M) of K4's checks: path 1's block width at an odd R, M past 128,
+# blocks whose first cell is odd (M = 35, 37), one read
+UNPACK_EDGES = [(8191, 128), (61, 35), (21, 100), (13, 255), (100, 37),
+                (1, 16)]
+
+
+@pytest.mark.parametrize("rle", [True, False])
+@pytest.mark.parametrize("shape", UNPACK_EDGES, ids=str)
+def test_unpack_prep_kernel_at_its_edges(fmd, cuda, shape, rle):
+    """K4 against its plain version on a random blob (any break bytes,
+    sorted or not; every class and quality; lengths 0 to M) at each 4-byte
+    phase of a 16-byte line."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops import engine as teng
+    from mapad_tpu_torch.ops import prep as tprep
+
+    R, M = shape
+    p = adna_params("mapad_tpu_torch")
+    tab, _pen, off = tprep._build_all_lut(p.difference_model, p, M)
+    rng = np.random.default_rng(R * M + rle)
+    cells = (rng.integers(0, 5, R * M) << 7) | rng.integers(0, 128, R * M)
+    cells = np.concatenate([cells, np.zeros((-len(cells)) % 3, np.int64)])
+    words = (cells[0::3] | (cells[1::3] << 10) | (cells[2::3] << 20))
+    parts = [rng.integers(0, M + 1, R), rng.integers(0, M + 1, R),
+             rng.standard_normal(3 * R).astype(np.float32).view(np.int32)]
+    if rle:
+        br = rng.integers(0, 256, (R, 32)).astype(np.uint8)
+        br[: R // 2].sort(axis=1)
+        parts += [br.reshape(-1).view(np.int32),
+                  rng.standard_normal(32 * R).astype(np.float32).view(
+                      np.int32)]
+    else:
+        parts.append(rng.standard_normal(R * M).astype(np.float32).view(
+            np.int32))
+    blob = np.concatenate(parts + [words]).astype(np.int32)
+    want = teng._unpack_prep_lut_plain(
+        torch.from_numpy(blob), torch.from_numpy(tab), torch.from_numpy(off),
+        R, M, tprep._DEV_LUT_Q, rle)
+    tab_d, off_d = torch.from_numpy(tab).to(cuda), torch.from_numpy(off).to(
+        cuda)
+    for phase in range(4):
+        raw = torch.zeros(blob.size + 4, dtype=torch.int32, device=cuda)
+        b = raw[phase : phase + blob.size]
+        b.copy_(torch.from_numpy(blob))
+        LAUNCHES.reset()
+        got = teng._unpack_prep_lut(b, tab_d, off_d, R, M, tprep._DEV_LUT_Q,
+                                    rle)
+        torch.cuda.synchronize()
+        assert LAUNCHES.get("unpack_prep") == 1
+        _equal(tuple(g.cpu() for g in got), want, f"unpack_prep {phase}")
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_run_block_packs_without_views(fmd, cuda, big, monkeypatch):
+    """The engine's path (`_run_block`, unsharded) packs K3's allocation as
+    it is: with `_pool_result` made to raise, its wire words equal
+    `_pack_result_plain` of the same invocation."""
+    from mapad_tpu_torch.ops import engine as teng
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+
+    eng, cfg, prep = _prepped(fmd, cuda, CASES["bench"], seed=9, big=big)
+    with torch.cuda.device(cuda):
+        consts, kw = eng._upload(dict(prep))
+        res = sp2.k_mismatch_search_pool2(eng.device_index, *consts,
+                                          eng._params(), cfg, **kw)
+        want = teng._pack_result_plain(res).cpu()
+
+    def no_views(*a, **k):
+        raise AssertionError("the engine's path made PoolResult views")
+
+    monkeypatch.setattr(sp2, "_pool_result", no_views)
+    monkeypatch.setattr(teng, "_pool_result", no_views)
+    spec, host, done = eng._run_block(cfg, dict(prep), eng._params())
+    done.synchronize()
+    assert torch.equal(host, want)
+    for name, g, w in zip(res._fields, spec, teng._result_spec(res)):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+
+
 # K2's one launch a generation at the edges of its launch plan (ops/
 # search_pool2.py pool_plan): (config, reads, whether the plan keeps the
 # key rings in shared memory)

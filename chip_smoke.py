@@ -49,7 +49,8 @@ card, MAPAD_SHARD=0, whatever the machine has):
   workload through `pipeline.run` with `DeviceSearchEngine(fmd, params,
   mesh=[cuda:0, cuda:0])` and MAPAD_SHARD=1: one 16,384-read block dealt
   into two shards of 8,192, each at path 1's per-invocation shape on its
-  own host thread and streams (K4, K2 + K3, `shard_rebase`, K5), beside
+  own host thread and streams (K4, K2 + K3, K5 making the shard's read
+  ids global as it packs: no `shard_rebase` launch), beside
   the same `pipeline.run` unsharded; on a machine with more than one card
   once more over all of them with no `mesh` (the automatic mesh);
 
@@ -76,14 +77,16 @@ kernels, K9 (`pool_search_sharded`) runs on the shard threads and streams
 of a two-shard engine on the one card (path 7's): two shards of 512 reads
 of path 1's workload against its plain version, and path 7's block (two
 shards of 8,192) against its shards run unsharded, each timed beside the
-same shards run one after the other; then `shard_rebase` alone against
-its plain version.
+same shards run one after the other (its `shard_rebase` launches counted
+in the first call at path 7's block: one a shard); then `shard_rebase`
+alone against its plain version, timed three ways as K3-K6 are.
 
 K3 (one cooperative launch a call, both widths), K4, K5 and K6 are timed
 three ways: by CUDA events around calls back to back, on the host alone,
 and, after path 8, by the profiler's card time.  K5 is held against its
 plain version through both its entries, on K3's one allocation (as the
-engine's path calls it, and as it is timed) and on the PoolResult; K4 and
+engine's path calls it, and as it is timed; and with a shard's id rebase,
+as the mesh path calls it, timed too) and on the PoolResult; K4 and
 K5 rows carry their launch plans.  K3's rows also carry the walk's
 floor, the deepest walked chain's op words times the card's dependent-load
 latency (measured at the start: `tools/dma.py` `load_latency_ns`, one
@@ -420,9 +423,21 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
                   name + " (K3's allocation)")
     err = max(err, compare(torch, (eng._pack_result(res),), (want,),
                            name + " (PoolResult)"))
+    # and as a shard's (shard 1 of two of r reads), its ids made global
+    from mapad_tpu_torch.parallel.pool_sharded import _shard_rebase_plain
+
+    rebase = (r, r, 2 * r)
+    err = max(err, compare(
+        torch, (eng._pack_buffer(buf, cfg, r, big, rebase),),
+        (eng._pack_result_plain(_shard_rebase_plain(
+            sp2._extract_chains_cuda(*state, cfg), *rebase)),),
+        name + " (K3's allocation, a shard's rebase)"))
 
     def k5():
         return eng._pack_buffer(buf, cfg, r, big)
+
+    def k5_rebase():
+        return eng._pack_buffer(buf, cfg, r, big, rebase)
 
     ms, host, per_call = split_ms(torch, k5, 20, name)
     if per_call != 1:
@@ -438,9 +453,15 @@ def pool_check(torch, sp2, eng, idx_d, consts, slut, params, cfg, M, big):
                                 r, big)._asdict()),
     )
     CARD_LATER.append((f"K5 {name}", row, k5))
-    log(f"K5 {name} C={cfg.max_chains}: bit-exact through both entries, "
-        f"{row['ms']:.4f} ms by events on K3's allocation (host "
-        f"{row['host_ms']:.4f} ms, one launch a call; the PoolResult entry "
+    ms, host, per_call = split_ms(torch, k5_rebase, 20, name)
+    row["rebase"] = dict(ms=ms, host_ms=host, bound_ms=row["bound_ms"])
+    CARD_LATER.append((f"K5 {name} with a shard's rebase", row["rebase"],
+                       k5_rebase))
+    log(f"K5 {name} C={cfg.max_chains}: bit-exact through both entries "
+        f"and with a shard's rebase, {row['ms']:.4f} ms by events on K3's "
+        f"allocation (host {row['host_ms']:.4f} ms, one launch a call; with "
+        f"the rebase {row['rebase']['ms']:.4f}, host "
+        f"{row['rebase']['host_ms']:.4f}; the PoolResult entry "
         f"{row['result_entry_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms; "
         f"plan {row['plan']}), plain {row['plain_ms']:.4f} ms")
     return rows
@@ -866,6 +887,7 @@ def k9_run(torch, engine, recs, plain):
     re-based, and with `plain` against its plain version; timed in turns
     with the shards one after the other (do two streams on one card
     overlap?).  -> (K9's numbers, the shards' unsharded results)."""
+    from mapad_tpu_torch._build import LAUNCHES
     from mapad_tpu_torch.ops import search_pool2 as sp2
     from mapad_tpu_torch.ops.search_pool import PoolResult
     from mapad_tpu_torch.parallel import pool_sharded as tps
@@ -902,7 +924,12 @@ def k9_run(torch, engine, recs, plain):
     def fields(res):
         return tuple(t for t in res if t is not None)
 
+    LAUNCHES.reset()
     res, first_ms = wall_ms(k9)
+    rebases = LAUNCHES.get("shard_rebase")
+    if rebases != D:
+        raise AssertionError(f"K9: {rebases} shard_rebase launches for {D} "
+                             "shards")
     err, plain_ms = 0.0, None
     if plain:
         pres, plain_ms = wall_ms(lambda: tps.pool_search_sharded_plain(
@@ -944,7 +971,7 @@ def k9_run(torch, engine, recs, plain):
         + (f", plain {plain_ms:.1f} ms" if plain else ""))
     return dict(reads=R, steps=steps, ms=k9_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms(k9_bytes), sequential_ms=seq_ms,
-                max_abs_err=err), seq
+                max_abs_err=err, rebase_launches=rebases), seq
 
 
 def k9_check(torch, engine, reads):
@@ -952,8 +979,10 @@ def k9_check(torch, engine, reads):
     K9_SHARDS x K9_READS reads of path 1's workload against its plain
     version, and at path 7's block (K9_SHARDS x 8,192 reads) against its
     shards run unsharded; then `shard_rebase` alone on a shard's result
-    against its plain version.  Returns the kernel-table row of
-    `shard_rebase`, with K9's numbers beside it."""
+    against its plain version, its time split into events, host and card.
+    Returns the kernel-table row of `shard_rebase` (its launches those of
+    K9's first call at path 7's block, counts reset just before it: one a
+    shard), with K9's numbers beside it."""
     from mapad_tpu_torch.map.record import Record
     from mapad_tpu_torch.ops.search_pool import PoolResult
     from mapad_tpu_torch.parallel import pool_sharded as tps
@@ -978,20 +1007,31 @@ def k9_check(torch, engine, reads):
     a, b = shard1(), shard1()
     cfg = engine.pool_config
     C, L = cfg.max_chains, cfg.lanes
+
+    def rebase():
+        return tps.shard_rebase(a, 0, r, R)
+
+    ms, host, per_call = split_ms(torch, rebase, 50, "shard_rebase")
+    if per_call != 1:
+        raise AssertionError(f"shard_rebase: {per_call} launches a call")
     row = dict(
         route="cuda", source="mapad_tpu_torch/csrc/pool_sharded.cu",
         replaces="mapad_tpu/parallel/pool_sharded.py:122", max_abs_err=err,
-        ms=timed(torch, lambda: tps.shard_rebase(a, 0, r, R), 50),
+        ms=ms, host_ms=host, launches_per_call=per_call,
         plain_ms=timed(torch, lambda: tps._shard_rebase_plain(b, 0, r, R),
                        20),
         bound_ms=bound_ms((C + L) * 4 * 2 + 8), bound_by="bytes",
-        library_ms=None,
-        **{f"k9_{k}": v for k, v in small.items() if k != "max_abs_err"},
+        library_ms=None, k9_launches=main["rebase_launches"],
+        **{f"k9_{k}": v for k, v in small.items()
+           if k not in ("max_abs_err", "rebase_launches")},
         **{f"k9_main_{k}": v for k, v in main.items()
-           if k not in ("max_abs_err", "plain_ms")},
+           if k not in ("max_abs_err", "plain_ms", "rebase_launches")},
     )
-    log(f"shard_rebase C={C} L={L}: bit-exact, {row['ms']:.4f} ms (plain "
-        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms)")
+    CARD_LATER.append(("shard_rebase", row, rebase))
+    log(f"shard_rebase C={C} L={L}: bit-exact, {row['ms']:.4f} ms by events "
+        f"(host {row['host_ms']:.4f} ms, one launch a call; plain "
+        f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms); "
+        f"{row['k9_launches']} launches in K9's call at path 7's block")
     return row
 
 
@@ -1140,7 +1180,11 @@ def probe_phase(torch, card):
         bound_ms=bound_ms(PROBE_T * step_bytes + PROBE_L * 4 + 8),
         bound_by="bytes", library_ms=last["library_us"] * PROBE_T / 1e3,
         launch_per_step_ms=last["launch_per_step_us"] * PROBE_T / 1e3,
-        step_tables=tables)}
+        step_tables=tables,
+        # one dependent load a step through a table past the L2 (the
+        # latency measured before path 1; not in --probes alone)
+        latency_floor_ms=(PROBE_T * LOAD_NS["DRAM"] / 1e6
+                          if "DRAM" in LOAD_NS else None))}
     # each copy kernel's row: its time at P2's largest slice of its
     # direction, every probe shape's measurements beside it
     for name, kind, head, replaces, also in (
@@ -1781,9 +1825,11 @@ def path7(torch, index, params, args, fastq, fasta, native_bam, card,
     """Path 1's workload through `pipeline.run` with one card's pool engine,
     then over two shards on cuda:0 (MAPAD_SHARD=1, `mesh`), and, on a
     machine with more than one card, over all of them with no `mesh` (the
-    automatic mesh); each BAM equal to path 1's native BAM.  -> the launch
-    counts of the two-shard run (`kernels` and shard_rebase) and its
-    shards' steps."""
+    automatic mesh); each BAM equal to path 1's native BAM.  A run makes
+    no `shard_rebase` launch: a shard's K5 makes its ids global
+    (`pack_result_rebase` counts those launches, one a shard and block).
+    -> the launch counts of the two-shard run (`kernels`, shard_rebase and
+    pack_result_rebase) and its shards' steps."""
     from mapad_tpu_torch._build import LAUNCHES
     from mapad_tpu_torch.map import pipeline
     from mapad_tpu_torch.ops.engine import DeviceSearchEngine
@@ -1799,19 +1845,26 @@ def path7(torch, index, params, args, fastq, fasta, native_bam, card,
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         st = engine.stats()
-        names = [*kernels, "shard_rebase"] if engine.mesh else kernels
-        counts = {k: LAUNCHES.get(k) for k in names}
+        counts = {k: LAUNCHES.get(k) for k in kernels}
         report_run(what, card, secs, st, counts)
         check_k2_launches(counts, what)
+        counts.update((k, LAUNCHES.get(k))
+                      for k in ("shard_rebase", "pack_result_rebase"))
+        rebases = engine.n_shards * st["batches"] if engine.mesh else 0
+        log(f"  shard_rebase launches {counts['shard_rebase']}, K5's "
+            f"rebasing launches {counts['pack_result_rebase']} (one a shard "
+            f"and block: {rebases})")
+        if counts["shard_rebase"] or counts["pack_result_rebase"] != rebases:
+            raise AssertionError(
+                f"{what}: {counts['shard_rebase']} shard_rebase and "
+                f"{counts['pack_result_rebase']} rebasing K5 launches for "
+                f"{st['batches']} blocks")
         if engine.mesh:
             steps = st["shard_steps"]
             log(f"  shards {engine.n_shards} on {engine.mesh}, "
                 f"block_reads {engine.block_reads}, shard steps {steps}, "
                 f"step efficiency {sum(steps) / (len(steps) * max(steps)):.4f}"
                 f" (sum / (D x max))")
-            if counts["shard_rebase"] != engine.n_shards * st["batches"]:
-                raise AssertionError(f"{what}: {counts['shard_rebase']} "
-                                     f"rebases for {st['batches']} blocks")
         bam_compare(bam, native_bam, what.split(",")[0])
         return secs, counts, st.get("shard_steps")
 
@@ -1953,7 +2006,7 @@ def main() -> int:
         k9_engine = DeviceSearchEngine(index.fmd, params, lanes=args.lanes,
                                        packed_hits=True, mesh=[card0] * 2)
     rows["shard_rebase"] = k9_check(torch, k9_engine, reads)
-    path_of["shard_rebase"] = 7
+    path_of["shard_rebase"] = "K9"
     del k9_engine
 
     # K10 and the int32 K7 of path 6 against their plain versions: one
@@ -2253,7 +2306,10 @@ def main() -> int:
     for name in path1:
         rows[name]["path7_launches"] = launches7[name]
     rows["pool_search"]["path7_steps"] = steps7
-    launches["shard_rebase"] = launches7["shard_rebase"]
+    rows["shard_rebase"]["path7_launches"] = launches7["shard_rebase"]
+    rows["pack_result"]["path7_rebase_launches"] = \
+        launches7["pack_result_rebase"]
+    launches["shard_rebase"] = rows["shard_rebase"]["k9_launches"]
     log(f"  path 1 (`cli.main` whole) in this run: "
         f"{N_READS / path1_s:.1f} reads/s")
 
@@ -2311,16 +2367,21 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     # beyond its bound), its longest lane's steps (`max_lane_steps`), its
     # time over them (`us_step`), its launch plan and ptxas figures, the
     # same four and its time on the center-start check (`center_*`) and the
-    # steps of each batch of path 6; shard_rebase (path 7) K9's numbers:
-    # its reads, each shard's steps, its time, plain time and bound, and
-    # the time of the same shards run one after the other, at the check's
-    # shape and (k9_main_*) at path 7's block; the rows of path 1's kernels
-    # also carry their launches in path 7's two-shard run (`path7_launches`,
-    # its own reset run), pool_search also its shards' steps
-    # (`path7_steps`: one launch a generation plus one init per shard and
-    # invocation); the probe rows (path "probes", launches from the probe
-    # tools' run) P1's per-step times at three tables in three forms and its
-    # launch-per-step time, the copies' device times from the profiler (and
+    # steps of each batch of path 6; shard_rebase (path "K9": its launches
+    # those of K9's call at path 7's block, `k9_launches`) its time split
+    # (`host_ms`, `device_ms`, `launches_per_call`), its launches in path
+    # 7's two-shard run (`path7_launches`, 0: a shard's K5 rebases) and
+    # K9's numbers: its reads, each shard's steps, its time, plain time and
+    # bound, and the time of the same shards run one after the other, at
+    # the check's shape and (k9_main_*) at path 7's block; the rows of path
+    # 1's kernels also carry their launches in path 7's two-shard run
+    # (`path7_launches`, its own reset run), pool_search also its shards'
+    # steps (`path7_steps`: one launch a generation plus one init per shard
+    # and invocation), pack_result its rebasing launches there
+    # (`path7_rebase_launches`, one a shard and block) and its time with a
+    # shard's rebase (`rebase`: events, host, card); the probe rows (path "probes", launches from the probe
+    # tools' run) P1's per-step times at three tables in three forms, its
+    # launch-per-step time and latency floor (T dependent loads), the copies' device times from the profiler (and
     # an empty kernel's, `floor_device_ms`), the shape of their headline,
     # every probe shape's numbers and their PTX and SASS instruction counts; the bi_d rows the walk steps of their run,
     # their launch plan (with the resident warps an SM) and ptxas figures,
@@ -2335,13 +2396,15 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
             "scan_bytes", "scan_ms", "max_lane_steps", "center_ms",
             "center_max_lane_steps", "center_us_step", "center_plan",
             "path_steps",
-            "path7_launches", "path7_steps", "k9_reads", "k9_steps", "k9_ms",
+            "path7_launches", "path7_steps", "path7_rebase_launches",
+            "rebase", "k9_launches", "k9_reads", "k9_steps", "k9_ms",
             "k9_plain_ms", "k9_bound_ms", "k9_sequential_ms",
             "k9_main_reads", "k9_main_steps", "k9_main_ms",
             "k9_main_bound_ms", "k9_main_sequential_ms",
             "check_steps", "us_step", "plan", "ptxas", "floor_ms",
             "floor_us_step", "limit",
-            "launch_per_step_ms", "step_tables", "also_replaces", "device_ms",
+            "launch_per_step_ms", "step_tables", "latency_floor_ms",
+            "also_replaces", "device_ms",
             "library_device_ms", "floor_device_ms", "shape", "ptx_sass",
             "shapes",
             "walk_steps", "both_ms", "both_walk_steps", "both_bound_ms",

@@ -15,6 +15,14 @@
 // allocation (ops/search_pool2.py `_result_layout`, the engine's path) or
 // to a PoolResult's tensors.
 //
+// A shard's result (the engine's mesh path) is packed with its read ids
+// made global on the way, as mapad_tpu/parallel/pool_sharded.py (122-135)
+// rewrites them and csrc/pool_sharded.cu `shard_rebase` does apart:
+// c_read v -> v >= 0 ? v + base : -1, lane_read v -> v < r_local ? v + base
+// : r_global, next_read + base.  Those words pass through the kernel
+// anyway, so the rebase costs no launch and no byte; with `rebase` 0 every
+// word is as before.
+//
 // Bound on the card: bytes -- it reads C*MW*4 B of op words (9.4 MB at
 // C=16384, MW=144) and writes about half of that.
 //
@@ -50,6 +58,7 @@ struct PackArgs {
   int* out;
   int C, MW, L, R;  // R = 0: no read_steps
   int opbits, K, pb, big;
+  int rebase, base, r_local, r_global;  // the shard's id rebase, if rebase
 };
 
 // mirrors ops/engine.py `PackPlan`
@@ -105,6 +114,11 @@ static __device__ void pack_head(const PackArgs& a, const PackPlan& p,
       v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
     } else {
       for (int e = 0; e < k; ++e) v[e] = __ldg(s + e);
+    }
+    if (f == P_READ && a.rebase) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (e < k) v[e] = v[e] >= 0 ? v[e] + a.base : -1;
     }
   }
   int* o = a.out + at + w0;
@@ -177,10 +191,12 @@ static __device__ void pack_tail(const PackArgs& a, const PackPlan& p,
     v = *(const int*)a.f[P_NCHAINS];
   } else if (i <= L) {
     v = ((const int*)a.f[P_LANE_READ])[i - 1];
+    if (a.rebase) v = v < a.r_local ? v + a.base : a.r_global;
   } else if (i <= 2 * L) {
     v = ((const uint8_t*)a.f[P_LANE_UNF])[i - 1 - L] != 0;
   } else if (i == 2 * L + 1) {
     v = *(const int*)a.f[P_NEXT_READ];
+    if (a.rebase) v += a.base;
   } else if (i == 2 * L + 2) {
     v = *(const int*)a.f[P_STEPS];
   } else {

@@ -1,6 +1,7 @@
 // P1: T dependent steps of a scattered row gather, the design probe of the
 // pool step (K2 fetches each lane's 512 B index rows at indices that the
-// previous step's intervals decide).
+// previous step's intervals decide), and so the floor K2's step is read
+// against.
 //
 // Replaces tools/bench_dma.py `scatter_dma_kernel` (34-55), launched by
 // `run_scatter` (57-73) as one `pallas_call`.  Each step t:
@@ -15,27 +16,39 @@
 // Beside acc the kernel XORs every word it moved into `chk`, so no load is
 // dead; the plain version computes the same checksum.
 //
-// Design: one cooperative launch for all T steps, as the TPU kernel is one
-// `pallas_call`.  The whole (L, W) scratch (512 KB at the probe's L=1024,
-// W=128) does not fit one block's 227 KB of shared memory, so the L lanes
-// are split over a grid that is all co-resident (occupancy x SMs); a warp
-// moves a lane's whole row with 16-byte `cp.async` (4-byte where the row
-// is not 16-byte aligned) and `cp.async.wait_all` stands for the DMA
-// semaphores.  A block reduces column 0 and writes its partial to a
-// double-buffered array indexed by step parity (a fast block never
-// overwrites a partial a slow block still reads); after the grid barrier
-// every block sums the partials in block order, so every block carries the
-// same acc.  `per_step` launches the same kernel once a step instead (one
-// step each, acc and chk carried on the card): the form K2 runs in today.
+// Design: one launch for all T steps, as the TPU kernel is one
+// `pallas_call`, and as K2 runs a store generation's steps.  The whole
+// (L, W) scratch (512 KB at the probe's L=1024, W=128) does not fit one
+// block's 227 KB of shared memory, so the L lanes are split over a grid
+// that is all co-resident (the plan: tools/dma.py `gather_plan`; the
+// launch is cooperative only to have the runtime refuse a grid that is
+// not).  A warp moves a lane's row with 16-byte `cp.async` (4-byte where
+// the row is not 16-byte aligned), `cp.async.wait_all` standing for the
+// DMA semaphores.  (tools/p1_time.py times it against a form that moves
+// each row with one bulk copy on an mbarrier, built there as a variant of
+// this source.)
+// The dependency on acc stays: a step's rows are known only after the
+// last step's sum, so no row is fetched ahead.
 //
-// Bound on the card: bytes, L * W * 4 a step over the memory rate (a
-// dependent gather: in practice latency and the barrier between steps
-// bound it, which is what the probe measures).
-#include <cooperative_groups.h>
-
+// The grid barrier is the reduction, as K2's (csrc/pool_search.cu): each
+// block publishes {tag, its column-0 sum} in one 8-byte slot, double-
+// buffered by the tag's parity; warp 0 of every block reads the slots, two
+// a 16-byte `__ldcv`, until each carries this step's tag, and sums them;
+// the total reaches the block through shared memory.  So every block
+// carries the same acc, with one L2 round trip a step and no
+// cooperative-groups sync.  Tags never repeat from call to call: slot
+// word 0 keeps the steps run so far (block 0 writes it after the last
+// barrier, when every block has read it), a step's tag is that count plus
+// the step plus one, and the wrapper zeroes the slots once, when it makes
+// them.  A block overwrites a slot two steps later, after every block has
+// read it.  `launch_per_step` launches the same kernel once a step (one
+// step each, acc and chk carried on the card).
+//
+// Bound on the card: bytes, L * W * 4 a step over the memory rate; in
+// practice the step is a chain of dependent latencies (the rows' load,
+// the slot's store and the slots' read), which is what the probe measures.
 #include "common.cuh"
 
-namespace cg = cooperative_groups;
 using mapad::cp_async16;
 using mapad::cp_async4;
 using mapad::cp_async_wait_all;
@@ -46,33 +59,48 @@ struct GatherArgs {
   const int* blk;   // (L,)
   float* acc;       // (1,) carried in and out
   int* chk;         // (1,) XOR of every word moved, carried in and out
-  int* partials;    // (2, L): a block's column-0 sum, by step parity
+  int* slots;       // 4 words (word 0: steps run so far), then 2 x stride
+                    // 8-byte slots {tag, block sum} by tag parity
   int NB, W, L, t0, steps;
+};
+
+// mirrors tools/dma.py `GatherPlan`
+struct GatherPlan {
+  int blocks;           // all co-resident
+  int lanes_per_block;  // rows a block gathers a step
+  int smem;             // dynamic shared memory: lanes_per_block * W words
+  int stride;           // slots a parity: blocks rounded up to even
 };
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int SMEM_MAX = 232448;  // a block's shared memory on sm_90
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
 }
 
 __global__ void __launch_bounds__(THREADS)
-    gather_steps_kernel(GatherArgs a, int lanes_per_block, int vec) {
+    gather_steps_kernel(GatherArgs a, GatherPlan p) {
   extern __shared__ __align__(16) int scratch[];  // (lanes_per_block, W)
   __shared__ int red[WARPS];
   __shared__ int total;
-  cg::grid_group grid = cg::this_grid();
-  const int G = gridDim.x;
-  const int lane0 = blockIdx.x * lanes_per_block;
-  const int nl = max(0, min(lanes_per_block, a.L - lane0));
+  const int G = (int)gridDim.x;
+  const int lpb = p.lanes_per_block;
+  const int lane0 = blockIdx.x * lpb;
+  const int nl = max(0, min(lpb, a.L - lane0));
   const int warp = threadIdx.x / 32, tl = threadIdx.x % 32;
+  const bool vec = (a.W & 3) == 0 && ((uintptr_t)a.rows & 15) == 0;
+  // every block reads the steps run so far before the first barrier
+  const int base = __ldcv(a.slots);
+  long long* const slot = reinterpret_cast<long long*>(a.slots + 4);
   float acc = a.acc[0];
   int chk = 0;
   for (int s = 0; s < a.steps; ++s) {
     const int t = a.t0 + s;
+    const int tag = base + s + 1;
+    const int par = tag & 1;
     const int a7 = floor_mod(__float2int_rz(acc), 7);
     for (int j = warp; j < nl; j += WARPS) {
       const int idx = floor_mod(a.blk[lane0 + j] + t * 1237 + a7, a.NB);
@@ -92,66 +120,92 @@ __global__ void __launch_bounds__(THREADS)
     part = warp_sum(part);
     if (tl == 0) red[warp] = part;
     __syncthreads();
-    if (threadIdx.x == 0) {
-      int p = 0;
-      for (int w = 0; w < WARPS; ++w) p += red[w];
-      a.partials[(s & 1) * G + blockIdx.x] = p;
-    }
-    grid.sync();
     if (warp == 0) {
-      int v = 0;
-      for (int b = tl; b < G; b += 32) v += __ldcg(a.partials + (s & 1) * G + b);
+      // publish {tag, the block's sum}; then read every block's slot of
+      // this parity until each carries the tag
+      int v = tl < WARPS ? red[tl] : 0;
       v = warp_sum(v);
-      if (tl == 0) total = v;
+      if (tl == 0)
+        __stcg(slot + par * p.stride + blockIdx.x,
+               (long long)(((unsigned long long)(unsigned)v << 32) |
+                           (unsigned)tag));
+      const longlong2* sl =
+          reinterpret_cast<const longlong2*>(slot + par * p.stride);
+      int sum;
+      bool all;
+      do {
+        sum = 0;
+        all = true;
+        for (int q = tl; 2 * q < G; q += 32) {
+          const longlong2 w = __ldcv(sl + q);
+          all = all && (int)w.x == tag;
+          sum += (int)(w.x >> 32);
+          if (2 * q + 1 < G) {
+            all = all && (int)w.y == tag;
+            sum += (int)(w.y >> 32);
+          }
+        }
+      } while (!__all_sync(FULL, all));
+      sum = __reduce_add_sync(FULL, sum);
+      if (tl == 0) total = sum;
     }
     __syncthreads();
     acc = acc + (float)total;
   }
-  for (int o = 16; o; o >>= 1) chk ^= __shfl_xor_sync(0xffffffffu, chk, o);
+  for (int o = 16; o; o >>= 1) chk ^= __shfl_xor_sync(FULL, chk, o);
   if (tl == 0) atomicXor(a.chk, chk);
-  if (blockIdx.x == 0 && threadIdx.x == 0) a.acc[0] = acc;
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    a.acc[0] = acc;
+    a.slots[0] = base + a.steps;
+  }
 }
 
-// One cooperative launch of all `steps` (per_step = 0), or one launch per
-// step (per_step = 1).  The grid is the fewest blocks of whole warps' lanes
-// that are all co-resident; lanes per block grow until they are.
-extern "C" int probe_dma_gather(const GatherArgs* in, int per_step,
-                                cudaStream_t stream) {
-  int dev = 0, sms = 0;
+// The card's figures the plan needs: SMs, and (after making the whole of
+// a block's opt-in shared memory available to the kernel) the most
+// dynamic shared memory a block of it may take.
+extern "C" int gather_card(int* out) {
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
+  cudaFuncAttributes fa;
   if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int vec = in->W % 4 == 0 && (size_t)in->rows % 16 == 0;
-  int lpb = WARPS, grid = 0;
-  size_t smem = 0;
-  for (;;) {
-    smem = (size_t)lpb * in->W * sizeof(int);
-    if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+    e = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[1],
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, gather_steps_kernel);
+  if (e == cudaSuccess) {
+    out[1] -= (int)fa.sharedSizeBytes;
     e = cudaFuncSetAttribute(gather_steps_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    int per_sm = 0;
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, gather_steps_kernel, THREADS, smem);
-    if (e != cudaSuccess) return (int)e;
-    grid = (in->L + lpb - 1) / lpb;
-    if (per_sm > 0 && grid <= per_sm * sms) break;
-    const int fit = (per_sm > 0 ? per_sm : 1) * sms;
-    const int need = (in->L + fit - 1) / fit;
-    lpb = need > lpb ? need : lpb + 1;
+                             out[1]);
   }
+  return (int)e;
+}
+
+// blocks of `smem` bytes of dynamic shared memory one SM holds at once
+// (after gather_card)
+extern "C" int gather_occupancy(int smem, int* per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, gather_steps_kernel, THREADS, (size_t)smem);
+}
+
+// One launch of all `steps` (per_step = 0), or one launch a step
+// (per_step = 1), of the plan's grid.  A launch the card refuses returns
+// its error; nothing else is tried.
+extern "C" int probe_dma_gather(const GatherArgs* in, const GatherPlan* plan,
+                                int per_step, cudaStream_t stream) {
   const int launches = per_step ? in->steps : 1;
+  GatherPlan p = *plan;
   for (int i = 0; i < launches; ++i) {
     GatherArgs a = *in;
     if (per_step) {
       a.t0 = in->t0 + i;
       a.steps = 1;
     }
-    void* params[] = {&a, &lpb, (void*)&vec};
-    e = cudaLaunchCooperativeKernel((void*)gather_steps_kernel, grid, THREADS,
-                                    params, smem, stream);
+    void* params[] = {&a, &p};
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        (void*)gather_steps_kernel, p.blocks, THREADS, params,
+        (size_t)p.smem, stream);
     if (e != cudaSuccess) return (int)e;
   }
   CHECK_LAUNCH();

@@ -44,7 +44,8 @@ Three kernels live in this module, each beside its plain PyTorch version:
   C*MW op words read (9.4 MB at C=16384, MW=144).  int64 fields travel as
   int32 pairs.  One launch of three regions (`pack_plan`); on the engine's
   path it reads K3's one allocation through its layout and writes into
-  it, so no PoolResult is made there.
+  it, so no PoolResult is made there; a shard's read ids are made global
+  in the same launch (`rebase`, the rule of `shard_rebase`).
 - K6 `_unpack_prep_full` (csrc/unpack_prep.cu) replaces `_unpack_prep_full`
   (mapad_tpu/ops/engine.py:291-323).  Bound: bytes, the 28 B of rank,
   code, four scores and penalty written per cell (14.7 MB at R=4096,
@@ -66,9 +67,9 @@ to the exact host searcher.
 The mesh (pool mode, kernel K9, parallel/pool_sharded.py): with more than
 one device the engine deals every block round-robin into D shards and
 each shard runs steps 2-3 above on its own device, stream and host thread
-(K4 or K6 + K7, then K9's shard body `search_shard`: K2 + K3 and the id
-rebase `shard_rebase`; K5, its own copy) over R/D reads, without waiting
-for the others (`ShardRunner`, as `pool_search_sharded` runs them); the caller stacks the
+(K4 or K6 + K7, K2 + K3 into K3's one allocation, K5 with the shard's
+id rebase, its own copy) over R/D reads, without waiting for the others
+(`ShardRunner`, as `pool_search_sharded` runs them); the caller stacks the
 shards' results, collects them shard by shard and un-deals them to input
 order, the reads the prep neutralized included.  As in mapad_tpu the mesh
 is every visible card when more than one is visible and MAPAD_SHARD is
@@ -101,8 +102,8 @@ from ..models.bounds import Continuous, TestBound
 from ..parallel.pool_sharded import (
     ShardRunner,
     _local_view,
+    _shard_rebase_plain,
     round_robin_permutation,
-    search_shard,
 )
 from ..parallel.sharding import canonical, make_mesh, replicate
 from ..utils.seq import BASE_TO_CODE, CODE_TO_BASE
@@ -477,12 +478,14 @@ def _pack_result_plain(res: PoolResult) -> torch.Tensor:
 
 class _PackArgs(ctypes.Structure):
     """Mirror of `struct PackArgs` in csrc/pack_result.cu: a pointer to each
-    PoolResult field, then the output's."""
+    PoolResult field, then the output's, the sizes and the shard's id
+    rebase."""
 
     _fields_ = [("f", ctypes.c_void_p * len(PoolResult._fields)),
                 ("out", ctypes.c_void_p)] + [
         (f, ctypes.c_int)
-        for f in ("C", "MW", "L", "R", "opbits", "K", "pb", "big")]
+        for f in ("C", "MW", "L", "R", "opbits", "K", "pb", "big", "rebase",
+                  "base", "r_local", "r_global")]
 
 
 PACK_THREADS = 256
@@ -532,7 +535,7 @@ class _PackPlanC(ctypes.Structure):
 class _K5(threading.local):
     """A thread's launches of K5: the entry point, typed once, and one
     argument block, its sizes and plan set (and checked) only when the
-    result's shape changes; a call sets the 15 pointers."""
+    result's shape changes; a call sets the 15 pointers and the rebase."""
 
     def __init__(self):
         self.args = _PackArgs()
@@ -559,8 +562,21 @@ class _K5(threading.local):
         self.plan = _PackPlanC(*pack_plan(C, MW, L, R, big))
         self.shape = (C, MW, L, R, big)
 
+    def set_rebase(self, rebase):
+        """`rebase`: None, or a shard's (base, r_local, r_global)."""
+        a = self.args
+        if rebase is None:
+            a.rebase = 0
+            return
+        base, r_local, r_global = rebase
+        require(0 <= base and base + r_local <= r_global < 2**31,
+                "shard slice outside the block")
+        a.rebase, a.base, a.r_local, a.r_global = 1, base, r_local, r_global
+
     def launch(self, big):
         LAUNCHES.add("pack_result_i64" if big else "pack_result")
+        if self.args.rebase:
+            LAUNCHES.add("pack_result_rebase")
         rc = self.fn(self.args, self.plan, current_raw_stream())
         if rc:
             check(rc, "pack_result")
@@ -592,6 +608,7 @@ def _pack_result(res: PoolResult) -> torch.Tensor:
     big = res.c_lower.dtype == torch.int64
     k = _k5_local()
     k.set_shape(C, MW, L, R, big)
+    k.set_rebase(None)
     out = torch.empty(k.words, dtype=torch.int32, device=res.c_read.device)
     k.ptrs[:] = [None if t is None else t.data_ptr() for t in res] + [
         out.data_ptr()]
@@ -599,19 +616,25 @@ def _pack_result(res: PoolResult) -> torch.Tensor:
     return out
 
 
-def _pack_buffer(buf, config, R, big) -> torch.Tensor:
+def _pack_buffer(buf, config, R, big, rebase=None) -> torch.Tensor:
     """K5 on K3's one allocation (`_result_layout`; the engine's path): the
     fields read through the layout's offsets, no PoolResult made, the
     packed words written into the allocation's `packed` part and returned
-    as a view of it.  On the CPU the plain version over the views."""
+    as a view of it.  `rebase`: a shard's (base, r_local, r_global), its
+    read ids made global while they are packed (`shard_rebase`'s rule).
+    On the CPU the plain versions over the views."""
     L, C, MW = config.lanes, config.max_chains, config.max_len + 16
     if not buf.is_cuda:
-        return _pack_result_plain(_pool_result(buf, config, R, big))
+        res = _pool_result(buf, config, R, big)
+        if rebase is not None:
+            res = _shard_rebase_plain(res, *rebase)
+        return _pack_result_plain(res)
     lay = _result_layout(L, C, MW, R, config.total_steps, bool(big))
     require(buf.dtype == torch.int32 and buf.numel() == lay.words,
             "pack_result takes K3's int32 allocation of this shape")
     k = _k5_local()
     k.set_shape(C, MW, L, R, big)
+    k.set_rebase(rebase)
     base = buf.data_ptr()
     k.ptrs[:] = [base + b for b in lay.pack]
     k.launch(big)
@@ -1496,36 +1519,32 @@ class DeviceSearchEngine:
     def _run_block(self, cfg, prep, params, shard=None):
         """Device thread, or shard `shard`'s thread (`ShardRunner`: its
         device and stream are current): upload + K4 (or K6 + K7), K2 + K3
-        (a shard's with its id rebase: `search_shard`), K5 and the async
-        copy of the packed result into pinned host memory on a side stream.
-        Returns (result spec, host buffer, copy-done event or None).
-        Unsharded, K5 packs K3's one allocation as it is (`_pack_buffer`),
-        and the spec comes from the shapes: no PoolResult is made.  The
-        step loop polls the card, so this thread's busy time is close to
-        the card's time for the invocation (`_stats["device_s"]`, summed
-        over the shards)."""
+        into K3's one allocation, K5 on it (`_pack_buffer`; a shard's read
+        ids made global in the same launch) and the async copy of the
+        packed result into pinned host memory on a side stream.  Returns
+        (result spec, host buffer, copy-done event or None); the spec comes
+        from the shapes: no PoolResult is made.  The step loop polls the
+        card, so this thread's busy time is close to the card's time for
+        the invocation (`_stats["device_s"]`, summed over the shards)."""
         t0 = time.perf_counter()
         if shard is None:
             dev, on_dev = self.device, self._on_device()
             copy_stream = getattr(self, "_copy_stream", None)
+            index, rebase = self.device_index, None
         else:
             dev, on_dev = self.mesh[shard], contextlib.nullcontext()
             copy_stream = self._shards.streams[shard][1]
+            index = self._mesh_index[shard]
         with on_dev:
             consts, kw = self._upload(prep, dev)
             R = prep["L"]
-            if shard is None:
-                big = self.device_index.big
-                buf = k_mismatch_search_pool2(self.device_index, *consts,
-                                              params, cfg, views=False, **kw)
-                packed = _pack_buffer(buf, cfg, R, big)
-                spec = _buffer_spec(cfg.lanes, cfg.max_chains,
-                                    cfg.max_len + 16, R, big)
-            else:
-                res = search_shard(self._mesh_index[shard], consts, params,
-                                   cfg, shard * R, self.n_shards * R, **kw)
-                packed = _pack_result(res)
-                spec = _result_spec(res)
+            if shard is not None:
+                rebase = (shard * R, R, self.n_shards * R)
+            buf = k_mismatch_search_pool2(index, *consts, params, cfg,
+                                          views=False, **kw)
+            packed = _pack_buffer(buf, cfg, R, index.big, rebase)
+            spec = _buffer_spec(cfg.lanes, cfg.max_chains, cfg.max_len + 16,
+                                R, index.big)
             if dev.type != "cuda":
                 out = spec, packed.numpy(), None
             else:

@@ -13,10 +13,12 @@ take the shards one by one (completion-order slot semantics hold within a
 shard).
 
 K9 is the whole of `pool_search_sharded`; its device part of its own is
-`shard_rebase`, launched once per shard per invocation after K3 (and, in
-the engine, before K5).  The engine's mesh path (ops/engine.py) runs the
-same shard body (`search_shard`) on the same per-shard threads and streams
-(`ShardRunner`), with each shard's upload, K4 and K5 around it.  Bound on the card: bytes, the sum of the shards'
+`shard_rebase`, launched once per shard per invocation after K3.  The
+engine's mesh path (ops/engine.py) runs its shards on the same per-shard
+threads and streams (`ShardRunner`), each shard's upload, K4, K2 + K3 into
+K3's one allocation and K5, which makes the ids global as it packs them
+(`_pack_buffer(..., rebase=...)`: no `shard_rebase` launch and no
+PoolResult there).  Bound on the card: bytes, the sum of the shards'
 K2 + K3 bytes plus the rebase's (C + L) * 4 * 2.  The plain version
 `pool_search_sharded_plain` runs the shards' plain pool loops one after
 another on their tensors' device and stacks them.
@@ -25,12 +27,14 @@ another on their tensors' device and stacks them.
 from __future__ import annotations
 
 import ctypes
+import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from .._build import LAUNCHES, check, cuda_function, require
+from .._build import (LAUNCHES, check, cuda_function, current_raw_stream,
+                      require)
 from ..ops import search_pool2 as sp2
 from ..ops.search_pool import PoolConfig, PoolResult
 from .sharding import canonical, shard_search_inputs
@@ -99,28 +103,58 @@ class _RebaseArgs(ctypes.Structure):
     ]
 
 
+class _Rebase(threading.local):
+    """A thread's launches of `shard_rebase`: the entry point, typed once,
+    and one argument block, its sizes checked only when the result's shape
+    changes; a call sets the three pointers and the shard's slice."""
+
+    def __init__(self):
+        self.args = _RebaseArgs()
+        self.fn = cuda_function("pool_sharded", "shard_rebase",
+                                [ctypes.POINTER(_RebaseArgs),
+                                 ctypes.c_void_p])
+        self.shape = None
+
+    def set_shape(self, res: PoolResult):
+        shape = (res.c_read.shape, res.lane_read.shape, res.next_read.shape)
+        if self.shape == shape:
+            return
+        for t in (res.c_read, res.lane_read, res.next_read):
+            require(t.is_cuda and t.dtype == torch.int32 and t.is_contiguous(),
+                    "shard_rebase takes contiguous int32 CUDA tensors")
+        require(res.c_read.ndim == res.lane_read.ndim == 1
+                and res.next_read.numel() == 1,
+                "c_read and lane_read are vectors, next_read one word")
+        self.args.C, self.args.L = res.c_read.shape[0], res.lane_read.shape[0]
+        self.shape = shape
+
+
+_rebase = None
+
+
 def shard_rebase(res: PoolResult, base: int, r_local: int,
                  r_global: int) -> PoolResult:
     """`shard_rebase` wrapper, in place on c_read, lane_read and next_read:
     the plain version for CPU tensors, the kernel for CUDA tensors (never a
     fallback)."""
+    global _rebase
     if not res.c_read.is_cuda:
         return _shard_rebase_plain(res, base, r_local, r_global)
-    for t in (res.c_read, res.lane_read, res.next_read):
-        require(t.is_cuda and t.dtype == torch.int32 and t.is_contiguous(),
-                "shard_rebase takes contiguous int32 CUDA tensors")
-    require(res.next_read.numel() == 1, "next_read is one word")
     require(0 <= base and base + r_local <= r_global < 2**31,
             "shard slice outside the block")
-    args = _RebaseArgs(res.c_read.data_ptr(), res.lane_read.data_ptr(),
-                       res.next_read.data_ptr(), res.c_read.shape[0],
-                       res.lane_read.shape[0], base, r_local, r_global)
-    fn = cuda_function("pool_sharded", "shard_rebase",
-                       [ctypes.POINTER(_RebaseArgs), ctypes.c_void_p])
+    if _rebase is None:
+        _rebase = _Rebase()
+    k = _rebase
+    k.set_shape(res)
+    a = k.args
+    a.c_read, a.lane_read, a.next_read = (res.c_read.data_ptr(),
+                                          res.lane_read.data_ptr(),
+                                          res.next_read.data_ptr())
+    a.base, a.r_local, a.r_global = base, r_local, r_global
     LAUNCHES.add("shard_rebase")
-    check(fn(ctypes.byref(args),
-             torch.cuda.current_stream(res.c_read.device).cuda_stream),
-          "shard_rebase")
+    rc = k.fn(a, current_raw_stream())
+    if rc:
+        check(rc, "shard_rebase")
     return res
 
 

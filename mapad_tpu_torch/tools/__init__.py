@@ -4,6 +4,9 @@ under tools/ that reach `pl.pallas_call`), ported to the H100 as P1-P4:
   bench_dma      P1: microseconds a step of a dependent scattered row gather
                  (the pool search's step), in one launch, one launch a step
                  and as plain PyTorch on the card
+  p1_time        P1 against variants of its source (its bulk-copy form, an
+                 older revision) in turns, its latency floor and the SM
+                 cycles of each phase of its step
   k2_phases      not a probe: SM cycles of each phase of the pool search's
                  step (K2, csrc/pool_search.cu) on the card
   k10_time       not a probe: K10 (csrc/search_batch.cu) timed against
@@ -30,11 +33,11 @@ Each runs as `python -m mapad_tpu_torch.tools.<name>` on the card; their
 functions take `device="cpu"` to run the plain versions (the tests do), and
 raise without a card otherwise.  This module holds what they share: the
 card's name, three ways to time a call (its host part among them), and
-the harness of k2_phases, k10_time, k7_time, k3_time and k45_time (a
-kernel against older or hand-edited copies of its source): the edit and
-parallel build of the variants with their ptxas figures, the in-turn
-order, the CUDA-event runs, the bit-for-bit check and the readout of the
-phases' SM cycles.
+the harness of k2_phases, k10_time, k7_time, k3_time, k45_time and
+p1_time (a kernel against older or hand-edited copies of its source):
+the edit and parallel build of the variants with their ptxas figures,
+the in-turn order, the CUDA-event runs, the bit-for-bit check and the
+readout of the phases' SM cycles.
 """
 
 from __future__ import annotations

@@ -22,8 +22,10 @@ with CUDA events in turns after a warm-up, each the median of `rounds`:
                    kept (the reference's `run_xla_gather` drops the acc term,
                    so its steps do not depend on each other)
 
-All three must give the same acc.  Each line names the card; the bound is
-L * W * 4 bytes a step over the card's memory rate.
+All three must give the same acc.  Each timed call's start event waits
+behind a spin on the card (`dma.busy_card`), so the events time the card
+and not the host's enqueue of the launch.  Each line names the card; the
+bound is L * W * 4 bytes a step over the card's memory rate.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from ..ops.fm import resolve_device
 from . import card
-from .dma import ACC_MOD, STEP_MUL, gather_steps
+from .dma import ACC_MOD, STEP_MUL, busy_card, gather_steps
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 FORMS = ("one_launch", "launch_per_step", "library")
@@ -78,6 +80,7 @@ def measure(rows, blk, steps: int, rounds: int = 5) -> dict:
     def library(ev):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        busy_card()
         a.record()
         acc = library_steps(rows, blk, steps)
         b.record()

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -44,10 +45,119 @@ class _GatherArgs(ctypes.Structure):
     _fields_ = [
         ("rows", ctypes.c_void_p), ("blk", ctypes.c_void_p),
         ("acc", ctypes.c_void_p), ("chk", ctypes.c_void_p),
-        ("partials", ctypes.c_void_p), ("NB", ctypes.c_int),
+        ("slots", ctypes.c_void_p), ("NB", ctypes.c_int),
         ("W", ctypes.c_int), ("L", ctypes.c_int), ("t0", ctypes.c_int),
         ("steps", ctypes.c_int),
     ]
+
+
+GATHER_THREADS = 256
+GATHER_WARPS = GATHER_THREADS // 32
+
+
+class GatherPlan(NamedTuple):
+    """Where P1 runs (mirrors `struct GatherPlan` in csrc/probe_dma.cu):
+    `blocks` blocks of GATHER_THREADS threads, all co-resident, each
+    gathering `lanes_per_block` rows a step into `smem` bytes of shared
+    memory; `stride` barrier slots a step parity (blocks rounded up to
+    even, so a 16-byte load reads two)."""
+
+    blocks: int
+    lanes_per_block: int
+    smem: int
+    stride: int
+
+
+def gather_plan(L: int, W: int, sms: int, per_sm,
+                smem_block: int) -> GatherPlan:
+    """P1's launch plan for L lanes of W-word rows on a card of `sms` SMs
+    whose block may take `smem_block` bytes of dynamic shared memory.
+    `per_sm(smem)`: the blocks of GATHER_THREADS threads and `smem` bytes
+    one SM holds at once (the occupancy query).  A block takes a lane a
+    warp and more where the card cannot hold that many blocks at once: the
+    fewest lanes a block (so the most blocks, each step's loads spread
+    over the most SMs) whose grid is all co-resident.  Raises where a
+    block's rows outgrow its shared memory first."""
+    require(L >= 1 and W >= 1, "P1 gathers at least one row of one word")
+    lpb = GATHER_WARPS
+    while True:
+        smem = lpb * W * 4
+        require(smem <= smem_block,
+                f"{lpb} rows of {W} words exceed a block's {smem_block} B "
+                "of shared memory")
+        fit = per_sm(smem) * sms
+        blocks = -(-L // lpb)
+        if blocks <= fit:
+            break
+        lpb = max(-(-L // max(fit, sms)), lpb + 1)
+    return GatherPlan(blocks, lpb, smem, (blocks + 1) & ~1)
+
+
+class _GatherPlanC(ctypes.Structure):
+    """Mirror of `struct GatherPlan` in csrc/probe_dma.cu."""
+
+    _fields_ = [(f, ctypes.c_int) for f in GatherPlan._fields]
+
+
+def slot_words(plan: GatherPlan) -> int:
+    """Words of P1's barrier slots: the steps run so far in word 0 (a
+    16-byte head), then 2 x `stride` slots of two words."""
+    return 4 + 4 * plan.stride
+
+
+_card_figures: dict = {}
+
+
+def gather_card_plan(dev, L: int, W: int) -> GatherPlan:
+    """`gather_plan` with the figures of the card `dev` (a few queries of
+    the runtime, no launch; the card's figures and each shape's occupancy
+    cached)."""
+    key = dev.index
+    fig = _card_figures.get(key)
+    if fig is None:
+        card = cuda_function("probe_dma", "gather_card",
+                             [ctypes.POINTER(ctypes.c_int)])
+        occupancy = cuda_function("probe_dma", "gather_occupancy",
+                                  [ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_int)])
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(dev):
+            check(card(out), "gather_card")
+        occ: dict = {}
+
+        def per_sm(smem):
+            if smem not in occ:
+                n = ctypes.c_int(0)
+                with torch.cuda.device(dev):
+                    check(occupancy(smem, ctypes.byref(n)),
+                          "gather_occupancy")
+                occ[smem] = n.value
+            return occ[smem]
+
+        fig = _card_figures[key] = (out[0], out[1], per_sm)
+    sms, smem_block, per_sm = fig
+    return gather_plan(L, W, sms, per_sm, smem_block)
+
+
+class _Slots(threading.local):
+    """A thread's barrier slots of P1, one zeroed tensor a card, grown
+    (zeroed anew) where a plan needs more: the tags in it go on from call
+    to call, so a call's first step never meets a slot its own tag has
+    marked.  Calls of one thread on one card follow each other on its
+    stream, or the caller orders them."""
+
+    def __init__(self):
+        self.by_card: dict = {}
+
+    def get(self, dev, words: int) -> torch.Tensor:
+        t = self.by_card.get(dev.index)
+        if t is None or t.numel() < words:
+            t = self.by_card[dev.index] = torch.zeros(
+                words, dtype=torch.int32, device=dev)
+        return t
+
+
+_slots = _Slots()
 
 
 def _xor_all(x: torch.Tensor) -> torch.Tensor:
@@ -111,35 +221,51 @@ def gather_steps(rows, blk, steps: int, t0: int = 0, acc=None, chk=None,
     """P1: `steps` dependent steps from step t0 (acc and chk carried in
     place; new zeros when None).  Returns (acc, chk).
 
-    On the card: one cooperative launch of all steps, or with
-    `launch_per_step` one launch a step queued from one host loop (the form
-    the pool search runs in).  `events`, a list, gets a (start, end) pair of
-    timing events recorded around the launches.  `acc` must be what an
-    earlier call returned (its int32 part feeds the indices)."""
+    On the card: one launch of all steps, or with `launch_per_step` one
+    launch a step queued from one host loop.  `events`, a list, gets a (start, end) pair of timing events recorded
+    around the launches.  `acc` must be what an earlier call returned (its
+    int32 part feeds the indices)."""
     acc, chk = _gather_state(rows, blk, steps, t0, acc, chk)
     if not rows.is_cuda:
         return gather_steps_plain(rows, blk, steps, t0, acc, chk)
     fn = cuda_function("probe_dma", "probe_dma_gather",
-                       [ctypes.POINTER(_GatherArgs), ctypes.c_int,
+                       [ctypes.POINTER(_GatherArgs),
+                        ctypes.POINTER(_GatherPlanC), ctypes.c_int,
                         ctypes.c_void_p])
     nb, width = rows.shape
     lanes = blk.shape[0]
-    partials = torch.empty(2 * lanes, dtype=torch.int32, device=rows.device)
+    plan = gather_card_plan(rows.device, lanes, width)
+    slots = _slots.get(rows.device, slot_words(plan))
     args = _GatherArgs(rows.data_ptr(), blk.data_ptr(), acc.data_ptr(),
-                       chk.data_ptr(), partials.data_ptr(), nb, width, lanes,
+                       chk.data_ptr(), slots.data_ptr(), nb, width, lanes,
                        t0, steps)
+    plan_c = _GatherPlanC(*plan)
     stream = torch.cuda.current_stream()
+    LAUNCHES.add("probe_dma", steps if launch_per_step else 1)
     if events is not None:
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
+        busy_card()
         ev[0].record(stream)
-    LAUNCHES.add("probe_dma", steps if launch_per_step else 1)
-    check(fn(ctypes.byref(args), int(launch_per_step), stream.cuda_stream),
-          "probe_dma")
+    rc = fn(ctypes.byref(args), plan_c, int(launch_per_step),
+            stream.cuda_stream)
     if events is not None:
         ev[1].record(stream)
         events.append(ev)
+    check(rc, "probe_dma")
     return acc, chk
+
+
+SPIN_CYCLES = 200_000  # ~0.1 ms of the card's clock
+
+
+def busy_card():
+    """Queue a spin of SPIN_CYCLES on the current stream (where torch has
+    one), so that a timing event recorded next waits for the card, not for
+    the host to enqueue what follows it."""
+    sleep = getattr(torch.cuda, "_sleep", None)
+    if sleep is not None:
+        sleep(SPIN_CYCLES)
 
 
 # --- P2-P4: a slice staged through shared memory ----------------------------

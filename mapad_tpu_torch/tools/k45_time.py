@@ -35,11 +35,18 @@ For each case and build it prints:
            bit for bit against the checkout's wrapper;
 
 and for K5 the engine's host time an invocation from the start of K3's
-wrapper to K5's return: with the PoolResult views K3's wrapper makes and
-the older K5 wrapper (the parent's path), with the views and the
-checkout's PoolResult entry, and without views (`views=False`, then
-`_pack_buffer`: the engine's path now).  `--variants-only` times the
-variants alone (the checkout's builds give the bit-exact reference).
+wrapper to K5's return, each path in turns: with the PoolResult views K3's
+wrapper makes and the older K5 wrapper, with the views and the checkout's
+PoolResult entry, and without views (`views=False`, then `_pack_buffer`:
+the engine's path now); and a mesh shard's (shard 1 of two), with the
+views, `shard_rebase` (through the wrapper as it stood at f0659d3, and
+bound once) and the PoolResult entry (the mesh path up to f0659d3), and
+without views, K5 rebasing as it packs (the mesh path now).  K5's bare
+launch also runs with that rebase ("checkout rebase"), against the plain
+rebase and pack.  Last, `shard_rebase` alone on the int32 case's result,
+its wrapper bound once and as it stood at f0659d3, in turns, each split
+as the wrappers above.  `--variants-only` times the variants alone (the
+checkout's builds give the bit-exact reference).
 """
 from __future__ import annotations
 
@@ -98,10 +105,12 @@ class K5Build:
             [ctypes.POINTER(_ParentPackArgs), ctypes.c_longlong,
              ctypes.c_void_p])
 
-    def bare(self, buf, res, cfg, R, big):
+    def bare(self, buf, res, cfg, R, big, rebase=None):
         """-> (call, out): the entry on the result, argument block made
         once (the planned form on K3's allocation, the older on the
-        PoolResult's views)."""
+        PoolResult's views); `rebase`, a shard's (base, r_local, r_global),
+        for a build whose `PackArgs` ends in the rebase (a planned build
+        without it reads the block's head, as its own struct is)."""
         from ..ops import engine as eng
         from ..ops import search_pool2 as sp2
         from ..ops.prep import _wire_opbits
@@ -117,6 +126,9 @@ class K5Build:
             ptrs[:] = [buf.data_ptr() + b for b in lay.pack]
             a.C, a.MW, a.L, a.R = C, MW, L, R
             a.opbits, a.K, a.pb, a.big = opbits, K, pb, int(big)
+            if rebase is not None:
+                a.rebase = 1
+                a.base, a.r_local, a.r_global = rebase
             plan = eng._PackPlanC(*eng.pack_plan(C, MW, L, R, big))
             at = lay.at["packed"]
             out = buf[at : at + total]
@@ -306,13 +318,14 @@ def _timed_wrapper(name, call, flush):
 
 def _bare_in_turns(what, names, setup, want, flush):
     """Every build's bare entry in turns, each bit for bit against
-    `want`."""
+    `want` (a tensor, or {name: tensor})."""
     times = {}
     for name in in_turns(names):
         call, out = setup(name)
         call()
         torch.cuda.synchronize()
-        same_bits((out,), (want,), f"{what} {name}")
+        same_bits((out,), (want[name] if isinstance(want, dict) else want,),
+                  f"{what} {name}")
         runs = [x / REPS for x in event_runs(
             lambda: [call() for _ in range(REPS)], 3)]
         cold = sorted(cold_runs(call, flush))[1]
@@ -376,12 +389,42 @@ def _k4_case(eng, cs, builds, timed, flush, case):
                    want[5], flush)
 
 
+def _parent_rebase(tps, res, base, r_local, r_global):
+    """`shard_rebase`'s wrapper as it stood (f0659d3
+    parallel/pool_sharded.py): the checks, a new argument block and the
+    entry's lookup a call, a `torch.cuda.Stream` object for the stream."""
+    for t in (res.c_read, res.lane_read, res.next_read):
+        _build.require(t.is_cuda and t.dtype == torch.int32
+                       and t.is_contiguous(),
+                       "shard_rebase takes contiguous int32 CUDA tensors")
+    _build.require(res.next_read.numel() == 1, "next_read is one word")
+    _build.require(0 <= base and base + r_local <= r_global < 2**31,
+                   "shard slice outside the block")
+    args = tps._RebaseArgs(res.c_read.data_ptr(), res.lane_read.data_ptr(),
+                           res.next_read.data_ptr(), res.c_read.shape[0],
+                           res.lane_read.shape[0], base, r_local, r_global)
+    fn = _build.cuda_function("pool_sharded", "shard_rebase",
+                              [ctypes.POINTER(tps._RebaseArgs),
+                               ctypes.c_void_p])
+    _build.LAUNCHES.add("shard_rebase")
+    _build.check(fn(ctypes.byref(args), torch.cuda.current_stream(
+        res.c_read.device).cuda_stream), "shard_rebase")
+    return res
+
+
 def _k5_case(eng, sp2, cs, builds, timed, flush, case):
+    from ..parallel import pool_sharded as tps
+
     what, state, cfg, R, big = case
     L, C, MW = cfg.lanes, cfg.max_chains, cfg.max_len + 16
     res = sp2._extract_chains_cuda(*state, cfg)
     buf = sp2._extract_chains_cuda(*state, cfg, views=False)
-    want = eng._pack_buffer(buf, cfg, R, big)
+    # a copy: the packed part of `buf` is written again by every call
+    want = eng._pack_buffer(buf, cfg, R, big).clone()
+    # shard 1 of two of R reads: its ids made global while they are packed
+    rebase = (R, R, 2 * R)
+    want_rebased = eng._pack_result_plain(tps._shard_rebase_plain(
+        sp2._extract_chains_cuda(*state, cfg), *rebase))
     torch.cuda.synchronize()
     print(f"K5 {what}: bound {cs.bound_ms(cs.nbytes(*res, want)):.5f} ms "
           f"(every field read, the words written); plan "
@@ -391,15 +434,19 @@ def _k5_case(eng, sp2, cs, builds, timed, flush, case):
     for name in timed:
         b = builds[name]
         if b.planned and name == CHECKOUT:
-            calls = {"buffer entry": lambda: eng._pack_buffer(buf, cfg, R,
-                                                              big),
-                     "PoolResult entry": lambda: eng._pack_result(res)}
+            calls = {"buffer entry": (lambda: eng._pack_buffer(buf, cfg, R,
+                                                               big), want),
+                     "buffer entry with a shard's rebase": (
+                         lambda: eng._pack_buffer(buf, cfg, R, big, rebase),
+                         want_rebased),
+                     "PoolResult entry": (lambda: eng._pack_result(res),
+                                          want)}
         elif b.planned:
             continue
         else:
-            calls = {"wrapper": lambda b=b: b.wrapper(res)}
-        for entry, call in calls.items():
-            same_bits((call(),), (want,), f"K5 {name} {entry}")
+            calls = {"wrapper": (lambda b=b: b.wrapper(res), want)}
+        for entry, (call, expect) in calls.items():
+            same_bits((call(),), (expect,), f"K5 {name} {entry}")
             _timed_wrapper(f"{name} {entry}", call, flush)
         if name == CHECKOUT:
             k = eng._k5
@@ -412,6 +459,7 @@ def _k5_case(eng, sp2, cs, builds, timed, flush, case):
                     k.set_shape(C, MW, L, R, big)),
                 "pointers": lambda: k.ptrs.__setitem__(
                     slice(None), [base + o for o in lay.pack]),
+                "rebase": lambda: k.set_rebase(rebase),
                 "view of the packed part": lambda: buf[at : at + 100],
                 "launch": lambda: k.fn(k.args, k.plan,
                                        _build.current_raw_stream()),
@@ -434,23 +482,77 @@ def _k5_case(eng, sp2, cs, builds, timed, flush, case):
             f"{k2} {host_us(v, HOST_REPS):.1f}" for k2, v in parts.items()),
             flush=True)
 
-    # the engine's host time an invocation, K3's wrapper to K5's return
+    # the engine's host time an invocation, K3's wrapper to K5's return;
+    # and a mesh shard's (shard 1 of two): the parent's path (views, the
+    # rebase through its older wrapper, the PoolResult entry), and the
+    # engine's now (no views, the buffer entry with the rebase)
     older = [n for n in builds if not builds[n].planned]
     paths = {"views + PoolResult entry": lambda: eng._pack_result(
                  sp2._extract_chains_cuda(*state, cfg)),
              "no views + buffer entry": lambda: eng._pack_buffer(
                  sp2._extract_chains_cuda(*state, cfg, views=False), cfg, R,
-                 big)}
+                 big),
+             "mesh shard, views + the parent's shard_rebase wrapper + "
+             "PoolResult entry": lambda: eng._pack_result(_parent_rebase(
+                 tps, sp2._extract_chains_cuda(*state, cfg), *rebase)),
+             "mesh shard, views + shard_rebase + PoolResult entry":
+                 lambda: eng._pack_result(tps.shard_rebase(
+                     sp2._extract_chains_cuda(*state, cfg), *rebase)),
+             "mesh shard, no views + buffer entry with the rebase":
+                 lambda: eng._pack_buffer(
+                     sp2._extract_chains_cuda(*state, cfg, views=False), cfg,
+                     R, big, rebase)}
     for n in older:
         paths[f"views + {n}'s wrapper"] = (
             lambda b=builds[n]: b.wrapper(sp2._extract_chains_cuda(*state,
                                                                    cfg)))
-    print(f"  engine, K3's wrapper to K5's return, host us an invocation: "
-          + ", ".join(f"{k2} {host_us(v, 200):.1f}"
-                      for k2, v in paths.items()), flush=True)
-    _bare_in_turns(f"K5 {what}", timed,
-                   lambda n: builds[n].bare(buf, res, cfg, R, big), want,
-                   flush)
+    host = {k2: [] for k2 in paths}
+    for k2 in in_turns(paths):
+        host[k2].append(host_us(paths[k2], 200))
+    print(f"  engine, K3's wrapper to K5's return, host us an invocation "
+          f"(in turns): " + ", ".join(
+              f"{k2} {', '.join(f'{x:.1f}' for x in v)}"
+              for k2, v in host.items()), flush=True)
+    names = list(timed)
+    if CHECKOUT in names:
+        names.insert(names.index(CHECKOUT) + 1, f"{CHECKOUT} rebase")
+    _bare_in_turns(
+        f"K5 {what}", names,
+        lambda n: builds[n.split()[0]].bare(
+            buf, res, cfg, R, big, rebase if n.endswith("rebase") else None),
+        {n: want_rebased if n.endswith("rebase") else want for n in names},
+        flush)
+    if not big:
+        _rebase_case(tps, res, R, rebase, flush)
+
+
+def _rebase_case(tps, res, R, rebase, flush):
+    """`shard_rebase` on a shard's PoolResult (the int32 K5 case's): the
+    wrapper bound once and the parent's, in turns, each split into events,
+    host and card; bit for bit against the plain version."""
+    from ..ops.search_pool import PoolResult
+
+    def fresh():
+        return PoolResult(*[None if t is None else t.clone() for t in res])
+
+    want = tps._shard_rebase_plain(fresh(), *rebase)
+    for name, fn in (("bound once", tps.shard_rebase),
+                     ("the parent's wrapper",
+                      lambda *a: _parent_rebase(tps, *a))):
+        got = fn(fresh(), *rebase)
+        same_bits((got.c_read, got.lane_read, got.next_read),
+                  (want.c_read, want.lane_read, want.next_read),
+                  f"shard_rebase {name}")
+    # timed at base 0, where the rewrite leaves its result as it is
+    a = fresh()
+    wrappers = {"bound once": lambda: tps.shard_rebase(a, 0, R, 2 * R),
+                "the parent's wrapper": lambda: _parent_rebase(
+                    tps, a, 0, R, 2 * R)}
+    C, L = res.c_read.shape[0], res.lane_read.shape[0]
+    print(f"shard_rebase C={C} L={L}: bound "
+          f"{(C + L) * 4 * 2 / 3.35e12 * 1e3:.6f} ms", flush=True)
+    for name in in_turns(wrappers):
+        _timed_wrapper(f"shard_rebase, {name}", wrappers[name], flush)
 
 
 def main(argv=None) -> int:

@@ -1188,6 +1188,78 @@ def test_shard_rebase_kernel(cuda):
         assert int(got.next_read) == r_local // 2 + base
 
 
+def test_shard_rebase_kernel_bound_once(cuda):
+    """The wrapper binds once a thread: its argument block stays, set anew
+    a call (each shard's base) and re-checked where the shape changes;
+    every call against the plain version."""
+    from mapad_tpu_torch.ops.search_pool import PoolResult
+    from mapad_tpu_torch.parallel import pool_sharded as tps
+
+    rng = np.random.default_rng(4)
+    args = None
+    for C, L, R, D in ((16384, 512, 8192, 2), (16384, 512, 8192, 2),
+                       (300, 7, 50, 4), (16384, 512, 8192, 2)):
+        for d in range(D):
+            c_read = torch.from_numpy(rng.integers(-1, R, C, dtype=np.int32))
+            lane_read = torch.from_numpy(rng.integers(0, R + 1, L,
+                                                      dtype=np.int32))
+            outs = []
+            for rebase, dev in ((tps.shard_rebase, cuda),
+                                (tps._shard_rebase_plain, "cpu")):
+                res = PoolResult(*[None] * len(PoolResult._fields))._replace(
+                    c_read=c_read.to(dev), lane_read=lane_read.to(dev),
+                    next_read=torch.tensor(R, dtype=torch.int32,
+                                           device=dev))
+                outs.append(rebase(res, d * R, R, D * R))
+            torch.cuda.synchronize()
+            got, want = outs
+            _equal((got.c_read.cpu(), got.lane_read.cpu(),
+                    got.next_read.cpu()),
+                   (want.c_read, want.lane_read, want.next_read),
+                   f"shard_rebase C={C} shard {d}")
+            assert args is None or tps._rebase.args is args
+            args = tps._rebase.args
+    with pytest.raises(ValueError, match="outside the block"):
+        tps.shard_rebase(got, 8, 8, 15)
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+@pytest.mark.parametrize("big", [False, True])
+@pytest.mark.parametrize("shape", PACK_EDGES[:3], ids=str)
+def test_pack_result_kernel_with_a_shards_rebase(cuda, shape, big, shard):
+    """K5 on K3's allocation with shard `shard` of two's rebase against the
+    plain rebase and pack; then without it, the same buffer packed as
+    before (the rebase leaves the allocation as it was)."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops import engine as teng
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+    from mapad_tpu_torch.ops.search_pool import PoolConfig, PoolResult
+    from mapad_tpu_torch.parallel import pool_sharded as tps
+
+    L, C, max_len, R = shape
+    cfg = PoolConfig(max_len=max_len, lanes=L, total_steps=64,
+                     read_step_cap=60, max_chains=C)
+    buf = sp2._alloc_result(cfg, R, big, cuda)
+    res = _random_result(buf, cfg, R, big, seed=C + shard)
+    rng = np.random.default_rng(C)
+    res.c_read.copy_(torch.from_numpy(rng.integers(-1, R, C,
+                                                   dtype=np.int32)))
+    res.lane_read.copy_(torch.from_numpy(rng.integers(0, R + 1, L,
+                                                      dtype=np.int32)))
+    res.next_read.fill_(int(rng.integers(0, R + 1)))
+    rebase = (shard * R, R, 2 * R)
+    host = PoolResult(*[None if f is None else f.cpu() for f in res])
+    plain = teng._pack_result_plain(host)
+    want = teng._pack_result_plain(tps._shard_rebase_plain(host, *rebase))
+    LAUNCHES.reset()
+    got = teng._pack_buffer(buf, cfg, R, big, rebase).cpu()
+    again = teng._pack_buffer(buf, cfg, R, big).cpu()
+    torch.cuda.synchronize()
+    assert LAUNCHES.get("pack_result_rebase") == 1
+    assert LAUNCHES.get("pack_result_i64" if big else "pack_result") == 2
+    _equal((got, again), (want, plain), "pack_result with the rebase")
+
+
 def _sharded_prep(eng, cfg, prep, dev):
     """One engine prep uploaded to `dev` and unpacked -> the prep dict of
     `pool_search_sharded` (the packed rows, or the dense arrays)."""
@@ -1259,9 +1331,10 @@ def _sharded_engine_run(fmd, dev, mesh, monkeypatch, shard="1"):
 
 
 def test_sharded_engine_on_the_card_equals_cpu(fmd, cuda, monkeypatch):
-    """The mesh path of the engine (each shard's upload, K4, K2 + K3, the
-    rebase, K5 and copy on its own thread and streams) with two shards on
-    one card against the same mesh on the CPU's plain versions."""
+    """The mesh path of the engine (each shard's upload, K4, K2 + K3, K5
+    with the shard's id rebase and copy on its own thread and streams) with
+    two shards on one card against the same mesh on the CPU's plain
+    versions."""
     from mapad_tpu_torch._build import LAUNCHES
     from torch_port_helpers import packed_equal
 
@@ -1269,7 +1342,9 @@ def test_sharded_engine_on_the_card_equals_cpu(fmd, cuda, monkeypatch):
     LAUNCHES.reset()
     eng_g, esc_g, hits_g = _sharded_engine_run(fmd, card, [card] * 2,
                                                monkeypatch)
-    assert LAUNCHES.get("shard_rebase") == 2 * eng_g._stats["batches"]
+    # each shard's K5 makes its ids global: no shard_rebase launch
+    assert LAUNCHES.get("shard_rebase") == 0
+    assert LAUNCHES.get("pack_result_rebase") == 2 * eng_g._stats["batches"]
     eng_c, esc_c, hits_c = _sharded_engine_run(
         fmd, "cpu", [torch.device("cpu")] * 2, monkeypatch)
     assert eng_g.n_shards == eng_c.n_shards == 2
@@ -1351,6 +1426,29 @@ def test_gather_steps_kernel(probe_cuda, nb, lanes, width, steps, lo, hi):
     _gather_equal(got, want, "gather_steps")
     if hi == 16_000 and lo == 0:
         assert float(got[0]) > 2**24
+
+
+@pytest.mark.parametrize("steps", [1, 200, 512])
+def test_gather_steps_kernel_in_every_form(probe_cuda, steps):
+    """P1 at the probe's shape (L=1024, W=128, path 1's index rows) in
+    bench_dma's three forms against the plain version, each called again
+    from t0 = 0 (the barrier's slots then hold the tags of the calls
+    before: the tags must go on, not repeat); and at W = 33 (rows not
+    16-byte aligned: 4-byte copies)."""
+    from mapad_tpu_torch.tools import bench_dma, dma
+
+    for nb, width in ((8197, 128), (4096, 33)):
+        rows, blk = bench_dma.make_inputs(nb, width, 1024, seed=steps,
+                                          device=probe_cuda)
+        want = dma.gather_steps_plain(rows, blk, steps)
+        for rep in range(2):
+            one = dma.gather_steps(rows, blk, steps)
+            queued = dma.gather_steps(rows, blk, steps, launch_per_step=True)
+            torch.cuda.synchronize()
+            for what, got in (("one launch", one), ("queued", queued)):
+                _gather_equal(got, want, (what, rep, width))
+        lib = bench_dma.library_steps(rows, blk, steps)
+        assert torch.equal(lib.view(torch.int32), want[0].view(torch.int32))
 
 
 def test_gather_steps_launch_per_step_equals_one_launch(probe_cuda):

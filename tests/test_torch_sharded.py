@@ -241,6 +241,92 @@ def test_sharded_engine_packed_equals_unsharded(mc_fixture, monkeypatch):
     assert te._stats["batches"] == 1 and len(te._stats["shard_steps"]) == 2
 
 
+def test_mesh_path_packs_k3s_allocation_with_the_rebase(mc_fixture,
+                                                        monkeypatch):
+    """The engine's mesh path over [cpu] * 2: each shard's K5 packs K3's
+    one allocation with its own rebase, (d * R, R, 2 * R) for shard d of R
+    reads; no `shard_rebase`, no `search_shard`, no PoolResult entry; the
+    hits and escalations those of the unsharded engine."""
+    from mapad_tpu_torch.ops import engine as teng
+
+    _jfmd, tfmd, seqs = mc_fixture
+    recs = records("mapad_tpu_torch", seqs)
+    monkeypatch.setenv("MAPAD_BLOCK_READS", "64")
+    monkeypatch.setenv("MAPAD_SHARD", "0")
+    s_esc, s_hits = _stream_out(_t_engine(tfmd, None, packed_hits=True)
+                                .search_chunk(recs, lazy_fallback=True))
+
+    def refuse(*a, **kw):
+        raise AssertionError("not on the engine's mesh path")
+
+    for mod, name in ((tps, "shard_rebase"), (tps, "search_shard"),
+                      (teng, "_pack_result"), (teng, "_result_spec")):
+        monkeypatch.setattr(mod, name, refuse)
+    seen = []
+    pack = teng._pack_buffer
+
+    def spy(buf, config, R, big, rebase=None):
+        seen.append(rebase)
+        return pack(buf, config, R, big, rebase)
+
+    monkeypatch.setattr(teng, "_pack_buffer", spy)
+    monkeypatch.setenv("MAPAD_SHARD", "1")
+    te = _t_engine(tfmd, [CPU] * 2, packed_hits=True)
+    t_esc, t_hits = _stream_out(te.search_chunk(recs, lazy_fallback=True))
+    assert sorted(seen) == [(0, 32, 64), (32, 32, 64)]
+    assert t_esc == s_esc
+    for i, (a, b) in enumerate(zip(s_hits, t_hits)):
+        assert packed_equal(a, b), i
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+@pytest.mark.parametrize("big", [False, True])
+def test_pack_buffer_with_a_shards_rebase(shard, big):
+    """`_pack_buffer(..., rebase=...)` on the CPU, word for word: the plain
+    rebase of the allocation's views, then the plain pack; unpacked, its
+    ids follow the rule of mapad_tpu's pool_sharded.py:122-135 and every
+    other field is the pack without the rebase's."""
+    from mapad_tpu_torch.ops.engine import (
+        _buffer_spec,
+        _pack_buffer,
+        _pack_result_plain,
+    )
+    from mapad_tpu_torch.ops.prep import _unpack_result
+    from mapad_tpu_torch.ops.search_pool2 import _alloc_result, _pool_result
+
+    L, C, max_len, R, D = 8, 37, 21, 24, 2
+    cfg = TPoolConfig(max_len=max_len, lanes=L, total_steps=64,
+                      read_step_cap=60, max_chains=C, track_read_steps=True)
+    buf = _alloc_result(cfg, R, big, CPU)
+    rng = np.random.default_rng(7 + shard + 2 * big)
+    for f in _pool_result(buf, cfg, R, big):
+        v = rng.integers(0, 2, f.shape) if f.dtype == torch.bool else \
+            rng.integers(-2**20, 2**20, f.shape)
+        f.copy_(torch.from_numpy(np.asarray(v)).to(f.dtype))
+    res = _pool_result(buf, cfg, R, big)
+    res.c_read.copy_(torch.from_numpy(rng.integers(-1, R, C)))
+    res.lane_read.copy_(torch.from_numpy(rng.integers(0, R + 1, L)))
+    res.next_read.fill_(int(rng.integers(0, R + 1)))
+    rebase = (shard * R, R, D * R)
+    want = _pack_result_plain(tps._shard_rebase_plain(
+        _pool_result(buf.clone(), cfg, R, big), *rebase))
+    plain = _pack_buffer(buf.clone(), cfg, R, big)
+    got = _pack_buffer(buf.clone(), cfg, R, big, rebase)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    spec = _buffer_spec(L, C, max_len + 16, R, big)
+    back = _unpack_result(spec, got.numpy())
+    before = _unpack_result(spec, plain.numpy())
+    base = shard * R
+    c, lane = np.asarray(before.c_read), np.asarray(before.lane_read)
+    assert np.array_equal(back.c_read, np.where(c >= 0, c + base, -1))
+    assert np.array_equal(back.lane_read,
+                          np.where(lane < R, lane + base, D * R))
+    assert int(back.next_read) == int(before.next_read) + base
+    for name, b, p in zip(back._fields, back, before):
+        if name not in ("c_read", "lane_read", "next_read"):
+            assert np.array_equal(np.asarray(b), np.asarray(p)), name
+
+
 def test_bid_rle_overflow_goes_to_the_host_under_its_own_index(monkeypatch):
     """A read whose Bi-D needs more runs than the RLE upload carries is
     neutralized on the card and routed to the host at collect time.  With

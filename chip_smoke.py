@@ -7,8 +7,8 @@
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
-the card at its path's shapes, then drives eight paths (paths 1-6 on one
-card, MAPAD_SHARD=0, whatever the machine has):
+the card at its path's shapes, then drives ten paths (paths 1-6, 9 and 10
+on one card, MAPAD_SHARD=0, whatever the machine has):
 
   path 1 (small genome, int32): generate a 4 Mbp repeat-rich genome and
   16,384 aDNA-damaged reads from a seed (bench.py's generators, copied) ->
@@ -58,7 +58,21 @@ card, MAPAD_SHARD=0, whatever the machine has):
   localhost, each `run_multihost` with a `DeviceSearchEngine` on cuda:0
   over path 1's reads in 8,192-read chunks (one chunk each); process 0
   merges the BAM shards, which equal `map --engine native --batch_size
-  8192`'s BAM.
+  8192`'s BAM;
+
+  path 9 (distributed mode): `map --dispatcher --batch_size 8192` in a
+  subprocess on path 1's workload with two workers on cuda:0, the CLI's
+  `worker` in a subprocess and a `Worker` on a thread of this process (its
+  launches counted: K4, K2 with K1 inline, K3, K5), one chunk each; the
+  BAM equals `map --seed 0 --engine native --batch_size 8192`'s (the
+  dispatcher's position seed is 0) in read-name order;
+
+  path 10 (CRAM input, the mapAD-native index): path 1's reads as a CRAM
+  3.1 (rANS-Nx16, arith, fqzcomp and tok3 blocks) and path 1's genome
+  indexed by `index --mapad_format` with its bundle removed, so that
+  `load_index` reads mapAD's own files; `map --engine device` at the
+  defaults, its BAM equal to `map --engine native`'s on the same CRAM and
+  index (the CRAM decode timed on its own line: pure Python on the host).
 
 Before the paths, K8 runs against its plain version at full width with a
 step budget just above the per-read cap, so that the check's reads force
@@ -110,7 +124,9 @@ and its PTX/SASS dump.
 
 Paths 1 and 2 map their reads again with `map --engine native` (the exact
 host C++ search); the BAMs of paths 1, 3, 4 and 7 equal path 1's native
-BAM (path 8's the native BAM of its chunks) and path 2's its own, record for record except XD (a timing); the
+BAM (path 8's the native BAM of its chunks, path 9's that of its chunks
+with seed 0, path 10's the native engine's on its own CRAM and index) and
+path 2's its own, record for record except XD (a timing); the
 blocks of paths 4, 5 and 6 equal the native engine's hits.  The launch counts are
 set to 0 just before each path is driven and read just after.
 
@@ -127,8 +143,10 @@ from __future__ import annotations
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -171,6 +189,11 @@ K9_READS = 512
 # a failed process fails the smoke within this many seconds
 PATH8_CHUNK = 8192
 PATH8_TIMEOUT = 300
+# path 9: the dispatcher's chunks (two, one a worker) and the time within
+# which every process and the worker's thread must have ended
+PATH9_TIMEOUT = 300
+# path 10: the CRAM's records a container (four containers)
+CRAM_CHUNK = 4096
 # the probe phase: P1 at the TPU probe's defaults (W, L, T, and NB = 2^20,
 # a 512 MiB table), checked once more over T = 512 steps (acc passes 2^24)
 PROBE_W, PROBE_L, PROBE_T, PROBE_T_LONG = 128, 1024, 200, 512
@@ -1295,6 +1318,223 @@ def path8(cli, fasta, fastq, native_bam, seed, device="cuda:0"):
     return secs
 
 
+class _Lines:
+    """A process's output, read on a thread of its own (the pipe never
+    fills); `wait_for` blocks until a line holds a text."""
+
+    def __init__(self, proc):
+        self.proc, self.lines, self.done = proc, [], False
+        self.cond = threading.Condition()
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        for raw in self.proc.stdout:
+            with self.cond:
+                self.lines.append(raw.decode(errors="replace").rstrip())
+                self.cond.notify_all()
+        with self.cond:
+            self.done = True
+            self.cond.notify_all()
+
+    def wait_for(self, text, timeout, what, other=None):
+        """Until a line holds `text`; fails at the timeout, when this
+        process ends first, or when `other` (a _Lines) ends."""
+        end = time.perf_counter() + timeout
+        with self.cond:
+            while not any(text in line for line in self.lines):
+                left = end - time.perf_counter()
+                gone = other is not None and other.proc.poll() is not None
+                if self.done or gone or left <= 0:
+                    raise AssertionError(
+                        f"{what}: no {text!r} in its output:\n"
+                        + "\n".join(self.lines[-40:])
+                        + (f"\nthe other process:\n{other.tail()}"
+                           if gone else ""))
+                self.cond.wait(min(left, 1.0))
+
+    def tail(self, n=40):
+        self.thread.join(timeout=10)
+        with self.cond:
+            return "\n".join(self.lines[-n:])
+
+
+def path9(torch, cli, fasta, fastq, card, kernels):
+    """Distributed mode on the card: `map --dispatcher` in a subprocess
+    with two workers on cuda:0, the CLI's `worker` in a subprocess and a
+    `Worker` on a thread of this process (its launches counted), one
+    8,192-read chunk each.  The BAM equals `map --engine native` of the
+    same chunks with the dispatcher's position seed (0): the position
+    drawn for a read with several best hits is seeded by the seed, the
+    chunk's id and the read's place in it.  The dispatcher writes a chunk
+    as its result comes in, so the records are compared in name order.  A
+    process or thread that fails or hangs fails the smoke.  -> the
+    in-process worker's launch counts."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.distributed.worker import Worker
+
+    native = os.path.join(WORK, f"native_{PATH8_CHUNK}_seed0.bam")
+    t = time.perf_counter()
+    if cli.main(["--seed", "0", "--threads", "0", "map", "-r", fastq, "-g",
+                 fasta, "-o", native, "--force_overwrite", "--engine",
+                 "native", "--batch_size", str(PATH8_CHUNK),
+                 *MAP_FLAGS]) != 0:
+        raise SystemExit("native map failed")
+    log(f"path 9: map --seed 0 --engine native --batch_size {PATH8_CHUNK} "
+        f"{time.perf_counter() - t:.2f} s")
+    out = os.path.join(WORK, "distributed.bam")
+    port = str(free_port())
+    cmd = [sys.executable, "-m", "mapad_tpu_torch.cli", "--port", port]
+    env = dict(os.environ, MAPAD_SHARD="0")
+    procs, errors = [], []
+
+    def start(argv):
+        procs.append(subprocess.Popen(
+            cmd + argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+        return _Lines(procs[-1])
+
+    def serve(worker):
+        try:
+            worker.run()
+        except Exception as e:  # noqa: BLE001 - fails the path below
+            errors.append(e)
+
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        dispatcher = start(["map", "--dispatcher", "--batch_size",
+                            str(PATH8_CHUNK), "-r", fastq, "-g", fasta, "-o",
+                            out, "--force_overwrite", *MAP_FLAGS])
+        dispatcher.wait_for("Dispatcher listening", PATH9_TIMEOUT,
+                            "path 9 dispatcher")
+        cli_worker = start(["worker", "--host", "127.0.0.1"])
+        # the CLI worker holds the first chunk before this one connects
+        dispatcher.wait_for("Worker connected", PATH9_TIMEOUT,
+                            "path 9 dispatcher", other=cli_worker)
+        worker = Worker("127.0.0.1", int(port))
+        thread = threading.Thread(target=serve, args=(worker,), daemon=True)
+        thread.start()
+        for proc, lines, what in ((procs[0], dispatcher, "dispatcher"),
+                                  (procs[1], cli_worker, "CLI worker")):
+            try:
+                rc = proc.wait(timeout=PATH9_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"path 9: the {what} hangs:\n"
+                                     + lines.tail()) from None
+            if rc != 0:
+                raise AssertionError(f"path 9: the {what} exited with {rc}:"
+                                     f"\n{lines.tail()}")
+        thread.join(timeout=PATH9_TIMEOUT)
+        if thread.is_alive() or errors:
+            raise AssertionError(f"path 9: the in-process worker "
+                                 f"{'hangs' if not errors else errors[0]}")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = {k: LAUNCHES.get(k) for k in kernels}
+    st = worker.engine.stats()
+    log(f"path 9, map --dispatcher with a CLI worker and an in-process "
+        f"worker on cuda:0 ({PATH8_CHUNK}-read chunks): {N_READS} reads in "
+        f"{secs:.2f} s = {N_READS / secs:.1f} reads/s, dispatcher start to "
+        f"BAM, on {card}")
+    log(f"  in-process worker: {st['device_lanes']} reads in "
+        f"{st['batches']} blocks ({st['steps']} pool steps), escalated "
+        f"{st['escalated']} by cause {st.get('esc_why')}")
+    log("  its seconds per stage: " + ", ".join(
+        f"{k} {st[k]:.3f}" for k in ("prep_s", "device_s", "wait_s",
+                                     "decode_s", "fb_secs")))
+    log(f"  its kernel launches: {counts}")
+    missing = [k for k, v in counts.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on path 9: {missing}")
+    if st["batches"] != 1:
+        raise AssertionError(f"path 9: the in-process worker ran "
+                             f"{st['batches']} blocks, not one chunk's")
+    check_k2_launches(counts, "path 9")
+    bam_compare(out, native, "path 9", in_name_order=True)
+    return counts
+
+
+def path10(torch, cli, fasta, reads, native_bam, card, kernels, tap):
+    """CRAM input against a mapAD-native index: path 1's reads as a CRAM
+    3.1 written by the port's CramWriter (rANS-Nx16, arith on the bases,
+    fqzcomp on the qualities, tok3 on the names), path 1's genome indexed
+    by `index --mapad_format` in a directory of its own with the bundle
+    removed, so that `load_index` reads mapAD's own files; `map --engine
+    device` at the defaults, its BAM equal to `map --engine native`'s on
+    the same CRAM and index.  -> its launch counts."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.index import load_index
+    from mapad_tpu_torch.io import cram
+
+    d = os.path.join(WORK, "path10")
+    os.makedirs(d, exist_ok=True)
+    reads_cram = os.path.join(d, "reads.cram")
+    methods = {i: cram.M_RANSNX16 for i in range(1, 20)}
+    methods.update({6: cram.M_TOK3, 8: cram.M_ARITH, 9: cram.M_FQZCOMP})
+    recs = [{"name": b"read%d" % i, "flags": cram.BF_UNMAPPED, "seq": seq,
+             "quals": quals, "tags": []}
+            for i, (seq, quals) in enumerate(reads)]
+    t = time.perf_counter()
+    with open(reads_cram, "wb") as f:
+        w = cram.CramWriter(f, "@HD\tVN:1.6\tSO:unsorted\n",
+                            block_method=methods, version=(3, 1))
+        for i in range(0, len(recs), CRAM_CHUNK):
+            w.write_chunk(recs[i : i + CRAM_CHUNK])
+        w.close()
+    log(f"path 10: CRAM 3.1 of {len(recs)} reads written in "
+        f"{time.perf_counter() - t:.2f} s, {os.path.getsize(reads_cram)} "
+        f"bytes")
+    t = time.perf_counter()
+    with open(reads_cram, "rb") as f:
+        back = [(r.sequence, r.quals) for r in cram.CramReader(f)]
+    decode_s = time.perf_counter() - t
+    log(f"path 10: CRAM decode (pure Python, host): {len(back)} records in "
+        f"{decode_s:.3f} s = {len(back) / decode_s:.1f} records/s")
+    if back != [(s, q) for s, q in reads]:
+        raise AssertionError("path 10: the CRAM decodes to other reads")
+    genome = os.path.join(d, "genome.fa")
+    shutil.copy(fasta, genome)
+    t = time.perf_counter()
+    if cli.main(["index", "--mapad_format", "-g", genome]) != 0:
+        raise SystemExit("index --mapad_format failed")
+    shutil.rmtree(genome + ".tpx")
+    fmt = load_index(genome).meta["format"]
+    log(f"path 10: index --mapad_format {time.perf_counter() - t:.1f} s, "
+        f"bundle removed: load_index reads the {fmt} files")
+    if fmt != "mapad-native":
+        raise AssertionError(f"path 10: load_index read {fmt}")
+    dev_bam = os.path.join(d, "device.bam")
+    tap.stats = None
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if cli.main(["--threads", "0", "map", "-r", reads_cram, "-g", genome,
+                 "-o", dev_bam, "--force_overwrite", "--engine", "device",
+                 *MAP_FLAGS]) != 0:
+        raise SystemExit("device map of the CRAM failed")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = {k: LAUNCHES.get(k) for k in kernels}
+    if tap.stats is None:
+        raise AssertionError("the device map logged no search stats")
+    report_run("path 10, map --engine device of a CRAM 3.1 on a "
+               "mapAD-native index", card, secs, tap.stats, counts)
+    check_k2_launches(counts, "path 10")
+    nat_bam = os.path.join(d, "native.bam")
+    native_map_and_compare(cli, reads_cram, genome, dev_bam, nat_bam,
+                           "path 10")
+    a, b = bam_records(nat_bam)[1], bam_records(native_bam)[1]
+    log(f"path 10: {sum(x != y for x, y in zip(a, b))} records differ from "
+        f"path 1's native BAM (FASTQ input, .tpx bundle)")
+    return counts
+
+
 def search_batch_bytes(idx_d, inputs, res, lane_steps, chunk):
     """Bytes K10 must move for the steps its lanes ran -> (bound bytes, scan
     bytes).  Bound: its inputs once (pattern codes, score LUT, Bi-D and the
@@ -1734,10 +1974,13 @@ def native_map_and_compare(cli, fastq, fasta, dev_bam, nat_bam, what):
     bam_compare(dev_bam, nat_bam, what)
 
 
-def bam_compare(dev_bam, nat_bam, what):
-    """The BAM of a path against the native engine's, record for record."""
+def bam_compare(dev_bam, nat_bam, what, in_name_order=False):
+    """The BAM of a path against the native engine's, record for record
+    (`in_name_order`: both sorted by read name first)."""
     dh, dr = bam_records(dev_bam)
     nh, nr = bam_records(nat_bam)
+    if in_name_order:
+        dr, nr = sorted(dr), sorted(nr)
     assert len(dr) == N_READS, len(dr)
     if dh != nh:
         raise AssertionError(f"{what}: BAM headers differ")
@@ -2316,6 +2559,15 @@ def main() -> int:
     # --- path 8: multi-host mapping, two processes on this machine ---
     path8(cli, fasta, fastq, native_bam, args.seed)
 
+    # --- path 9: distributed mode, two workers on the card ---
+    launches9 = path9(torch, cli, fasta, fastq, card, path1)
+    # --- path 10: CRAM input against a mapAD-native index ---
+    launches10 = path10(torch, cli, fasta, reads, native_bam, card, path1,
+                        tap)
+    for name in path1:
+        rows[name]["path9_launches"] = launches9[name]
+        rows[name]["path10_launches"] = launches10[name]
+
     # --- the profiler's card times of K3 and K6, then the probe phase:
     # P1-P4, on no mapping path; last, so that the profiler they run
     # cannot touch any path's timing ---
@@ -2375,7 +2627,9 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     # bound, and the time of the same shards run one after the other, at
     # the check's shape and (k9_main_*) at path 7's block; the rows of path
     # 1's kernels also carry their launches in path 7's two-shard run
-    # (`path7_launches`, its own reset run), pool_search also its shards'
+    # (`path7_launches`, its own reset run) and in paths 9 (the in-process
+    # worker's) and 10 (`path9_launches`, `path10_launches`), pool_search
+    # also its shards'
     # steps (`path7_steps`: one launch a generation plus one init per shard
     # and invocation), pack_result its rebasing launches there
     # (`path7_rebase_launches`, one a shard and block) and its time with a
@@ -2397,6 +2651,7 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
             "center_max_lane_steps", "center_us_step", "center_plan",
             "path_steps",
             "path7_launches", "path7_steps", "path7_rebase_launches",
+            "path9_launches", "path10_launches",
             "rebase", "k9_launches", "k9_reads", "k9_steps", "k9_ms",
             "k9_plain_ms", "k9_bound_ms", "k9_sequential_ms",
             "k9_main_reads", "k9_main_steps", "k9_main_ms",

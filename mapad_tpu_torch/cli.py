@@ -6,8 +6,9 @@ and `map` run with every engine of the reference: `--engine hybrid` (the
 default: the pool search on one GPU for the head of every block, the exact
 host C++ search for its tail), `device` (the pool search alone), `native`
 (the host C++ search alone) and `oracle` (the sequential Python search).
-`index --mapad_format`, `map --dispatcher` and `worker` are not ported yet
-and exit with a message saying so.
+`index --mapad_format` also writes mapAD's own index files; `map
+--dispatcher` and `worker` are the distributed mode, whose workers run the
+pool search on the card (`worker --device cpu` runs the plain versions).
 """
 
 from __future__ import annotations
@@ -129,6 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
     p_worker = sub.add_parser("worker", help="Spawns worker")
     p_worker.add_argument("--host", required=True,
                           help="Hostname or IP address of the dispatcher node")
+    p_worker.add_argument("--device", default="cuda",
+                          help="torch device of the worker's engine: "
+                               "cuda[:N], or cpu to run the plain PyTorch "
+                               "versions of the kernels")
+    p_worker.add_argument("--lanes", type=int, default=2048,
+                          help="Device batch width (reads per device step)")
 
     return parser
 
@@ -214,28 +221,31 @@ def main(argv=None):
         return 1
 
 
-def _not_yet(what: str) -> int:
-    logger.error("%s is not yet in mapad_tpu_torch (a later slice of the "
-                 "port); use mapad_tpu for it", what)
-    return 2
-
-
 def _dispatch(args):
 
     if args.command == "index":
         from .index.builder import run as index_run
 
-        if getattr(args, "mapad_format", False):
-            return _not_yet("the mapAD-native index format (--mapad_format)")
-        index_run(args.reference, seed=args.seed)
+        index_run(
+            args.reference, seed=args.seed,
+            mapad_format=getattr(args, "mapad_format", False),
+        )
         return 0
 
     if args.command == "map":
-        if args.dispatcher:
-            return _not_yet("distributed mode (--dispatcher)")
         params = build_alignment_parameters(args)
         read_group = parse_read_group(args.read_group) if args.read_group else None
         cmdline = " ".join(sys.argv)
+
+        if args.dispatcher:
+            from .distributed.dispatcher import Dispatcher
+
+            dispatcher = Dispatcher(
+                args.reads, args.reference, args.output, args.force_overwrite,
+                params, read_group, cmdline=cmdline,
+            )
+            dispatcher.run(args.port)
+            return 0
 
         from .index import load_index
         from .map import native_post
@@ -300,7 +310,11 @@ def _dispatch(args):
         return 0
 
     if args.command == "worker":
-        return _not_yet("the distributed worker")
+        from .distributed.worker import Worker
+
+        Worker(args.host, args.port, device=args.device,
+               lanes=args.lanes).run()
+        return 0
 
     return 1
 

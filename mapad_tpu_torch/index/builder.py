@@ -170,10 +170,10 @@ def run(reference_path: str, seed: int = 1234, occ_k: int = DEFAULT_OCC_K,
     logger.info("Save index")
     save_index(reference_path, fmd, ssa, id_pos_map, orig, {"seed": seed})
     if mapad_format:
-        raise NotImplementedError(
-            "the mapAD-native index format is not yet in mapad_tpu_torch "
-            "(later slice)"
-        )
+        from .mapad_native import save_mapad_index
+
+        logger.info("Save mapAD-format index files")
+        save_mapad_index(reference_path, fmd, ssa, id_pos_map, orig)
 
 
 def build_auxiliary_structures(reference: bytes, alphabet: bytes = b"ACGTacgt",

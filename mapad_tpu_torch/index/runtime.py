@@ -215,10 +215,27 @@ def load_index(reference_path: str, mmap: bool = True) -> Index:
     d = bundle_dir(reference_path)
     meta_path = os.path.join(d, "meta.json")
     if not os.path.exists(meta_path):
+        # Fall back to an index built by the reference implementation
+        # (mapad index -g ref.fa -> ref.fa.tbw/.tle/.tsa/.tpi/.tos/.trt).
+        from . import mapad_native
+
+        if mapad_native.is_mapad_native_index(reference_path):
+            return mapad_native.load_mapad_index(reference_path)
+        present = [
+            s for s in mapad_native.MAPAD_SUFFIXES
+            if os.path.exists(reference_path + s)
+        ]
+        if present:
+            missing = [
+                s for s in mapad_native.MAPAD_SUFFIXES if s not in present
+            ]
+            raise InvalidIndex(
+                f"Found a partial mapAD-native index at {reference_path}"
+                f"{{{','.join(present)}}} but missing {missing}. Copy the "
+                "complete index or re-run the `index` subcommand."
+            )
         raise InvalidIndex(
-            f"Index bundle not found at {d}. Run the `index` subcommand "
-            "first (mapAD-native indexes are not yet read by "
-            "mapad_tpu_torch)."
+            f"Index bundle not found at {d}. Run the `index` subcommand first."
         )
     with open(meta_path) as f:
         meta = json.load(f)

@@ -90,10 +90,13 @@ class InputSource:
     @classmethod
     def _sniff(cls, f, magic: bytes):
         if magic[:4] == b"CRAM":
-            raise InvalidInputType(
-                "CRAM input is not yet in mapad_tpu_torch (later slice); "
-                "convert to BAM or FASTQ"
-            )
+            from .bam import SamHeader
+            from .cram import CramReader
+
+            reader = CramReader(f)
+            header = SamHeader.from_text(reader.header_text)
+            # CramRecord exposes the same attribute set as BamRecord
+            return cls("cram", cls._bam_records(reader), header=header)
         if magic[:2] == b"\x1f\x8b":
             # gzip container: BAM (BGZF) or fastq.gz
             # Peek decompressed start

@@ -1160,6 +1160,123 @@ def test_profile_trace_shows_the_kernels(cuda, tmp_path, monkeypatch):
         assert any(kernel in n for n in names), kernel
 
 
+# --- distributed mode and CRAM input on the card ---------------------------
+
+
+def _index_of_bench_ref(tmp_path, mapad_format=False):
+    """bench_ref as a FASTA, indexed by the port's CLI -> its path."""
+    from mapad_tpu_torch.cli import main
+
+    fa = tmp_path / "g.fa"
+    fa.write_text(">g\n" + bench_ref().decode() + "\n")
+    argv = ["index", "-g", str(fa)]
+    assert main(argv + (["--mapad_format"] if mapad_format else [])) == 0
+    return str(fa)
+
+
+def _worker_chunk(worker, sheet):
+    """One task sheet through `worker.run()` over localhost TCP -> the
+    decoded result sheet's [(record, hits, seconds)]."""
+    import socket
+    import threading
+
+    from mapad_tpu_torch.distributed import wire
+
+    with socket.socket() as listener:
+        listener.bind(("127.0.0.1", 0))
+        listener.listen()
+        worker.port = listener.getsockname()[1]
+        thread = threading.Thread(target=worker.run, daemon=True)
+        thread.start()
+        conn, _ = listener.accept()
+        with conn:
+            conn.settimeout(300)
+            conn.sendall(wire.encode_task_sheet(sheet))
+            msg_type, payload = wire.read_message(conn)
+    thread.join(timeout=60)
+    assert msg_type == wire.MSG_RESULT and not thread.is_alive()
+    chunk_id, results = wire.decode_result_sheet(payload)
+    assert chunk_id == sheet.chunk_id
+    return results
+
+
+@pytest.mark.parametrize("lanes", [8, 2048])
+def test_worker_on_the_card_equals_the_worker_on_the_cpu(cuda, tmp_path,
+                                                         monkeypatch, lanes):
+    """One chunk through a worker on the card (K4, K2 with K1, K3, K5; at
+    the CPU worker's 8 lanes, and at the production 512) and through one on
+    the CPU's plain versions: equal hits for every read."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.distributed.worker import Worker
+    from mapad_tpu_torch.io.sniff import TaskSheet
+    from torch_port_helpers import hits_equal
+
+    monkeypatch.setenv("MAPAD_POOL_STEPS", "2048")
+    fa = _index_of_bench_ref(tmp_path)
+    params = adna_params("mapad_tpu_torch")
+    reads = records("mapad_tpu_torch", bench_reads(seed=9, n_random=40))
+    outs = {}
+    for dev, n_lanes in (("cuda", lanes), ("cpu", 8)):
+        LAUNCHES.reset()
+        worker = Worker("127.0.0.1", 0, device=dev, lanes=n_lanes)
+        outs[dev] = _worker_chunk(worker, TaskSheet(5, reads, fa, params))
+        if dev == "cuda":
+            assert worker.engine.device.type == "cuda"
+            for k in ("unpack_prep", "pool_search", "extract_chains",
+                      "pack_result"):
+                assert LAUNCHES.get(k) > 0, k
+    assert len(outs["cuda"]) == len(outs["cpu"]) == len(reads)
+    with_hits = 0
+    for (rg, hg, _), (rc, hc, _) in zip(outs["cuda"], outs["cpu"]):
+        assert rg.name == rc.name and rg.sequence == rc.sequence
+        assert hits_equal(hg, hc), rg.sequence
+        with_hits += bool(hg)
+    assert with_hits > len(reads) // 2
+
+
+def test_device_map_of_a_cram_on_a_mapad_native_index(cuda, tmp_path):
+    """`map --engine device` of a CRAM 3.1 (rANS-Nx16, arith on the bases,
+    fqzcomp on the qualities, tok3 on the names) against an index in
+    mapAD's own format only (the bundle removed): the BAM equals the
+    native engine's, record for record (XD aside)."""
+    import io
+    import shutil
+
+    from mapad_tpu_torch.cli import main
+    from mapad_tpu_torch.io import cram
+    from mapad_tpu_torch.index.runtime import load_index
+    from torch_port_helpers import bam_records
+
+    fa = _index_of_bench_ref(tmp_path, mapad_format=True)
+    shutil.rmtree(fa + ".tpx")
+    assert load_index(fa).meta["format"] == "mapad-native"
+    rng = np.random.default_rng(1)
+    recs = [{"name": b"r%d" % i, "flags": cram.BF_UNMAPPED, "seq": s,
+             "quals": bytes(rng.integers(10, 42, len(s), dtype=np.uint8)),
+             "tags": []}
+            for i, s in enumerate(bench_reads(seed=3, n_random=60))]
+    methods = {i: cram.M_RANSNX16 for i in range(1, 20)}
+    methods.update({6: cram.M_TOK3, 8: cram.M_ARITH, 9: cram.M_FQZCOMP})
+    buf = io.BytesIO()
+    w = cram.CramWriter(buf, "@HD\tVN:1.6\tSO:unsorted\n",
+                        block_method=methods, version=(3, 1))
+    w.write_chunk(recs[:40])
+    w.write_chunk(recs[40:])
+    w.close()
+    reads = tmp_path / "reads.cram"
+    reads.write_bytes(buf.getvalue())
+    argv = ["map", "-r", str(reads), "-g", fa, "-p", "0.03", "-l",
+            "single_stranded", "-f", "0.6", "-t", "0.55", "-d", "0.01",
+            "-s", "1.0", "-i", "0.001", "-o"]
+    for engine in ("device", "native"):
+        assert main([*argv, str(tmp_path / f"{engine}.bam"), "--engine",
+                     engine]) == 0
+    got = bam_records(tmp_path / "device.bam")
+    assert len(got) == len(recs)
+    assert got == bam_records(tmp_path / "native.bam")
+    assert sum(1 for r in got if not r[1] & 0x4) > len(recs) // 2
+
+
 # --- K9: the pool search over several shards ------------------------------
 
 

@@ -256,19 +256,86 @@ def test_port_default_engine_is_hybrid(tmp_path, monkeypatch):
     assert len(_records(tmp_path / "o.bam")[1]) == 17
 
 
-@pytest.mark.parametrize("argv", [
-    ["index", "--mapad_format"], ["--port", "4000", "map", "--dispatcher"],
-    ["map", "--dispatcher"], ["worker", "--host", "localhost"],
-])
-def test_port_cli_later_slices_exit_cleanly(tmp_path, argv):
+def test_port_cli_index_mapad_format_then_map_on_its_files(tmp_path):
+    """`index --mapad_format` writes mapAD's own index files beside the
+    bundle, the JAX package's CLI writes the same bytes, and with the
+    bundle gone `map` reads those files (the `load_index` fallback) into
+    the BAM that the JAX package writes from them and from its bundle."""
+    import shutil
+
+    from mapad_tpu_torch.index.mapad_native import MAPAD_SUFFIXES
+
     genome, input_bam, _ = prepare(tmp_path)
-    if "map" in argv:
-        argv = argv + ["-r", str(input_bam), "-g", str(genome), "-o",
-                       str(tmp_path / "x.bam"), "-p", "0.03", "-l",
-                       "single_stranded", "-f", "0.6", "-t", "0.55", "-d",
-                       "0.01", "-s", "1.0", "-i", "0.001"]
-    elif argv[0] == "index":
-        argv = argv + ["-g", str(tmp_path / "other.fa")]
-    assert t_main(argv) == 2
-    assert not (tmp_path / "x.bam").exists()
-    assert not (tmp_path / "other.fa.tpx").exists()
+    for tag in ("port", "jax"):
+        (tmp_path / tag).mkdir()
+        shutil.copy(genome, tmp_path / tag / "g.fa")
+    ours, theirs = str(tmp_path / "port" / "g.fa"), str(tmp_path / "jax"
+                                                         / "g.fa")
+    assert t_main(["index", "--mapad_format", "-g", ours]) == 0
+    assert j_main(["index", "--mapad_format", "-g", theirs]) == 0
+    for s in (*MAPAD_SUFFIXES, ".toc"):
+        with open(ours + s, "rb") as a, open(theirs + s, "rb") as b:
+            assert a.read() == b.read(), s
+    shutil.rmtree(ours + ".tpx")
+    assert load_index(ours).meta["format"] == "mapad-native"
+
+    def native_map(main, ref, out):
+        assert main(["map", "-r", str(input_bam), "-g", ref, "-o",
+                     str(tmp_path / out), "-p", "0.03", "-l",
+                     "single_stranded", "-f", "0.6", "-t", "0.55", "-d",
+                     "0.01", "-s", "1.0", "-i", "0.001", "--engine",
+                     "native"]) == 0
+        return _records(tmp_path / out)
+
+    got = native_map(t_main, ours, "port.bam")
+    for want in (native_map(j_main, theirs, "jax.bam"),
+                 native_map(j_main, str(genome), "jax_bundle.bam")):
+        assert got[1] == want[1]
+        assert _header_without_cl(got[0]) == _header_without_cl(want[0])
+    assert sum(1 for r in got[1] if not r[1] & 0x4) >= 10
+
+
+def test_port_cli_dispatcher_with_a_cli_worker(tmp_path, monkeypatch):
+    """`--port P map --dispatcher` on a thread and `--port P worker --device
+    cpu` (the plain kernels, 8 lanes, 2,048 steps) beside it: the BAM is
+    the JAX package's `map` of the same chunks (position seed 0, as the
+    dispatcher draws a position for a read of several best hits)."""
+    import socket
+    import threading
+    import time
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    monkeypatch.setenv("MAPAD_POOL_STEPS", "2048")
+    genome, input_bam, _ = prepare(tmp_path)
+    out = tmp_path / "distributed.bam"
+    rcs = []
+    argv = ["map", "--batch_size", "6", "-r", str(input_bam), "-g",
+            str(genome), "-p", "0.03", "-l", "single_stranded", "-f", "0.6",
+            "-t", "0.55", "-d", "0.01", "-s", "1.0", "-i", "0.001", "-o"]
+    dispatcher = threading.Thread(target=lambda: rcs.append(t_main([
+        "--port", port, *argv, str(out), "--dispatcher"])), daemon=True)
+    dispatcher.start()
+    time.sleep(0.5)
+    assert t_main(["--port", port, "worker", "--host", "127.0.0.1",
+                   "--device", "cpu", "--lanes", "8"]) == 0
+    dispatcher.join(timeout=120)
+    assert not dispatcher.is_alive() and rcs == [0]
+    local = tmp_path / "local.bam"
+    assert j_main(["--seed", "0", *argv, str(local), "--engine",
+                   "native"]) == 0
+    got, want = _records(out), _records(local)
+    assert sorted(got[1]) == sorted(want[1])
+    assert _header_without_cl(got[0]) == _header_without_cl(want[0])
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "cuda:0"])
+def test_port_cli_worker_on_the_card_raises_without_cuda(monkeypatch,
+                                                        device):
+    """`worker` runs on the card unless `--device cpu` is given: without
+    CUDA it raises before it connects, with no fallback to the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--port", "1", "worker", "--host", "127.0.0.1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_main(argv + (["--device", device] if device else []))

@@ -8,6 +8,7 @@ comparison is bit-exact (f32 compared by its bits).
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 import torch
@@ -17,6 +18,19 @@ import torch
 torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def port_twin(test_module: str) -> dict:
+    """The names of tests/<test_module>.py run against mapad_tpu_torch: its
+    source with every `mapad_tpu.` import pointed at the port, executed as
+    a module of its own.  A test file re-exports the `test_*` functions
+    (and the fixtures they take) to run the JAX package's cases on the
+    port unchanged."""
+    path = os.path.join(HERE, f"{test_module}.py")
+    src = re.sub(r"\bmapad_tpu\.", "mapad_tpu_torch.", open(path).read())
+    ns = {"__name__": f"{test_module}_on_the_port", "__file__": path}
+    exec(compile(src, path, "exec"), ns)
+    return ns
 
 
 def bench_ref() -> bytes:

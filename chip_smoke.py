@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --path7   # path 7 alone (a machine of several cards)
     python3 chip_smoke.py --probes  # the probe phase alone (P1-P4)
+    python3 chip_smoke.py --knobs   # the knobs phase alone (path 1's index)
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
@@ -107,6 +108,20 @@ latency (measured at the start: `tools/dma.py` `load_latency_ns`, one
 thread through 256 MB with the L2 flushed), and its plan and ptxas
 figures.  The launch counts of paths 1-4 and 7 hold K3 at one launch a
 call: one an invocation and one a store boundary.
+
+After path 10, the knobs phase, on path 1's index: path 1's workload
+through `pipeline.run` on one engine at its defaults (after a warm-up
+run), then under each of mapad_tpu's environment knobs in turn
+(MAPAD_DEV_LUT=0: no K4 launch; MAPAD_XD_STEPS=0: K2 without its step log;
+MAPAD_PREP_THREADS=2; MAPAD_FB_THREADS=1; MAPAD_INFLIGHT=1, 2, 3 and back
+over 4096-read blocks), then at the defaults again, each BAM equal to path
+1's native BAM, with reads/s, peak card memory and the fallback's
+core-seconds; one 4096-read block in big mode at its defaults (after a
+warm-up) and under MAPAD_DEV_LUT=0 (the same hits; no K6 launch, K7 from the dense
+inputs); K2 with PoolConfig's debug_fixed_steps in its four forms against
+its plain version, below and above the loop's natural end (one init and
+one generation each), and timed at a fixed count at each K2 row's check
+shape; `occ4_batch` (K1's rank query alone) in both widths.
 
 Last, the probe phase: the ports of the TPU round's DMA probes (P1-P4,
 mapad_tpu_torch/tools/; on no mapping path).  P1 (`probe_dma`) is held
@@ -829,10 +844,10 @@ def compact_check(torch, sp2, idx_d, params, cfg, big, main):
 class _BoundaryTap:
     """While it is entered, every K8 call of the engine's pool loop leaves
     its config and its pair of CUDA events in `events` (from the loop's own
-    `boundary_log`)."""
+    `boundary_log`), and every call of the loop its config in `configs`."""
 
     def __init__(self, sp2):
-        self.sp2, self.events = sp2, []
+        self.sp2, self.events, self.configs = sp2, [], []
 
     def __enter__(self):
         self.loop = loop = self.sp2._pool_loop_cuda
@@ -841,6 +856,7 @@ class _BoundaryTap:
 
     def _run(self, *args):
         ev = []
+        self.configs.append(args[7])
         out = self.loop(*args, boundary_log=ev)
         self.events += [(args[7], pair) for pair in ev]  # args[7]: config
         return out
@@ -1535,6 +1551,290 @@ def path10(torch, cli, fasta, reads, native_bam, card, kernels, tap):
     return counts
 
 
+# --- the knobs phase -------------------------------------------------------
+
+KNOB_BLOCK_READS = 4096  # the MAPAD_INFLIGHT runs: four blocks of path 1's
+FIXED_CFG = dict(total_steps=1024, read_step_cap=256)  # the fixed-step check
+FIXED_READS = 512        # one read a lane at full width
+FIXED_TIMED = 2048       # the timed fixed count, at the K2 rows' shapes
+
+
+def stats_since(after, before):
+    """An engine's counts and stage seconds of one run: `after` less
+    `before` (the engine is reused from run to run)."""
+    out = {}
+    for k, v in after.items():
+        b = before.get(k)
+        if isinstance(v, dict):
+            out[k] = {c: n - (b or {}).get(c, 0) for c, n in v.items()}
+        elif isinstance(v, (int, float)):
+            out[k] = v - (b or 0)
+    return out
+
+
+def knob_runs(torch, engine, index, params, args, fastq, fasta, native_bam,
+              card, kernels):
+    """Path 1's workload through `pipeline.run` on ONE engine (each knob is
+    read at the call, as in mapad_tpu): a warm-up run at the defaults (the
+    engine's first: its card tables, the native searcher), the defaults,
+    each knob in turn, MAPAD_INFLIGHT 1, 2, 3 and back, the defaults again;
+    every BAM equal to path 1's native BAM.  -> [(run, its numbers)]."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.map import pipeline
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+
+    inflight = [(f"MAPAD_INFLIGHT={n} MAPAD_BLOCK_READS={KNOB_BLOCK_READS}",
+                 dict(MAPAD_INFLIGHT=str(n),
+                      MAPAD_BLOCK_READS=str(KNOB_BLOCK_READS)))
+                for n in (1, 2, 3)]
+    runs = [("warm-up, defaults", {}), ("defaults", {}),
+            ("MAPAD_DEV_LUT=0", dict(MAPAD_DEV_LUT="0")),
+            ("MAPAD_XD_STEPS=0", dict(MAPAD_XD_STEPS="0")),
+            ("MAPAD_PREP_THREADS=2", dict(MAPAD_PREP_THREADS="2")),
+            ("MAPAD_FB_THREADS=1", dict(MAPAD_FB_THREADS="1"))]
+    runs += inflight + inflight[::-1] + [("defaults", {})]
+    bam = os.path.join(WORK, "knobs.bam")
+    out = []
+    for what, env in runs:
+        before = engine.stats()
+        with _Env(**env), _BoundaryTap(sp2) as k2_tap:
+            LAUNCHES.reset()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            pipeline.run(fastq, fasta, bam, True, params, None,
+                         engine=engine, position_seed=args.seed,
+                         cmdline="mapad map", threads=os.cpu_count() or 1,
+                         index=index)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            blocks = engine.block_reads
+        peak = torch.cuda.max_memory_allocated()
+        st = stats_since(engine.stats(), before)
+        counts = {k: LAUNCHES.get(k) for k in kernels}
+        tracks = sorted({c.track_read_steps for c in k2_tap.configs})
+        log(f"knobs, {what}: {N_READS} reads in {secs:.2f} s = "
+            f"{N_READS / secs:.1f} reads/s, {st['batches']} blocks of "
+            f"{blocks}, peak card memory {peak / 2**20:.1f} MiB "
+            f"(max_memory_allocated), prep {st['prep_s']:.3f} s, device "
+            f"{st['device_s']:.3f} s, wait {st['wait_s']:.3f} s, fallback "
+            f"{st['fb_secs']:.3f} core-s ({st['oracle']} host searches; "
+            f"pool of {engine._fb_threads}), prep threads "
+            f"{engine._prep_threads}, K2 step log {tracks}; {card}")
+        log(f"  kernel launches on this run: {counts}")
+        lut = env.get("MAPAD_DEV_LUT") != "0"
+        if bool(counts["unpack_prep"]) != lut or any(
+                v <= 0 for k, v in counts.items() if k != "unpack_prep"):
+            raise AssertionError(f"knobs, {what}: launches {counts}")
+        check_k2_launches(counts, f"knobs, {what}")
+        if tracks != [env.get("MAPAD_XD_STEPS") != "0"]:
+            raise AssertionError(f"knobs, {what}: K2's step log {tracks}")
+        want_fb = int(env.get("MAPAD_FB_THREADS", 0)) or max(
+            1, (os.cpu_count() or 2) - 1)
+        want_prep = int(env.get("MAPAD_PREP_THREADS", 1))
+        if (engine._fb_threads != want_fb
+                or engine._prep_threads != want_prep):
+            raise AssertionError(
+                f"knobs, {what}: fallback pool {engine._fb_threads}, prep "
+                f"threads {engine._prep_threads}")
+        bam_compare(bam, native_bam, f"knobs, {what}")
+        out.append((what, dict(reads_s=N_READS / secs, peak_mib=peak / 2**20,
+                               fb_core_s=st["fb_secs"])))
+    return out
+
+
+def knob_big_block(torch, np, engine, reads):
+    """MAPAD_DEV_LUT=0 in big mode: one 4096-read block of path 1's
+    workload on a big-mode engine, at its defaults and under the knob: the
+    same hits read for read; K6 launches at the defaults and not under the
+    knob, where K7 takes the dense inputs.  -> {run: its launches}."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.map.record import Record
+
+    recs = [Record(sequence=s, base_qualities=q)
+            for s, q in reads[:BLOCK2_READS]]
+    names = ("unpack_prep_full", "bi_d_i64", "pool_search_i64",
+             "extract_chains_i64", "pack_result_i64")
+    outs, counts = {}, {}
+    for what, env in (("warm-up, defaults", {}), ("defaults", {}),
+                      ("MAPAD_DEV_LUT=0", dict(MAPAD_DEV_LUT="0"))):
+        with _Env(**env):
+            LAUNCHES.reset()
+            t = time.perf_counter()
+            outs[what] = engine.search_chunk(recs)
+            secs = time.perf_counter() - t
+        counts[what] = {k: LAUNCHES.get(k) for k in names}
+        log(f"knobs, big mode, {what}: {len(recs)} reads in {secs:.2f} s, "
+            f"launches {counts[what]}")
+    bad = [i for i, ((a, _), (b, _)) in enumerate(
+        zip(outs["defaults"], outs["MAPAD_DEV_LUT=0"]))
+        if not packed_same(np, a, b)]
+    with_hits = sum(1 for h, _ in outs["defaults"] if len(h))
+    if bad or with_hits < len(recs) // 2:
+        raise AssertionError(f"knobs, big mode: {len(bad)} reads' hits "
+                             f"differ under MAPAD_DEV_LUT=0, first at "
+                             f"{bad[:5]} ({with_hits} reads with hits)")
+    off = counts["MAPAD_DEV_LUT=0"]
+    if (not counts["defaults"]["unpack_prep_full"]
+            or off["unpack_prep_full"]
+            or any(off[k] <= 0 for k in names[1:])):
+        raise AssertionError(f"knobs, big mode: launches {counts}")
+    log(f"knobs, big mode: the hits of every read equal the defaults' "
+        f"under MAPAD_DEV_LUT=0 ({with_hits} reads with hits); K6 0 "
+        f"launches there, K7 {off['bi_d_i64']}")
+    return counts
+
+
+def fixed_steps_check(torch, sp2, engine, reads, timed_reads, card):
+    """K2 with PoolConfig.debug_fixed_steps against its plain version in
+    `engine`'s form (width, direction): at full width with one read a
+    lane, a count below the loop's natural end (lanes come back
+    unfinished) and one above it (steps run with every lane done), each
+    one init and one generation; then timed at the K2 row's check shape
+    (`timed_reads` reads at the engine's own config) over FIXED_TIMED
+    steps.  -> the row's `fixed_*` keys."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.map.record import Record
+
+    big = bool(engine.device_index.big)
+    sfx = "_i64" if big else ""
+    bidir = not engine.pool_config.backward_only
+    name = "pool_search" + ("_bidir" if bidir else "") + sfx
+
+    def inputs(n, cfg):
+        recs = [Record(sequence=s, base_qualities=q) for s, q in reads[:n]]
+        cfg, prep, _t0 = engine._prep_block(recs, n, cfg)
+        with torch.cuda.device(engine.device):
+            consts, kw = engine._upload(prep)
+            slut = kw["slut"] if "slut" in kw else sp2._dense_slut(
+                engine.device_index, kw["dense"], consts[0], consts[1], cfg,
+                kw["bid_steps"])
+        return cfg, (engine.device_index, *consts, engine._params(), cfg,
+                     slut)
+
+    def with_cfg(args, cfg):
+        return args[:7] + (cfg,) + args[8:]
+
+    cfg, args = inputs(FIXED_READS, engine.pool_config._replace(**FIXED_CFG))
+    natural = int(sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*args),
+                                           cfg).steps)
+    err = 0.0
+    for where, fixed in (("below", natural // 2),
+                         ("above", min(natural + 64, cfg.total_steps))):
+        c = cfg._replace(debug_fixed_steps=fixed)
+        a = with_cfg(args, c)
+        LAUNCHES.reset()
+        res = sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*a), c)
+        torch.cuda.synchronize()
+        launches = {k: LAUNCHES.get(k) for k in (name, "extend_batch" + sfx)}
+        check_k2_launches(launches, f"{name} fixed {fixed}", sfx=sfx,
+                          name=name)
+        if launches[name] != 2:
+            raise AssertionError(f"{name} fixed {fixed}: {launches}")
+        pres = sp2._extract_chains_plain(*sp2._pool_loop_plain(*a), c)
+        err = max(err, compare(torch, tuple(res), tuple(pres),
+                               f"{name} fixed {fixed}"))
+        unfinished = bool(res.lane_unfinished.any())
+        if int(res.steps) != fixed or unfinished != (where == "below"):
+            raise AssertionError(f"{name} fixed {fixed}: {int(res.steps)} "
+                                 f"steps, unfinished lanes {unfinished}")
+        log(f"K2 {name} debug_fixed_steps={fixed} ({where} the natural "
+            f"{natural}; L={cfg.lanes} S={cfg.total_steps} "
+            f"CAP={cfg.read_step_cap}, {FIXED_READS} reads): bit-exact "
+            f"against its plain version, {launches[name]} launches (init + "
+            f"one generation), unfinished lanes {unfinished}")
+    # the per-step figure of a fixed count at the K2 row's check shape
+    cfg, args = inputs(timed_reads, engine.pool_config)
+    full = int(sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*args),
+                                        cfg).steps)
+    c = cfg._replace(debug_fixed_steps=FIXED_TIMED)
+    state, ms = k2_timed(torch, sp2, with_cfg(args, c))
+    steps = state[3].tolist()[sp2.G_STEP]
+    if steps != FIXED_TIMED:
+        raise AssertionError(f"{name}: {steps} steps at a fixed "
+                             f"{FIXED_TIMED}")
+    log(f"K2 {name} at a fixed {FIXED_TIMED} steps, {timed_reads} reads, "
+        f"L={cfg.lanes} S={cfg.total_steps} (natural end {full}): "
+        f"{ms:.2f} ms, {ms * 1e3 / steps:.3f} us a step; {card}")
+    return dict(fixed_check=dict(natural=natural, below=natural // 2,
+                                 above=min(natural + 64, cfg.total_steps),
+                                 max_abs_err=err),
+                fixed_steps=FIXED_TIMED, fixed_ms=ms,
+                fixed_us_step=ms * 1e3 / steps, fixed_natural_steps=full)
+
+
+def occ4_check(torch, fm, idx_d, card):
+    """`occ4_batch` (K1's rank query alone, one warp a position) against
+    `_row_occ4` on 1,024 positions of `idx_d`, -1 and garbage among them.
+    -> the K1 row's `occ4_batch` key."""
+    from mapad_tpu_torch._build import LAUNCHES
+
+    idt = idx_d.idx_dtype
+    g = torch.Generator(device="cpu").manual_seed(2)
+    n = idx_d.text_len
+    info = torch.iinfo(idt)
+    r = torch.cat([torch.randint(-1, n, (960,), generator=g, dtype=idt),
+                   torch.tensor([-1, 0, n - 1], dtype=idt),
+                   torch.randint(info.min, info.max, (61,), generator=g,
+                                 dtype=idt)]).to(idx_d.rows.device)
+    name = "occ4_batch" + ("_i64" if idx_d.big else "")
+    LAUNCHES.reset()
+    got = fm.occ4_batch(idx_d, r)
+    if LAUNCHES.get(name) != 1:
+        raise AssertionError(f"{name}: {LAUNCHES.get(name)} launches")
+    err = compare(torch, (got,), (fm._row_occ4(idx_d, r),), name)
+    out = dict(max_abs_err=err, positions=int(r.numel()),
+               ms=timed(torch, lambda: fm.occ4_batch(idx_d, r), 50),
+               plain_ms=timed(torch, lambda: fm._row_occ4(idx_d, r), 10),
+               bound_ms=bound_ms(512 * r.numel() + nbytes(r, got)))
+    log(f"K1 {name}: bit-exact on {r.numel()} positions, "
+        f"{out['ms']:.4f} ms (plain {out['plain_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.6f} ms); {card}")
+    return out
+
+
+def knobs_phase(torch, np, index, params, vparams, args, fastq, fasta,
+                reads, native_bam, card, kernels):
+    """The knobs phase on path 1's index: the runs of `knob_runs` on one
+    engine, MAPAD_DEV_LUT=0 on a big-mode block, the fixed-step K2 in its
+    four forms, `occ4_batch` in both widths.  -> the extra keys of the
+    kernel rows (K2's `fixed_*`, K1's `occ4_batch`)."""
+    from mapad_tpu_torch.ops import fm
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+
+    t0 = time.perf_counter()
+
+    def engine(p, big=False):
+        return DeviceSearchEngine(index.fmd, p, lanes=args.lanes, big=big,
+                                  packed_hits=True)
+
+    small = engine(params)
+    runs = knob_runs(torch, small, index, params, args, fastq, fasta,
+                     native_bam, card, kernels)
+    log("knobs, in the order run: " + "; ".join(
+        f"{what} {v['reads_s']:.1f} reads/s, {v['peak_mib']:.1f} MiB, "
+        f"fallback {v['fb_core_s']:.3f} core-s" for what, v in runs)
+        + f"; {card}")
+    big = engine(params, big=True)
+    knob_big_block(torch, np, big, reads)
+    extra = {"extend_batch": dict(occ4_batch=occ4_check(
+                 torch, fm, small.device_index, card)),
+             "extend_batch_i64": dict(occ4_batch=occ4_check(
+                 torch, fm, big.device_index, card))}
+    for eng in (small, big, engine(vparams), engine(vparams, big=True)):
+        wide = bool(eng.device_index.big)
+        bidir = not eng.pool_config.backward_only
+        name = ("pool_search" + ("_bidir" if bidir else "")
+                + ("_i64" if wide else ""))
+        extra[name] = fixed_steps_check(
+            torch, sp2, eng, reads,
+            BIDIR_READS if bidir else CHECK_READS if not wide
+            else CHECK2_READS, card)
+    log(f"knobs phase: {time.perf_counter() - t0:.1f} s")
+    return extra
+
+
 def search_batch_bytes(idx_d, inputs, res, lane_steps, chunk):
     """Bytes K10 must move for the steps its lanes ran -> (bound bytes, scan
     bytes).  Bound: its inputs once (pattern codes, score LUT, Bi-D and the
@@ -2161,6 +2461,41 @@ def path7_alone(torch, np, cli, load_index, params, args, card, t_start):
     return 0
 
 
+def knobs_alone(torch, np, cli, load_index, params, args, card, t_start):
+    """`--knobs`: the knobs phase alone, with what it needs of path 1 (its
+    workload, index and native BAM)."""
+    import dataclasses
+
+    from mapad_tpu_torch.models import Discrete, VindijaPwm
+
+    fasta, fastq, reads = write_workload(np, GENOME_SIZE, 42, "")
+    if cli.main(["index", "-g", fasta]) != 0:
+        raise SystemExit("index failed")
+    native_bam = os.path.join(WORK, "native.bam")
+    t = time.perf_counter()
+    if cli.main(["--threads", "0", "map", "-r", fastq, "-g", fasta, "-o",
+                 native_bam, "--force_overwrite", "--engine", "native",
+                 *MAP_FLAGS]) != 0:
+        raise SystemExit("native map failed")
+    log(f"path 1's workload: map --engine native "
+        f"{time.perf_counter() - t:.2f} s")
+    pwm = VindijaPwm()
+    vparams = dataclasses.replace(
+        params, difference_model=pwm, mismatch_bound=Discrete(
+            args.poisson_prob, np.float32(args.divergence),
+            pwm.get_representative_mismatch_penalty()))
+    knobs_phase(torch, np, load_index(fasta), params, vparams, args, fastq,
+                fasta, reads, native_bam, card,
+                ["unpack_prep", "extend_batch", "pool_search",
+                 "extract_chains", "pack_result"])
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2215,6 +2550,10 @@ def main() -> int:
     params = cli.build_alignment_parameters(args)
     if "--path7" in sys.argv[1:]:
         return path7_alone(torch, np, cli, load_index, params, args, card,
+                           t_start)
+
+    if "--knobs" in sys.argv[1:]:
+        return knobs_alone(torch, np, cli, load_index, params, args, card,
                            t_start)
 
     if "--probes" in sys.argv[1:]:
@@ -2568,6 +2907,13 @@ def main() -> int:
         rows[name]["path9_launches"] = launches9[name]
         rows[name]["path10_launches"] = launches10[name]
 
+    # --- the knobs phase: the reference's environment knobs on one engine,
+    # K2's fixed step count in four forms, occ4_batch ---
+    for name, keys in knobs_phase(torch, np, index1, params, vparams, args,
+                                  fastq, fasta, reads, native_bam, card,
+                                  path1).items():
+        rows[name].update(keys)
+
     # --- the profiler's card times of K3 and K6, then the probe phase:
     # P1-P4, on no mapping path; last, so that the profiler they run
     # cannot touch any path's timing ---
@@ -2644,7 +2990,13 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     # (the profiler's card time), `host_ms` (the wrapper on the host) and
     # their launches a call; K3 also its deepest walked chain (op words),
     # the dependent-load latency (`load_ns`) and their product, the walk's
-    # floor (`walk_floor_ms`), its launch plan and ptxas figures
+    # floor (`walk_floor_ms`), its launch plan and ptxas figures; from the
+    # knobs phase, the K2 rows their fixed-step check (`fixed_check`: the
+    # natural end at full width with a read a lane, the counts below and
+    # above it) and their time at a fixed count at the check's shape
+    # (`fixed_steps`, `fixed_ms`, `fixed_us_step`, beside that shape's
+    # natural end `fixed_natural_steps`), the K1 rows `occ4_batch` (its
+    # check, time, plain time and bound)
     more = ("steps", "boundaries", "launches_per_boundary", "main_shape",
             "main_ms", "main_bound_ms", "main_launches_per_boundary",
             "scan_bytes", "scan_ms", "max_lane_steps", "center_ms",
@@ -2664,7 +3016,9 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
             "shapes",
             "walk_steps", "both_ms", "both_walk_steps", "both_bound_ms",
             "both_plan", "host_ms", "launches_per_call", "walk_floor_ms",
-            "deepest_chain", "load_ns")
+            "deepest_chain", "load_ns",
+            "fixed_check", "fixed_steps", "fixed_ms", "fixed_us_step",
+            "fixed_natural_steps", "occ4_batch")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},

@@ -7,7 +7,7 @@ copies; the device search (ops/) runs hand-written CUDA kernels
 (csrc/*.cu) with a plain PyTorch version of each beside it.
 
 Layer map:
-  cli          -- `mapad-tpu-torch {index,map}` command line
+  cli          -- `mapad-tpu-torch {index,map,worker}` command line
   index        -- index construction (SAIS, BWT, Occ, sampled SA) + loaders
   models       -- sequence difference models + mismatch bounds
   ops          -- device compute: FMD rank queries, pool search with store
@@ -15,9 +15,14 @@ Layer map:
                   pack (CUDA + plain torch); the device and hybrid engines
   parallel     -- the pool search over several devices (K9) and multi-host
                   mapping over torch.distributed
+  distributed  -- mapAD's cluster mode: the dispatcher (`map
+                  --dispatcher`), the worker (the pool engine on its card)
+                  and their wire format
   map          -- mapping pipeline, host C++ search/postprocess bindings,
                   the sequential Python search and BAM conversion
-  io           -- FASTA/FASTQ/BAM/BGZF readers and writers
+  io           -- FASTA/FASTQ/BAM/BGZF/CRAM readers and writers
+  tools        -- the ports of the TPU round's DMA probes (P1-P4) and the
+                  kernels' timing tools (python -m mapad_tpu_torch.tools.*)
 """
 
 __version__ = "0.1.0"

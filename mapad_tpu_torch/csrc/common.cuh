@@ -106,6 +106,7 @@ struct PoolArgs {
   int* glob;      // (N_GLOB,)
   int* fin_log;   // (L, S) or null
   int bidir;      // bidirectional extension (center-start models)
+  int fixed;      // > 0: exactly min(S, fixed) steps, done or not
 };
 
 // K8 (csrc/pool_compact.cu): what one store boundary reads and rewrites

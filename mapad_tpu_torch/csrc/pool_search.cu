@@ -52,7 +52,10 @@
 // (between launches) read and rewrite what they always did; block 0
 // writes glob[].  The loop stops exactly where the JAX while_loop stops:
 // `step < limit && !all(lane_done)` (the limit is S, or what K8 set for a
-// capped spill generation, csrc/pool_compact.cu).
+// capped spill generation, csrc/pool_compact.cu); with PoolConfig's
+// debug_fixed_steps (one generation only) at `step < min(S, fixed)`, the
+// steps past the last lane's end run as every done lane's step does.  Each
+// step keeps its own barrier tag either way.
 //
 // Bound on the card: the bytes that must cross HBM, the inputs once and a
 // 288 B store block (396 B with int64 intervals), a mask and a finish-log
@@ -99,7 +102,7 @@ static __global__ void pool_init_kernel(PoolArgs a) {
     a.glob[G_STEP] = 0;
     a.glob[G_NEXT_READ] = a.L < a.R ? a.L : a.R;
     a.glob[G_DONE] = a.R == 0;
-    a.glob[G_LIMIT] = a.S;
+    a.glob[G_LIMIT] = a.fixed > 0 && a.fixed < a.S ? a.fixed : a.S;
     a.glob[G_LIVE] = a.L < a.R ? a.L : a.R;
     for (int k = G_BASE; k < N_GLOB; ++k) a.glob[k] = 0;
   }
@@ -224,7 +227,7 @@ pool_search_kernel(PoolArgs a, int* flags, int ring_shared) {
   const int limit = a.glob[G_LIMIT], cum = a.glob[G_CUM];
   __syncthreads();
 
-  while (step < limit && !gdone) {
+  while (step < limit && (a.fixed > 0 || !gdone)) {
     const int par = step & 1;
     if (has_lane) {
       const int active = !st.done;
@@ -624,6 +627,19 @@ static __global__ void k1_extend_kernel(const int* rows, const I* less,
   }
 }
 
+// K1's rank query alone (ops/fm.py occ4_batch): one warp a position, the
+// counts of ranks 1..4 in bwt[0..=r] from lane 0.
+template <typename I>
+static __global__ void k1_occ4_kernel(const int* rows, int nb, int occ_k,
+                                      const I* r, I* out, int N) {
+  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (i >= N) return;  // whole warps leave together
+  I occ[4];
+  occ4_warp<I>(rows, nb, occ_k, r[i], occ);
+  if ((threadIdx.x & 31) == 0)
+    for (int s = 0; s < 4; ++s) out[(size_t)i * 4 + s] = occ[s];
+}
+
 using PoolKernel = void (*)(PoolArgs, int*, int);
 
 static PoolKernel pool_kernel(int big, int bidir) {
@@ -716,6 +732,21 @@ extern "C" int k1_extend_batch(const int* rows, const void* less,
            (const I*)sent, nb, occ_k, (const I*)lower, (const I*)lrev,
            (const I*)size, (I*)out_lower, (I*)out_lrev, (I*)out_size);
   }
+  CHECK_LAUNCH();
+  return 0;
+}
+
+extern "C" int k1_occ4(const int* rows, int nb, int occ_k, int big,
+                       const void* r, void* out, int N,
+                       cudaStream_t stream) {
+  if (N <= 0) return 0;
+  const unsigned blocks = (unsigned)((N + 7) / 8);
+  if (big)
+    LAUNCH(k1_occ4_kernel<int64_t>, blocks, 256, stream, rows, nb, occ_k,
+           (const int64_t*)r, (int64_t*)out, N);
+  else
+    LAUNCH(k1_occ4_kernel<int32_t>, blocks, 256, stream, rows, nb, occ_k,
+           (const int32_t*)r, (int32_t*)out, N);
   CHECK_LAUNCH();
   return 0;
 }

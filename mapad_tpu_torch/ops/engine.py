@@ -773,6 +773,9 @@ class DeviceSearchEngine:
                        "fb_secs": 0.0}
         self._stats_lock = threading.Lock()
         self._lut_lock = threading.Lock()
+        # the lazily made helpers that MAPAD_PREP_THREADS prep threads
+        # share (the host LUT cache, the C++ Bi-D and its executor)
+        self._prep_lock = threading.Lock()
         self._dev_lut_by_dev: dict = {}
         self._params_cache = None
         if self.device.type == "cuda":
@@ -874,8 +877,11 @@ class DeviceSearchEngine:
         pen = np.zeros((L, max_len), dtype=np.float32)
         # device-LUT mode: ship consts + Bi-D + (class, qual) cells and
         # gather the score columns on the card from the one-time table
+        # (K4; K6 in big mode); MAPAD_DEV_LUT=0 uploads the host-scored
+        # rows (small mode) or the dense arrays (big mode) instead
         dev_ok = (
             self._lut_cache() is not None
+            and os.environ.get("MAPAD_DEV_LUT", "1") != "0"
             and max_len % 2 == 0
             and max_len <= self.config.max_len
             and int(quals.max(initial=0)) < _DEV_LUT_Q
@@ -1064,10 +1070,19 @@ class DeviceSearchEngine:
         return out
 
     def _fallback_pool(self):
-        if getattr(self, "_fb_pool", None) is None:
-            self._fb_pool = ThreadPoolExecutor(
-                max_workers=self.threads or max(1, (os.cpu_count() or 2) - 1)
-            )
+        """The exact host fallback's threads: MAPAD_FB_THREADS, else the
+        engine's `threads`, else all cores but one; read at every stream
+        (as mapad_tpu does), the pool made anew when the count changes.
+        The replaced pool finishes what it holds."""
+        n = int(os.environ.get("MAPAD_FB_THREADS", "0")) or (
+            self.threads or max(1, (os.cpu_count() or 2) - 1)
+        )
+        pool = getattr(self, "_fb_pool", None)
+        if pool is None or self._fb_threads != n:
+            if pool is not None:
+                pool.shutdown(wait=False)
+            self._fb_threads = n
+            self._fb_pool = ThreadPoolExecutor(max_workers=n)
         return self._fb_pool
 
     @property
@@ -1114,7 +1129,13 @@ class DeviceSearchEngine:
           `_deep_config` (a larger per-read cap) in partially filled
           blocks; escalatees without any hit go straight to the host
           (MAPAD_DEEP_NOHIT_HOST=0 keeps them in the tier);
-        - the exact host C++ searcher takes what is left."""
+        - the exact host C++ searcher takes what is left.
+
+        Read at every call, as in mapad_tpu: MAPAD_INFLIGHT (default
+        `max_in_flight`) invocations queued on the device thread at once
+        (it runs them one after another); MAPAD_PREP_THREADS (default 1)
+        blocks in prep at once, one more queued behind them.  Blocks are
+        yielded in submission order whatever the prep threads."""
         from collections import deque
 
         cfg = self.pool_config
@@ -1122,9 +1143,17 @@ class DeviceSearchEngine:
         params = self._params()
         self._ensure_native()
         fb_pool = self._fallback_pool()
-        if getattr(self, "_prep_exec", None) is None:
+        max_in_flight = int(
+            os.environ.get("MAPAD_INFLIGHT", str(max_in_flight))
+        )
+        prep_threads = int(os.environ.get("MAPAD_PREP_THREADS", "1"))
+        prep_exec = getattr(self, "_prep_exec", None)
+        if prep_exec is None or self._prep_threads != prep_threads:
+            if prep_exec is not None:
+                prep_exec.shutdown(wait=False)
+            self._prep_threads = prep_threads
             self._prep_exec = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="pool-prep"
+                max_workers=prep_threads, thread_name_prefix="pool-prep"
             )
         it = iter(blocks)
         prep_q: deque = deque()  # (key, records, Future[prepped])
@@ -1185,9 +1214,9 @@ class DeviceSearchEngine:
             self._stats[stat] = self._stats.get(stat, 0) + len(take)
 
         def refill_prep():
-            # one block in prep, the next one queued behind it
+            # a block in prep on every prep thread, one queued behind them
             nonlocal exhausted
-            while len(prep_q) < 2:
+            while len(prep_q) < prep_threads + 1:
                 # an accumulated retry/deep block is ready work: prefer it
                 # over new input, and flush stragglers when the input and
                 # the pipeline have drained
@@ -1489,8 +1518,12 @@ class DeviceSearchEngine:
         # 16 (fewer LUT cells and shorter c_ops rows for short reads)
         mlen = max((len(r.sequence) for r in chunk), default=1)
         m_fit = min(cfg.max_len, max(16, -(-mlen // 16) * 16))
-        # per-read XD timing from per-read step counts
-        cfg = cfg._replace(max_len=m_fit, track_read_steps=True)
+        # per-read XD timing from per-read step counts; MAPAD_XD_STEPS=0
+        # turns K2's step log off and tags every read of the block with the
+        # block's average
+        cfg = cfg._replace(
+            max_len=m_fit,
+            track_read_steps=os.environ.get("MAPAD_XD_STEPS", "1") != "0")
         recs = [r if len(r.sequence) <= cfg.max_len else _EMPTY
                 for r in chunk]
         host_bid = self._host_bid_active()
@@ -1506,7 +1539,8 @@ class DeviceSearchEngine:
             stash = _merge_stashes([p.pop("_stash") for p in shards], Rl)
             stash["_inv"] = np.argsort(perm)
             prep = dict(shards=shards, _stash=stash)
-        self._stats["prep_s"] += time.perf_counter() - t0
+        with self._stats_lock:  # prep threads finish at once
+            self._stats["prep_s"] += time.perf_counter() - t0
         return cfg, prep, t0
 
     def _device_exec(self):
@@ -1983,28 +2017,36 @@ class DeviceSearchEngine:
     def _native_bid(self):
         from ..map import native_search
 
-        if getattr(self, "_native_bid_cache", None) is None:
-            self._native_bid_cache = native_search.NativeBiD(self.fmd)
-        return self._native_bid_cache
+        with self._prep_lock:
+            if getattr(self, "_native_bid_cache", None) is None:
+                self._native_bid_cache = native_search.NativeBiD(self.fmd)
+            return self._native_bid_cache
 
     def _bid_exec(self):
-        if getattr(self, "_bid_exec_cache", None) is None:
-            self._bid_exec_cache = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="bid"
-            )
-        return self._bid_exec_cache
+        """One thread runs the C++ Bi-D (itself threaded) for every prep
+        thread, one block after the other."""
+        with self._prep_lock:
+            if getattr(self, "_bid_exec_cache", None) is None:
+                self._bid_exec_cache = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="bid"
+                )
+            return self._bid_exec_cache
 
     def _lut_cache(self):
         """Per-length LUT table cache (None when the model has no
-        vectorized raw_grid -- then the direct grid build is faster)."""
-        cache = getattr(self, "_lut_cache_obj", False)
-        if cache is False:
-            cache = self._lut_cache_obj = (
-                _LutCache(self.parameters.difference_model, self.parameters)
-                if _LutCache.usable(self.parameters.difference_model)
-                else None
-            )
-        return cache
+        vectorized raw_grid -- then the direct grid build is faster).  Its
+        `fill` may run on several prep threads: a table is a pure function
+        of its length, so two threads that build one build the same."""
+        with self._prep_lock:
+            cache = getattr(self, "_lut_cache_obj", False)
+            if cache is False:
+                cache = self._lut_cache_obj = (
+                    _LutCache(self.parameters.difference_model,
+                              self.parameters)
+                    if _LutCache.usable(self.parameters.difference_model)
+                    else None
+                )
+            return cache
 
     def _device_lut(self, dev=None):
         """One-time all-length score-LUT table, penalty table and

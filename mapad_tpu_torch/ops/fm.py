@@ -199,6 +199,33 @@ def _row_occ4(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:
                        torch.zeros_like(cp))
 
 
+def occ4_batch(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:
+    """K1's rank query: (N,) positions -> (N, 4) counts of ranks 1..4 in
+    bwt[0..=r] (-1 -> 0), in the index's interval type.  The plain version
+    (`_row_occ4`) for CPU tensors, for CUDA tensors the kernel (`occ4_warp`
+    of csrc/common.cuh, a warp a position; launches counted as
+    `occ4_batch[_i64]`), never a fallback."""
+    if not r.is_cuda:
+        return _row_occ4(index, r)
+    idt = index.idx_dtype
+    require(index.rows.is_cuda and index.rows.dtype == torch.int32
+            and index.rows.is_contiguous(), "index rows must be int32 CUDA")
+    require(r.is_cuda and r.dtype == idt and r.is_contiguous()
+            and r.dim() == 1, f"occ4_batch takes a contiguous (N,) {idt} "
+            "CUDA tensor")
+    out = torch.empty((r.shape[0], 4), dtype=idt, device=r.device)
+    fn = cuda_function(
+        "pool_search", "k1_occ4",
+        [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int, ctypes.c_void_p],
+    )
+    LAUNCHES.add("occ4_batch_i64" if index.big else "occ4_batch")
+    check(fn(index.rows.data_ptr(), index.rows.shape[0], index.occ_k,
+             int(index.big), r.data_ptr(), out.data_ptr(), r.shape[0],
+             torch.cuda.current_stream(r.device).cuda_stream), "k1_occ4")
+    return out
+
+
 def sentinel_count(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:
     """(N,) -> number of sentinels in bwt[0..=r] (fmd_index.rs:138-151)."""
     return ((r >= index.sentinels[0]).to(torch.int32)

@@ -64,6 +64,18 @@ def pack_op(kind, pos, base):
     return OP_VALID_BIT | (kind << 17) | (pos << 2) | base
 
 
+def unpack_op_kind(word):
+    return word >> 17
+
+
+def unpack_op_pos(word):
+    return (word >> 2) & 0x7FFF
+
+
+def unpack_op_base(word):
+    return word & 3
+
+
 class SearchConfig(NamedTuple):
     max_len: int = 128  # M: padded read length
     max_steps: int = 2048  # S: step budget == frame-store rows / CANDS

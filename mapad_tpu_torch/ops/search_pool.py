@@ -29,6 +29,10 @@ class PoolConfig(NamedTuple):
     # (one LUT row per step, no per-lane direction selects).  False runs
     # the bidirectional form that center-start models need.
     backward_only: bool = True
+    # The ablation flags of mapad_tpu's tools/ablate_pool.py ("pop",
+    # "extend", "lut", "frame", "store", "ring"); the search reads none of
+    # them, in either package, so every flag leaves the result as it is.
+    debug_ablate: tuple = ()
     # Per-read device step accounting for per-read XD timing: logs
     # (read_id, steps consumed) at each lane refill.
     track_read_steps: bool = False
@@ -45,6 +49,10 @@ class PoolConfig(NamedTuple):
     # > 0: a generation after a boundary runs at most this many steps
     # (capped spill); 0: until the store is full again
     spill_steps: int = 0
+    # > 0: the step loop runs exactly min(total_steps, this) steps, done
+    # lanes or not (a fixed amount of work for timing a step); one store
+    # generation only.  0: it stops when every lane is done.
+    debug_fixed_steps: int = 0
 
 
 class PoolResult(NamedTuple):

@@ -133,6 +133,9 @@ def _check_config(config: PoolConfig, R: int):
             "store slot numbers exceed int32")
     require(config.max_len + 16 <= 1 << 15, "op positions exceed 15 bits")
     if config.generations > 1:
+        # the JAX package asserts this in its generations loop
+        if config.debug_fixed_steps:
+            raise AssertionError("debug_fixed_steps is a gens=1 ablation knob")
         # a boundary frees S - CAP steps; without the margin it could free
         # none and the loop would stand still
         require(config.read_step_cap + 4 <= S,
@@ -487,7 +490,9 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
     acc = _ChainLog(config, idt, dev)
     acc_rs = torch.full((R + 1,), -1, dtype=i32, device=dev)
     cum_shift = 0
-    gen_limit = S
+    # debug_fixed_steps: exactly that many steps (at most S), done or not
+    fixed = int(config.debug_fixed_steps)
+    gen_limit = min(S, fixed) if fixed else S
 
     def boundary():
         """Plain PyTorch K8 (after the extraction): move the window of the
@@ -513,7 +518,7 @@ def _pool_loop_plain(index: DeviceFmIndex, n, split, cutoff_scale,
     gen = 0
     while gen == 0 or (gen < GENS and step < gen_limit
                        and not bool(lane_done.all())):
-        while step < gen_limit and not bool(lane_done.all()):
+        while step < gen_limit and (fixed or not bool(lane_done.all())):
             body()
         live = int((~lane_done).sum())
         if step >= S and live >= MIN_LIVE and gen + 1 < GENS:
@@ -703,7 +708,7 @@ class _PoolArgs(ctypes.Structure):
         ("consumed", ctypes.c_void_p), ("bm_key", ctypes.c_void_p),
         ("lane", ctypes.c_void_p), ("glob", ctypes.c_void_p),
         ("fin_log", ctypes.c_void_p),
-        ("bidir", ctypes.c_int),
+        ("bidir", ctypes.c_int), ("fixed", ctypes.c_int),
     ]
 
 
@@ -890,7 +895,7 @@ def _pool_loop_cuda(index: DeviceFmIndex, n, split, cutoff_scale,
         store.data_ptr(), bmask.data_ptr(), rings[0][0].data_ptr(),
         rings[0][1].data_ptr(), lane.data_ptr(), glob.data_ptr(),
         fin_log.data_ptr() if track else None,
-        int(bidir),
+        int(bidir), int(config.debug_fixed_steps),
     )
     stream = torch.cuda.current_stream(dev)
     P = ctypes.POINTER(_PoolArgs)

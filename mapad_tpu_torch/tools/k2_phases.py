@@ -71,11 +71,13 @@ extern "C" int k2_phase_read(unsigned long long* out) {
 # phase's end, in the kernel's order
 EDITS = (
     ("using namespace mapad;\n", "using namespace mapad;\n" + PROBES),
-    ("  __syncthreads();\n\n  while (step < limit && !gdone) {\n"
+    ("  __syncthreads();\n\n"
+     "  while (step < limit && (a.fixed > 0 || !gdone)) {\n"
      "    const int par = step & 1;\n",
      "  __syncthreads();\n  long long ph_[7] = {0, 0, 0, 0, 0, 0, 0};\n"
      "  long long ph_t_ = clock64(), ph_n_ = 0;\n\n"
-     "  while (step < limit && !gdone) {\n    const int par = step & 1;\n"
+     "  while (step < limit && (a.fixed > 0 || !gdone)) {\n"
+     "    const int par = step & 1;\n"
      "    ph_t_ = clock64();\n    ++ph_n_;\n"),
     ("      const bool popped = kstar > INT_MIN32;",
      "      K2_PHASE(0);\n      const bool popped = kstar > INT_MIN32;"),

@@ -9,7 +9,9 @@ the fixed-batch search (K10) and its engine; and the pool search over
 several shards (K9 and its `shard_rebase`), on one card and, where the
 machine has them, over distinct cards; and the ports of the TPU's DMA
 probes (P1 `gather_steps`, P2-P4 `copy_src_slice` / `copy_dst_slice`) at
-their edge cases, with the probe tools themselves.  Engines run on one card unless a
+their edge cases, with the probe tools themselves; and the reference's
+knobs: K2 with a fixed step count in its four forms, MAPAD_DEV_LUT=0 with
+no K4 or K6 launch, `occ4_batch`.  Engines run on one card unless a
 test asks for a mesh (MAPAD_SHARD=0 by default here).
 
 Needs an NVIDIA GPU with nvcc; skips elsewhere.  On the card:
@@ -996,6 +998,112 @@ def test_engine_on_the_card_equals_plain(fmd, cuda, big, qual, monkeypatch):
     assert all(packed_equal(a, b) for a, b in zip(hits_g, hits_c))
     if big:
         assert deep_g > 0
+
+
+@pytest.mark.parametrize("where", ["below", "above"])
+@pytest.mark.parametrize("model", ["adna", "vindija"])
+@pytest.mark.parametrize("big", [False, True])
+def test_pool_search_fixed_steps_kernel(fmd, cuda, big, model, where):
+    """PoolConfig.debug_fixed_steps: K2 runs exactly that many steps in one
+    generation, below the loop's natural end (lanes come back unfinished)
+    and past it (steps with every lane done), in its four forms, against
+    its plain version field by field."""
+    from mapad_tpu_torch._build import LAUNCHES
+
+    cfg_kw = dict(lanes=8, total_steps=3072, read_step_cap=512,
+                  max_chains=512)
+    params = None
+    if model == "vindija":
+        params = _center_params("vindija")
+        cfg_kw["compute_forward_part"] = True
+    eng, cfg, prep = _prepped(fmd, cuda, cfg_kw, 17, big=big, params=params)
+    assert cfg.backward_only == (model == "adna")
+    natural = int(_pool_both(eng, cfg, prep, cuda)[0].steps)
+    fixed = natural // 2 if where == "below" else natural + 50
+    assert fixed < cfg.total_steps
+    LAUNCHES.reset()
+    got, want, _ = _pool_both(eng, cfg._replace(debug_fixed_steps=fixed),
+                              prep, cuda)
+    _equal(tuple(got), tuple(want), (model, where, fixed))
+    assert int(got.steps) == fixed
+    assert bool(got.lane_unfinished.any()) == (where == "below")
+    name = ("pool_search" + ("" if model == "adna" else "_bidir")
+            + ("_i64" if big else ""))
+    assert LAUNCHES.get(name) == 2  # init + one generation
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_dev_lut_off_launches_no_unpack_kernel(fmd, cuda, big, monkeypatch):
+    """MAPAD_DEV_LUT=0: no K4 launch (small mode: the host-scored rows,
+    as views) and no K6 launch (big mode: the dense arrays, K7 on them);
+    the engine on the card equals the same engine on the CPU."""
+    from concurrent.futures import Future
+
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.ops.search_pool import PoolConfig
+    from torch_port_helpers import packed_equal
+
+    for name in ("MAPAD_DEEP_TIER", "MAPAD_HOST_BID", "MAPAD_RETRY_TIER"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("MAPAD_DEV_LUT", "0")
+    cfg = PoolConfig(lanes=16, total_steps=1024, read_step_cap=256,
+                     max_chains=256)
+    reads = records("mapad_tpu_torch", bench_reads(seed=4, n_random=60))
+    outs = []
+    for dev in (cuda, "cpu"):
+        eng = DeviceSearchEngine(fmd, adna_params("mapad_tpu_torch"),
+                                 pool_config=cfg, packed_hits=True,
+                                 device=dev, big=big)
+        eng.block_reads = 32
+        LAUNCHES.reset()
+        res = eng.search_chunk(reads, lazy_fallback=True)
+        counts = {k: LAUNCHES.get(k) for k in (
+            "unpack_prep", "unpack_prep_full", "bi_d_i64",
+            "pool_search" + ("_i64" if big else ""))}
+        outs.append(([(r.result() if isinstance(r, Future) else r)[0]
+                      for r in res], eng._stats["esc_why"], counts))
+    (hits_g, why_g, counts), (hits_c, why_c, _) = outs
+    assert why_g == why_c
+    assert all(packed_equal(a, b) for a, b in zip(hits_g, hits_c))
+    assert counts["unpack_prep"] == counts["unpack_prep_full"] == 0
+    assert counts["pool_search" + ("_i64" if big else "")] > 0
+    assert (counts["bi_d_i64"] > 0) == big
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_occ4_batch_kernel(fmd, cuda, big):
+    """K1's rank query alone (`occ4_batch`, a warp a position) against
+    `_row_occ4`: positions -1, 0, the last, random, garbage; in big mode
+    also with counts above 2^32."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops import fm
+
+    idx = fm.DeviceFmIndex.from_host(fmd, big=big, device=cuda)
+    idt = np.int64 if big else np.int32
+    rng = np.random.default_rng(6)
+    n = idx.text_len
+    info = np.iinfo(idt)
+    r = torch.from_numpy(np.concatenate([
+        [-1, 0, n - 1], rng.integers(-1, n, size=500),
+        rng.integers(info.min, info.max, size=77),
+    ]).astype(idt)).to(cuda)
+    name = "occ4_batch" + ("_i64" if big else "")
+    LAUNCHES.reset()
+    _equal((fm.occ4_batch(idx, r),), (fm._row_occ4(idx, r),), name)
+    assert LAUNCHES.get(name) == 1
+    if big:
+        rows = idx.rows.clone()
+        cp = ((rows[:, 0:6].long() & 0xFFFFFFFF)
+              | (rows[:, 6:12].long() << 32)) + ((3 << 32) + 12345)
+        rows[:, 0:6] = (cp & 0xFFFFFFFF).to(torch.int32)
+        rows[:, 6:12] = (cp >> 32).to(torch.int32)
+        shifted = idx._replace(rows=rows)
+        got = fm.occ4_batch(shifted, r)
+        _equal((got,), (fm._row_occ4(shifted, r),), name + " above 2^32")
+        assert int(got.max()) > 2**32
+    with pytest.raises(ValueError):
+        fm.occ4_batch(idx, r.to(torch.int32 if big else torch.int64))
 
 
 # (reads, their reference, params, config fields) of the K10 checks; each

@@ -5,6 +5,8 @@
     python3 chip_smoke.py --path7   # path 7 alone (a machine of several cards)
     python3 chip_smoke.py --probes  # the probe phase alone (P1-P4)
     python3 chip_smoke.py --knobs   # the knobs phase alone (path 1's index)
+    python3 chip_smoke.py --big-text [SIZE]  # path 11 alone: a genome of
+                                    # SIZE bp (1.1e9), its text past 2^31
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
@@ -74,6 +76,32 @@ on one card, MAPAD_SHARD=0, whatever the machine has):
   `load_index` reads mapAD's own files; `map --engine device` at the
   defaults, its BAM equal to `map --engine native`'s on the same CRAM and
   index (the CRAM decode timed on its own line: pure Python on the host).
+
+After path 2, the rows past 2^32: a synthetic big-mode table of 4.4e9
+symbols made on the card (tools/big_rows.py `synthetic_index`: 4,741,380
+rows, 2.43 GB; random ranks from a seed, no genome, no index build), and
+on it, each against its plain version and timed beside the same call on
+path 2's rows: K1 in int64 (`occ4_batch` on 65,536 ranks and
+`extend_batch` on as many intervals, the first and last rows, the ranks
+around 2^31, 2^32 and n - 1 among them), K7 in int64 on 256 random reads
+at M = 128 (both parts), and K2 in int64 at a fixed step count, then K3
+and K5 on its result, on 512 of path 2's reads made the table's own
+strings (LF walks) and prepared by path 2's engine; the largest hit
+`lower` K3 returns must pass 2^32.
+
+Path 11 (`--big-text [SIZE]`, alone, not in the default run: its index
+build takes minutes): `gen_genome(SIZE)` (1.1e9 by default: a text of
+2,200,000,002 symbols) as contigs of 50 Mbp, indexed by the CLI into
+.smoke/big_text/ (reused there for the same size and seed; the build's
+seconds and host peak printed), the rows' host peak at load (`from_host`,
+by chunks), then 16,384 of its reads
+through `map --engine device` with nothing forcing big mode (the engine
+must choose it; K6, K7 and the int64 K1, K2, K3, K5 must launch, no int32
+form), `map` (hybrid) and `map --engine native`, the first two BAMs equal
+to the third (XD aside); the mapped records past text position 2^31 are
+counted (there must be some) and every M-only record's mismatches against
+the genome must equal its NM; last `tools/measure_big.py` on the loaded
+index.
 
 Before the paths, K8 runs against its plain version at full width with a
 step budget just above the per-read cap, so that the check's reads force
@@ -214,6 +242,25 @@ CRAM_CHUNK = 4096
 PROBE_W, PROBE_L, PROBE_T, PROBE_T_LONG = 128, 1024, 200, 512
 PROBE_NB = 1 << 20
 COPY_ROUNDS = 5  # the copies and their PyTorch calls, timed in turns
+# the rows-past-2^32 phase: a synthetic big-mode table of 4.4e9 symbols
+# (4,741,380 rows, 2.43 GB on the card; tools/big_rows.py), K1 on 65,536
+# ranks, K7 on 256 random reads at M = 128, K2 at a fixed step count (the
+# first of 512, 1,024, ... whose hits pass 2^32), K3 and K5 on
+# CHECK2_READS of path 2's reads made the table's own strings
+ROWS64_N = 4_400_000_000
+ROWS64_SEED = 64
+ROWS64_RANKS = 65_536
+ROWS64_BID_READS = 256
+ROWS64_FIXED = 512
+ROWS64_PAST = 2**32  # the compared intervals must pass it
+# path 11 (`--big-text [SIZE]`): a genome whose doubled text passes 2^31
+# symbols, written as contigs of 50 Mbp (BAM's per-contig length is an
+# int32; bench.py splits its genome the same way), its index cached in
+# .smoke/big_text/ for the same size and seed
+BIG_TEXT_SIZE = 1_100_000_000
+BIG_TEXT_CONTIG = 50_000_000
+BIG_TEXT_SEED = 62
+BIG_TEXT_MEASURE_READS = 4096
 
 
 def index_rows(genome_size: int, k: int) -> int:
@@ -345,6 +392,72 @@ def bound_ms(n_bytes):
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
+def interval_ends(torch, lower, size):
+    """The two ranks an extension of each interval queries: lower - 1 (-1,
+    no query, where lower is 0) and lower + size - 1, as int64."""
+    lower, size = lower.long(), size.long()
+    return torch.cat([torch.where(lower > 0, lower - 1, -1),
+                      lower + size - 1])
+
+
+def occ_bytes(torch, idx, ranks):
+    """Bytes the rank queries `ranks` (one int tensor; a rank below 0 reads
+    nothing) need of `idx`'s fused rows, each 32-byte sector once over the
+    whole call: in every row queried, its checkpoint words and its symbol
+    words up to the furthest offset queried there.  Two ends in one row,
+    or two queries of one row, read it once."""
+    r = ranks.to(idx.rows.device).long()
+    r = r[r >= 0]
+    nb, k = idx.rows.shape[0], idx.occ_k
+    last = (idx.n_cp_cols + (r % k) // 8) // 8  # the row's last sector
+    need = torch.zeros(nb, dtype=torch.int64, device=r.device)
+    need.scatter_reduce_(0, (r // k).clamp(max=nb - 1), last + 1, "amax")
+    return int(need.sum()) * 32
+
+
+class K7Queries:
+    """While on (`with`), the ranks that the active walk steps of
+    `bi_d.compute_bi_d_plain` query (both ends of the interval each step
+    extends) are gathered in `ranks`, and their steps counted in `steps`:
+    the kernel's walk w of a part of length p runs steps w..p-1, and it
+    reads the rows of those steps only."""
+
+    def __init__(self, torch, bi_d):
+        self.torch, self.bi_d = torch, bi_d
+        self.ranks, self.steps = [], 0
+
+    def __enter__(self):
+        torch, bi_d = self.torch, self.bi_d
+        self._saved = bi_d._walk_part_plain, bi_d.extend_batch_plain
+        walk, ext = self._saved
+        part = {}
+
+        def walk_part(index, rank, pen, part_len, forward, n_steps):
+            w = bi_d.MAX_OFFSET
+            part.update(step=0, skip=torch.arange(
+                w, device=rank.device).repeat(rank.shape[0]),
+                plen=part_len.long().repeat_interleave(w))
+            return walk(index, rank, pen, part_len, forward, n_steps)
+
+        def extend(index, lower, lrev, size):
+            i = part["step"]
+            part["step"] += 1
+            on = (i >= part["skip"]) & (i < part["plen"])
+            self.steps += int(on.sum())
+            self.ranks.append(interval_ends(torch, lower[on], size[on]))
+            return ext(index, lower, lrev, size)
+
+        bi_d._walk_part_plain, bi_d.extend_batch_plain = walk_part, extend
+        return self
+
+    def __exit__(self, *exc):
+        self.bi_d._walk_part_plain, self.bi_d.extend_batch_plain = \
+            self._saved
+
+    def bytes(self, idx):
+        return occ_bytes(self.torch, idx, self.torch.cat(self.ranks))
+
+
 def bam_records(path):
     from mapad_tpu_torch.io.bam import BamReader
 
@@ -390,7 +503,8 @@ def k1_check(torch, fm, idx_d, name, what, replaces="mapad_tpu/ops/fm.py:195"):
                  50),
         plain_ms=timed(torch, lambda: fm.extend_batch_plain(
             idx_d, lower, lrev, size), 10),
-        bound_ms=bound_ms(1024 * 512 + nbytes(lower, lrev, size, *out)),
+        bound_ms=bound_ms(occ_bytes(torch, idx_d, interval_ends(
+            torch, lower, size)) + nbytes(lower, lrev, size, *out)),
         bound_by="bytes", library_ms=None,
     )
     log(f"K1 {what}: bit-exact on 512 intervals (lowest child lower bound "
@@ -1786,7 +1900,8 @@ def occ4_check(torch, fm, idx_d, card):
     out = dict(max_abs_err=err, positions=int(r.numel()),
                ms=timed(torch, lambda: fm.occ4_batch(idx_d, r), 50),
                plain_ms=timed(torch, lambda: fm._row_occ4(idx_d, r), 10),
-               bound_ms=bound_ms(512 * r.numel() + nbytes(r, got)))
+               bound_ms=bound_ms(occ_bytes(torch, idx_d, r)
+                                 + nbytes(r, got)))
     log(f"K1 {name}: bit-exact on {r.numel()} positions, "
         f"{out['ms']:.4f} ms (plain {out['plain_ms']:.4f} ms, bound "
         f"{out['bound_ms']:.6f} ms); {card}")
@@ -1880,15 +1995,18 @@ def batch_check(torch, engine, reads, r, what, bid_row=False):
         return bi_d.compute_bi_d_plain(idx_d, rank, pen, n, split, fwd, steps)
 
     bid = k7()
-    err7 = compare(torch, (bid,), (k7_plain(),), f"bi_d ({what})")
+    with K7Queries(torch, bi_d) as q7:
+        want7 = k7_plain()
+    err7 = compare(torch, (bid,), (want7,), f"bi_d ({what})")
     if bid_row:
         walk_steps = bi_d.walk_steps(n, split, fwd)
+        assert q7.steps == walk_steps, (q7.steps, walk_steps)
         rows["bi_d"] = dict(
             route="cuda", source="mapad_tpu_torch/csrc/bi_d.cu",
             replaces="mapad_tpu/ops/bi_d.py:27", max_abs_err=err7,
             ms=timed(torch, k7, 10), plain_ms=timed(torch, k7_plain, 1),
-            bound_ms=bound_ms(nbytes(rank, pen, n, split, bid) + min(
-                nbytes(idx_d.rows), walk_steps * 2 * 512)),
+            bound_ms=bound_ms(nbytes(rank, pen, n, split, bid)
+                              + q7.bytes(idx_d)),
             bound_by="bytes", library_ms=None, walk_steps=walk_steps,
             plan=k7_plan(bi_d, engine.device, rank, fwd, False),
             ptxas=PTXAS.get("K7 int32"),
@@ -2153,23 +2271,26 @@ def check_kernels_big(torch, np, engine, reads):
                                        steps)
 
     bid = k7()
-    err = compare(torch, (bid,), (k7_plain(),), "bi_d_i64")
+    with K7Queries(torch, bi_d) as q7:
+        want7 = k7_plain()
+    err = compare(torch, (bid,), (want7,), "bi_d_i64")
     # a second split puts reads into both parts, for the forward part
     half = torch.div(n, 2, rounding_mode="floor").to(torch.int32)
     n_h, half_h = n.cpu(), half.cpu()
     steps2 = (int(half_h.max()), int((n_h - half_h).max()))
     both = bi_d.compute_bi_d(idx_d, rank, pen, n, half, True, steps2)
-    err = max(err, compare(
-        torch, (both,),
-        (bi_d.compute_bi_d_plain(idx_d, rank, pen, n, half, True, steps2),),
-        "bi_d_i64 (both parts)"))
+    with K7Queries(torch, bi_d) as q7_both:
+        want7 = bi_d.compute_bi_d_plain(idx_d, rank, pen, n, half, True,
+                                        steps2)
+    err = max(err, compare(torch, (both,), (want7,),
+                           "bi_d_i64 (both parts)"))
     # the walk steps each run's data needs (both parts where the forward
-    # part is on), two 512 B index rows each
+    # part is on), and the index bytes their rank queries need
     fwd = cfg.compute_forward_part
     walk_steps = bi_d.walk_steps(n, split, fwd)
     both_steps = bi_d.walk_steps(n, half, True)
-    k7_bytes = (nbytes(rank, pen, n, split, bid)
-                + min(nbytes(idx_d.rows), walk_steps * 2 * 512))
+    assert (q7.steps, q7_both.steps) == (walk_steps, both_steps)
+    k7_bytes = nbytes(rank, pen, n, split, bid) + q7.bytes(idx_d)
     rows["bi_d_i64"] = dict(
         route="cuda", source="mapad_tpu_torch/csrc/bi_d.cu",
         replaces="mapad_tpu/ops/bi_d.py:27", max_abs_err=err,
@@ -2179,8 +2300,8 @@ def check_kernels_big(torch, np, engine, reads):
         both_ms=timed(torch, lambda: bi_d.compute_bi_d(
             idx_d, rank, pen, n, half, True, steps2), 10),
         both_walk_steps=both_steps,
-        both_bound_ms=bound_ms(nbytes(rank, pen, n, half, both) + min(
-            nbytes(idx_d.rows), both_steps * 2 * 512)),
+        both_bound_ms=bound_ms(nbytes(rank, pen, n, half, both)
+                               + q7_both.bytes(idx_d)),
         both_plan=k7_plan(bi_d, dev, rank, True, True),
         ptxas=PTXAS.get("K7 int64"),
     )
@@ -2223,6 +2344,251 @@ def check_kernels_big(torch, np, engine, reads):
         torch, sp2, idx_d, engine._params(), cfg, True,
         main=(consts, slut, cfg._replace(total_steps=PATH4_BIG_STEPS)),
     )
+    return rows
+
+
+def rows64_k1(torch, fm, tables, card):
+    """K1 int64 (`occ4_batch`, `extend_batch`) against its plain versions
+    at ROWS64_RANKS ranks of each table: the positions themselves, and as
+    many intervals whose lower end (the first half) or upper end (the
+    second) ranks them."""
+    from mapad_tpu_torch.tools.big_rows import edge_ranks
+
+    out = {}
+    for what, idx in tables:
+        n = idx.text_len
+        r = edge_ranks(idx, ROWS64_RANKS, ROWS64_SEED)
+        half = r[: ROWS64_RANKS // 2]
+        g = torch.Generator(device="cpu").manual_seed(ROWS64_SEED + 1)
+        size = torch.randint(0, 65, half.shape, generator=g,
+                             dtype=torch.int64).to(r.device)
+        lo_a = (half + 1).clamp(0, n - 1)
+        lo_b = (half - size + 1).clamp(0, n - 1)
+        lower = torch.cat([lo_a, lo_b])
+        size = torch.minimum(torch.cat([size, size]), n - lower)
+        lower[0], size[0] = 0, n  # the whole text
+        lrev = torch.randint(0, n, lower.shape, generator=g,
+                             dtype=torch.int64).to(r.device)
+        occ = fm.occ4_batch(idx, r)
+        err = compare(torch, (occ,), (fm._row_occ4(idx, r),),
+                      f"occ4_batch_i64 on {what}")
+        ext = fm.extend_batch(idx, lower, lrev, size)
+        err = max(err, compare(torch, ext, fm.extend_batch_plain(
+            idx, lower, lrev, size), f"extend_batch_i64 on {what}"))
+        out[what] = dict(
+            max_abs_err=err, ranks=int(r.numel()),
+            intervals=int(lower.numel()),
+            max_rank=int(r.max()), max_child_lower=int(ext[0].max()),
+            occ4_ms=timed(torch, lambda: fm.occ4_batch(idx, r), 20),
+            occ4_plain_ms=timed(torch, lambda: fm._row_occ4(idx, r), 3),
+            ms=timed(torch, lambda: fm.extend_batch(idx, lower, lrev, size),
+                     20),
+            plain_ms=timed(torch, lambda: fm.extend_batch_plain(
+                idx, lower, lrev, size), 3),
+            occ4_bound_ms=bound_ms(occ_bytes(torch, idx, r) + nbytes(r, occ)),
+            bound_ms=bound_ms(occ_bytes(torch, idx, interval_ends(
+                torch, lower, size)) + nbytes(lower, lrev, size, *ext)))
+        o = out[what]
+        log(f"K1 int64 on {what} ({n:,} symbols): occ4_batch on "
+            f"{o['ranks']} ranks and extend_batch on {o['intervals']} "
+            f"intervals bit-exact against their plain versions (largest "
+            f"rank {o['max_rank']:,}, largest child lower "
+            f"{o['max_child_lower']:,}); occ4_batch {o['occ4_ms']:.4f} ms "
+            f"(plain {o['occ4_plain_ms']:.2f}, bound "
+            f"{o['occ4_bound_ms']:.5f}), extend_batch "
+            f"{o['ms']:.4f} ms (plain {o['plain_ms']:.2f}, bound "
+            f"{o['bound_ms']:.4f}); {card}")
+    return out
+
+
+def rows64_k7(torch, bi_d, tables, card):
+    """K7 int64 against its plain version on ROWS64_BID_READS random reads
+    at M = 128, both parts (split n // 2), on each table: random ranks
+    over a random table, so the walks' restarts spread over all of it."""
+    g = torch.Generator(device="cpu").manual_seed(ROWS64_SEED + 2)
+    R, M = ROWS64_BID_READS, 128
+    rank = torch.randint(1, 5, (R, M), generator=g, dtype=torch.int32)
+    pen = -4 * torch.rand((R, M), generator=g, dtype=torch.float32)
+    n = torch.full((R,), M, dtype=torch.int32)
+    split = n // 2
+    steps = (M // 2, M - M // 2)
+    walk = bi_d.walk_steps(n, split, True)
+    out = {}
+    for what, idx in tables:
+        dev = idx.rows.device
+        a = (rank.to(dev), pen.to(dev), n.to(dev), split.to(dev), True,
+             steps)
+        got = bi_d.compute_bi_d(idx, *a)
+        with K7Queries(torch, bi_d) as q7:
+            want = bi_d.compute_bi_d_plain(idx, *a)
+        assert q7.steps == walk, (q7.steps, walk)
+        err = compare(torch, (got,), (want,), f"bi_d_i64 on {what}")
+        out[what] = dict(
+            max_abs_err=err, reads=R, walk_steps=walk,
+            ms=timed(torch, lambda: bi_d.compute_bi_d(idx, *a), 10),
+            plain_ms=timed(torch, lambda: bi_d.compute_bi_d_plain(idx, *a),
+                           1),
+            bound_ms=bound_ms(nbytes(*a[:4], got) + q7.bytes(idx)))
+        o = out[what]
+        log(f"K7 int64 on {what}: {R} reads at M={M}, both parts, "
+            f"{walk} walk steps, bit-exact; {o['ms']:.4f} ms (plain "
+            f"{o['plain_ms']:.1f}, bound {o['bound_ms']:.5f}); {card}")
+    return out
+
+
+def rows64_pool(torch, np, engine, reads, tables, card):
+    """K2 int64 at a fixed step count, then K3 and K5 on its result,
+    against their plain versions on the first table; timed on each.  The
+    block is CHECK2_READS of path 2's reads (their lengths and qualities)
+    prepared by path 2's engine, their bases the first table's own strings
+    (`text_strings`), so that they hit; the same prepared inputs go to each
+    table, its Bi-D made there (K7).  The count: the first of ROWS64_FIXED,
+    twice it, ... (the kernel alone) whose hits pass ROWS64_PAST, so that
+    the plain loop runs no more steps than the check needs."""
+    from mapad_tpu_torch.map.record import Record
+    from mapad_tpu_torch.ops import engine as eng
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+    from mapad_tpu_torch.tools.big_rows import text_strings
+
+    R = CHECK2_READS
+    syn = tables[0][1]
+    strings = text_strings(syn, R, 128, ROWS64_SEED + 3).cpu().numpy()
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    recs = [Record(sequence=acgt[strings[i, -len(s):] - 1].tobytes(),
+                   base_qualities=q) for i, (s, q) in enumerate(reads[:R])]
+    dev = engine.device
+    cfg, prep, _t0 = engine._prep_block(recs, R, engine.pool_config)
+    with torch.cuda.device(dev):
+        consts, kw = engine._upload(prep)
+    args = {what: (idx, *consts, engine._params(), cfg, sp2._dense_slut(
+        idx, kw["dense"], consts[0], consts[1], cfg, kw["bid_steps"]))
+        for what, idx in tables}
+
+    def fixed_args(what, fixed):
+        a = args[what]
+        return a[:7] + (cfg._replace(debug_fixed_steps=fixed),) + a[8:]
+
+    def hits(res):
+        n_ext = min(int(res.n_chains), cfg.max_chains)
+        hit = (res.c_read[:n_ext] >= 0) & ~res.c_abandon[:n_ext]
+        return (int(hit.sum()),
+                int(res.c_lower[:n_ext][hit].max()) if bool(hit.any())
+                else -1,
+                int(res.c_lrev[:n_ext][hit].max()) if bool(hit.any())
+                else -1)
+
+    fixed = ROWS64_FIXED
+    while True:
+        a = fixed_args(tables[0][0], fixed)
+        if hits(sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*a),
+                                         a[7]))[1] > ROWS64_PAST:
+            break
+        if fixed >= cfg.total_steps:
+            raise AssertionError(f"K2 on {tables[0][0]}: no hit past "
+                                 f"{ROWS64_PAST:,} in {fixed} steps")
+        fixed = min(2 * fixed, cfg.total_steps)
+    out = {}
+    for what, idx in tables:
+        a = fixed_args(what, fixed)
+        c = a[7]
+        state, k2_ms = k2_timed(torch, sp2, a)
+        res = sp2._extract_chains_cuda(*state, c)
+        buf = sp2._extract_chains_cuda(*state, c, views=False)
+        packed = eng._pack_buffer(buf, c, R, True)
+        steps = int(res.steps)
+        n_hits, max_lower, max_lrev = hits(res)
+        o = out[what] = dict(
+            reads=R, fixed_steps=fixed, steps=steps, k2_ms=k2_ms,
+            k2_us_step=k2_ms * 1e3 / max(steps, 1),
+            k3_ms=timed(torch, lambda: sp2._extract_chains_cuda(*state, c),
+                        20),
+            k5_ms=timed(torch, lambda: eng._pack_buffer(buf, c, R, True),
+                        20),
+            chains=int(res.n_chains), hits=n_hits, max_lower=max_lower,
+            max_lower_rev=max_lrev)
+        if idx is syn:
+            t = time.perf_counter()
+            pres = sp2._extract_chains_plain(*sp2._pool_loop_plain(*a), c)
+            torch.cuda.synchronize()
+            o["plain_ms"] = (time.perf_counter() - t) * 1e3
+            o["max_abs_err"] = max(
+                compare(torch, tuple(res), tuple(pres),
+                        f"pool_search_i64 + extract_chains_i64 on {what}"),
+                compare(torch, (packed,), (eng._pack_result_plain(res),),
+                        f"pack_result_i64 on {what}"))
+            if steps != fixed or max_lower <= ROWS64_PAST:
+                raise AssertionError(
+                    f"K2 on {what}: {steps} steps, largest hit lower "
+                    f"{max_lower:,} (must pass {ROWS64_PAST:,})")
+        log(f"K2+K3+K5 int64 on {what}: {R} reads (the table's own "
+            f"strings), debug_fixed_steps={fixed}: "
+            + ("bit-exact against the plain versions "
+               f"(plain K2+K3 {o['plain_ms']:.0f} ms); " if idx is syn
+               else "")
+            + f"{o['chains']} chains, {n_hits} hits, largest hit lower "
+            f"{max_lower:,} (lower_rev {max_lrev:,}); K2 {k2_ms:.2f} ms "
+            f"({o['k2_us_step']:.3f} us a step), K3 {o['k3_ms']:.4f} ms, "
+            f"K5 {o['k5_ms']:.4f} ms; {card}")
+    return out
+
+
+def rows64_phase(torch, np, engine, reads, card):
+    """K1, K7, K2, K3 and K5 in int64 on a table whose rows pass 2^32:
+    the synthetic index of ROWS64_N symbols, each kernel bit for bit
+    against its plain version there and timed beside the same call on
+    path 2's rows (`engine`'s index).  -> {kernel-table row: its
+    `past_2_32` keys}."""
+    from mapad_tpu_torch.ops import bi_d, fm
+    from mapad_tpu_torch.tools.big_rows import synthetic_index
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    syn = synthetic_index(ROWS64_N, ROWS64_SEED, engine.device)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    log(f"rows past 2^32: a synthetic BWT of {syn.text_len:,} symbols, "
+        f"{syn.rows.shape[0]:,} rows = {nbytes(syn.rows) / 1e9:.3f} GB on "
+        f"the card (checkpoints up to {int(syn.less[-1]):,}), made in "
+        f"{made_s:.1f} s")
+    tables = (("the synthetic table", syn),
+              ("path 2's rows", engine.device_index))
+    k1 = rows64_k1(torch, fm, tables, card)
+    k7 = rows64_k7(torch, bi_d, tables, card)
+    pool = rows64_pool(torch, np, engine, reads, tables, card)
+    del syn, tables
+    torch.cuda.empty_cache()
+    syn_k, p2 = "the synthetic table", "path 2's rows"
+    if k1[syn_k]["max_child_lower"] <= ROWS64_PAST:
+        raise AssertionError("K1 int64: no child interval past 2^32")
+    common = dict(n=ROWS64_N, rows=-(-ROWS64_N // 928), made_s=made_s)
+    po, pp = pool[syn_k], pool[p2]
+    rows = {
+        "extend_batch_i64": dict(common, **{
+            k: k1[syn_k][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "occ4_ms", "occ4_bound_ms",
+                                      "max_child_lower")},
+            ms_path2=k1[p2]["ms"], occ4_ms_path2=k1[p2]["occ4_ms"],
+            bound_ms_path2=k1[p2]["bound_ms"]),
+        "bi_d_i64": dict(common, **{
+            k: k7[syn_k][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "walk_steps")},
+            ms_path2=k7[p2]["ms"], bound_ms_path2=k7[p2]["bound_ms"]),
+        "pool_search_i64": dict(
+            common, max_abs_err=po["max_abs_err"], ms=po["k2_ms"],
+            us_step=po["k2_us_step"], fixed_steps=po["fixed_steps"],
+            plain_ms=po["plain_ms"], ms_path2=pp["k2_ms"],
+            us_step_path2=pp["k2_us_step"]),
+        "extract_chains_i64": dict(
+            common, max_abs_err=po["max_abs_err"], ms=po["k3_ms"],
+            chains=po["chains"], hits=po["hits"],
+            max_lower=po["max_lower"], ms_path2=pp["k3_ms"]),
+        "pack_result_i64": dict(
+            common, max_abs_err=po["max_abs_err"], ms=po["k5_ms"],
+            ms_path2=pp["k5_ms"]),
+    }
+    log(f"rows past 2^32: K1, K7, K2, K3 and K5 in int64 bit-exact, the "
+        f"largest compared hit lower {po['max_lower']:,} > 2^32; the phase "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
     return rows
 
 
@@ -2496,6 +2862,257 @@ def knobs_alone(torch, np, cli, load_index, params, args, card, t_start):
     return 0
 
 
+def write_big_genome(np, size, seed, fasta):
+    """`gen_genome(size)` written as contigs of BIG_TEXT_CONTIG bp, lines of
+    80 -> the genome (uint8 bases)."""
+    genome = gen_genome(size, np, seed)
+    tmp = f"{fasta}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        for i, o in enumerate(range(0, size, BIG_TEXT_CONTIG)):
+            f.write(f">big_chr{i + 1}\n".encode())
+            seq = genome[o : o + BIG_TEXT_CONTIG]
+            full = len(seq) // 80 * 80
+            lines = np.empty((full // 80, 81), dtype=np.uint8)
+            lines[:, :80] = seq[:full].reshape(-1, 80)
+            lines[:, 80] = ord("\n")
+            f.write(lines.tobytes())
+            if full < len(seq):
+                f.write(seq[full:].tobytes() + b"\n")
+    os.replace(tmp, fasta)
+    return genome
+
+
+def run_measured(cmd, log_path):
+    """Run `cmd` from the repo's root, its output into `log_path` -> (exit
+    code, seconds, the process's peak resident GiB)."""
+    t = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT)
+        _pid, status, usage = os.wait4(proc.pid, 0)
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    return (proc.returncode, time.perf_counter() - t,
+            usage.ru_maxrss / 2**20)
+
+
+def ref_span(cigar):
+    """Reference bases a CIGAR string covers (M, D, N, =, X)."""
+    import re
+
+    return sum(int(n) for n in re.findall(r"(\d+)[MDN=X]", cigar))
+
+
+def big_text_positions(np, recs, meta, genome):
+    """The text positions of a BAM's mapped records (a reverse-strand hit
+    sits in the text's second half: text_len - pos - span - 1), and each
+    M-only record's mismatches against the genome, which must equal its NM
+    tag -> (text positions, records checked)."""
+    starts = [c["start"] for c in meta["contigs"]]
+    text_len = meta["text_len"]
+    where, checked = [], 0
+    for name, flags, ref_id, pos, _mq, cigar, seq, _q, tags in recs:
+        if flags & 0x4:
+            continue
+        a = starts[ref_id] + pos
+        span = ref_span(cigar)
+        where.append(text_len - a - span - 1 if flags & 0x10 else a)
+        if cigar == f"{len(seq)}M":
+            nm = next(v for t, _tc, v in tags if t == b"NM")
+            ref = genome[a : a + len(seq)]
+            read = np.frombuffer(seq, dtype=np.uint8)
+            if int((ref != read).sum()) != nm:
+                raise AssertionError(
+                    f"{name}: {int((ref != read).sum())} mismatches against "
+                    f"the genome at {a:,}, NM {nm}")
+            checked += 1
+    return np.asarray(where, dtype=np.int64), checked
+
+
+def big_text_alone(torch, np, cli, load_index, params, card, t_start, size):
+    """`--big-text [SIZE]`: path 11, a genome of SIZE bp (default
+    BIG_TEXT_SIZE: a text of 2,200,000,002 symbols, past 2^31) end to end:
+    its index by the CLI (cached in .smoke/big_text/ for the same size and
+    seed), the rows' host peak at load (by chunks), then `map --engine
+    device` (big mode chosen by the engine itself), `map` (the hybrid
+    engine) and `map --engine native`, the first two BAMs equal to the
+    third (XD aside), the mapped records past
+    text position 2^31 counted and checked against the genome; last
+    `tools/measure_big.py` on the loaded index."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.tools import measure_big
+
+    work = os.path.join(WORK, "big_text")
+    os.makedirs(work, exist_ok=True)
+    seed = BIG_TEXT_SEED
+    fasta = os.path.join(work, f"genome_{size}_{seed}.fa")
+    fastq = os.path.join(work, f"reads_{size}_{seed}.fq")
+    meta_path = os.path.join(f"{fasta}.tpx", "meta.json")
+    text_len = 2 * size + 2
+    summary = dict(genome_bp=size, contigs=-(-size // BIG_TEXT_CONTIG),
+                   text_len=text_len, seed=seed)
+    log(f"path 11: a {size:,} bp genome, {summary['contigs']} contigs of "
+        f"{BIG_TEXT_CONTIG:,} bp: a text of {text_len:,} symbols "
+        f"({text_len / 2**31:.3f} x 2^31)")
+    t = time.perf_counter()
+    cached = os.path.exists(meta_path) and os.path.exists(fasta)
+    if cached:
+        with open(meta_path) as f:
+            cached = json.load(f).get("text_len") == text_len
+    genome = (gen_genome(size, np, seed) if cached
+              else write_big_genome(np, size, seed, fasta))
+    reads = make_reads(genome, N_READS, np, seed + 100)
+    with open(fastq, "w") as f:
+        for i, (sq, q) in enumerate(reads):
+            f.write(f"@read{i}\n{sq.decode()}\n+\n"
+                    + "".join(chr(c + 33) for c in q) + "\n")
+    log(f"path 11: genome and {N_READS} reads in "
+        f"{time.perf_counter() - t:.1f} s (FASTA "
+        f"{'reused' if cached else 'written'})")
+    if cached:
+        summary["index"] = dict(cache="reused")
+        log(f"path 11: index cache reused ({meta_path})")
+    else:
+        del genome  # the build's peak without the smoke's copy
+        rc, secs, peak = run_measured(
+            [sys.executable, "-m", "mapad_tpu_torch.cli", "index", "-g",
+             fasta], os.path.join(work, "index.log"))
+        if rc != 0:
+            raise SystemExit(f"path 11: index failed ({rc}; "
+                             f"{os.path.join(work, 'index.log')})")
+        summary["index"] = dict(cache="built", seconds=secs, peak_gib=peak)
+        log(f"path 11: index built in {secs:.1f} s, host peak {peak:.2f} "
+            f"GiB (the CLI's process); {card}")
+        genome = gen_genome(size, np, seed)
+    with open(meta_path) as f:
+        meta = json.load(f)
+    assert meta["text_len"] == text_len, meta["text_len"]
+
+    # the rows' host peak at load, packed by chunks (the bundle's row cache
+    # made anew)
+    log_path = os.path.join(work, "load_peak.log")
+    rc, secs, peak = run_measured(
+        [sys.executable, "-m", "mapad_tpu_torch.tools.big_rows",
+         "load-peak", "-g", fasta], log_path)
+    if rc != 0:
+        raise SystemExit(f"path 11: load-peak failed ({rc}; {log_path})")
+    with open(log_path) as f:
+        got = json.loads(f.read().strip().splitlines()[-1])
+    if not got["big"]:
+        raise AssertionError("path 11: the rows were packed in int32 mode")
+    summary["load"] = got
+    log(f"path 11: rows packed by chunks: {got['seconds']:.1f} s, host peak "
+        f"{got['peak_gib']:.2f} GiB ({got['peak_gib_before']:.2f} before the "
+        f"packing: the index loaded, the card's context), rows "
+        f"{got['rows_bytes'] / 1e9:.3f} GB; {card}")
+
+    # the three engines through the CLI
+    tap = _StatsTap()
+    logging.getLogger("mapad_tpu_torch.map.pipeline").addHandler(tap)
+    made = []
+    init = DeviceSearchEngine.__init__
+
+    def recording_init(self, *a, **kw):
+        if kw.get("big") is not None:
+            raise AssertionError("path 11 must leave `big` to the engine")
+        init(self, *a, **kw)
+        made.append(self)
+
+    map_argv = ["--threads", "0", "map", "-r", fastq, "-g", fasta,
+                "--force_overwrite", *MAP_FLAGS]
+    bams = {e: os.path.join(work, f"{e}.bam")
+            for e in ("native", "device", "hybrid")}
+    i64 = ["unpack_prep_full", "bi_d_i64", "extend_batch_i64",
+           "pool_search_i64", "extract_chains_i64", "pack_result_i64"]
+    i32 = ["unpack_prep", "bi_d", "extend_batch", "pool_search",
+           "extract_chains", "pack_result"]
+    summary["engines"] = {}
+    for engine in ("native", "device", "hybrid"):
+        tap.stats = None
+        LAUNCHES.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        DeviceSearchEngine.__init__ = recording_init
+        t = time.perf_counter()
+        try:
+            extra = [] if engine == "hybrid" else ["--engine", engine]
+            if cli.main([*map_argv, "-o", bams[engine], *extra]) != 0:
+                raise SystemExit(f"path 11: map {engine} failed")
+        finally:
+            DeviceSearchEngine.__init__ = init
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        e = summary["engines"][engine] = dict(
+            seconds=secs, reads_per_s=N_READS / secs)
+        if engine == "native":
+            log(f"path 11, map --engine native: {N_READS} reads in "
+                f"{secs:.2f} s = {N_READS / secs:.1f} reads/s")
+            continue
+        if len(made) != 1:
+            raise AssertionError(f"path 11 {engine}: {len(made)} device "
+                                 "engines")
+        idx = made.pop().device_index
+        if not idx.big or idx.text_len != text_len:
+            raise AssertionError(f"path 11 {engine}: the engine did not "
+                                 f"choose int64 mode ({idx.big}, "
+                                 f"{idx.text_len})")
+        e.update(rows_gb=nbytes(idx.rows) / 1e9,
+                 peak_card_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del idx
+        counts = {k: LAUNCHES.get(k) for k in i64 + i32}
+        what = ("path 11, map --engine device" if engine == "device"
+                else "path 11, map (hybrid)")
+        report_run(what, card, secs, tap.stats, {k: counts[k] for k in i64})
+        check_k2_launches(counts, what, sfx="_i64")
+        if any(counts[k] for k in i32):
+            raise AssertionError(f"{what}: int32 kernels launched: "
+                                 f"{ {k: counts[k] for k in i32} }")
+        e.update(launches={k: counts[k] for k in i64},
+                 stats={k: tap.stats.get(k) for k in (
+                     "batches", "steps", "escalated", "esc_why", "oracle",
+                     "deep_retried", "prep_s", "device_s", "wait_s",
+                     "decode_s", "fb_secs", "device_fraction")})
+        log(f"  big mode chosen by the engine (text {text_len:,} symbols); "
+            f"rows {e['rows_gb']:.3f} GB on the card, peak card memory "
+            f"{e['peak_card_gb']:.3f} GB; {card}")
+        bam_compare(bams[engine], bams["native"], what)
+    logging.getLogger("mapad_tpu_torch.map.pipeline").removeHandler(tap)
+
+    _h, recs = bam_records(bams["native"])
+    where, checked = big_text_positions(np, recs, meta, genome)
+    past = int((where >= 2**31).sum())
+    summary["mapped"] = int(where.size)
+    summary["past_2_31"] = past
+    summary["past_2_32"] = int((where >= 2**32).sum())
+    summary["max_text_pos"] = int(where.max())
+    summary["checked_against_genome"] = checked
+    log(f"path 11: {where.size} mapped records, {past} of them at text "
+        f"positions past 2^31, {summary['past_2_32']} past 2^32 (largest "
+        f"{int(where.max()):,}); {checked} M-only records' mismatches "
+        f"against the genome equal their NM")
+    if not past:
+        raise AssertionError("path 11: no mapped record past text position "
+                             "2^31")
+    del genome, recs
+
+    # the int64 pool kernel alone on the loaded index
+    from mapad_tpu_torch.map.record import Record
+
+    index = load_index(fasta)
+    m = measure_big.measure(index, params, [
+        Record(sequence=sq, base_qualities=q)
+        for sq, q in reads[:BIG_TEXT_MEASURE_READS]])
+    summary["measure_big"] = m
+    log(measure_big.line(m))
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    print(json.dumps({"big_text": summary}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2551,6 +3168,13 @@ def main() -> int:
     if "--path7" in sys.argv[1:]:
         return path7_alone(torch, np, cli, load_index, params, args, card,
                            t_start)
+
+    if "--big-text" in sys.argv[1:]:
+        at = sys.argv.index("--big-text") + 1
+        size = (int(sys.argv[at]) if at < len(sys.argv)
+                and sys.argv[at].isdigit() else BIG_TEXT_SIZE)
+        return big_text_alone(torch, np, cli, load_index, params, card,
+                              t_start, size)
 
     if "--knobs" in sys.argv[1:]:
         return knobs_alone(torch, np, cli, load_index, params, args, card,
@@ -2695,6 +3319,10 @@ def main() -> int:
         log(f"  {len(out)} reads, stats {short.stats()}")
     if not deep_blocks:
         raise AssertionError("no deep block ran on path 2")
+
+    # --- the rows past 2^32: the int64 kernels on a synthetic table ---
+    for name, keys in rows64_phase(torch, np, engine2, reads2, card).items():
+        rows[name]["past_2_32"] = keys
 
     from mapad_tpu_torch.map.native_search import NativeSearchEngine
     from mapad_tpu_torch.map.record import Record
@@ -3018,7 +3646,7 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
             "both_plan", "host_ms", "launches_per_call", "walk_floor_ms",
             "deepest_chain", "load_ns",
             "fixed_check", "fixed_steps", "fixed_ms", "fixed_us_step",
-            "fixed_natural_steps", "occ4_batch")
+            "fixed_natural_steps", "occ4_batch", "past_2_32")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},

@@ -104,18 +104,20 @@ def bwt_from_sa(text_ranks: np.ndarray, sa: np.ndarray) -> np.ndarray:
 
 
 def build_from_sequences(records, occ_k: int = DEFAULT_OCC_K, seed: int = 1234):
-    """Build all index structures in memory from (name, seq) pairs."""
+    """Build all index structures in memory from (name, seq) pairs.
+
+    `records` may be an iterator (`run` streams the FASTA), so no contig is
+    held twice; each genome-sized buffer is dropped once the next one is
+    made, and the whole-BWT scans go by chunks (`index.fmd.SCAN_CHUNK`),
+    so that the suffix array, 8 bytes a symbol, sets the host's peak."""
     rng = StdRngCompat(seed)
 
-    parts = []
+    ref_seq = bytearray()
     contigs = []
-    end = 0
     for name, seq in records:
-        seq = bytes(seq).upper()
-        end += len(seq)
-        contigs.append(FastaIdPosition(end - len(seq), end - 1, name))
-        parts.append(seq)
-    ref_seq = bytearray(b"".join(parts))
+        start = len(ref_seq)
+        ref_seq += bytes(seq).upper()
+        contigs.append(FastaIdPosition(start, len(ref_seq) - 1, name))
 
     logger.info("Validate reference sequence")
     iupac_ok = np.zeros(256, dtype=bool)
@@ -131,16 +133,19 @@ def build_from_sequences(records, occ_k: int = DEFAULT_OCC_K, seed: int = 1234):
     logger.info("Add reverse complement and sentinels to reference")
     rc = revcomp(ref_seq)
     text = bytes(ref_seq) + b"$" + rc + b"$"
+    del ref_seq, rc
 
     logger.info("Compress reference")
     rank_transform = RankTransform(DNA_UPPERCASE_X_ALPHABET + b"$")
     text_ranks = rank_transform.transform(text)
+    del text
 
     logger.info("Generate suffix array")
     sa = suffix_array(text_ranks)
 
     logger.info("Generate BWT")
     bwt = bwt_from_sa(text_ranks, sa)
+    del text_ranks
 
     alphabet_size = len(rank_transform)
     less = compute_less(bwt, alphabet_size)
@@ -165,7 +170,7 @@ def run(reference_path: str, seed: int = 1234, occ_k: int = DEFAULT_OCC_K,
     layout belongs to the patched rust-bio fork and is re-derived from the
     BWT at load time by this framework's reader, index/mapad_native.py)."""
     logger.info("Read input reference sequence")
-    records = [(r.name, r.sequence) for r in read_fasta(reference_path)]
+    records = ((r.name, r.sequence) for r in read_fasta(reference_path))
     fmd, ssa, id_pos_map, orig = build_from_sequences(records, occ_k=occ_k, seed=seed)
     logger.info("Save index")
     save_index(reference_path, fmd, ssa, id_pos_map, orig, {"seed": seed})

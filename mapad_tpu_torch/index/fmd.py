@@ -37,9 +37,25 @@ class BiInterval(NamedTuple):
         return range(self.lower, self.lower + self.size)
 
 
+# symbols a whole-BWT scan takes at once: its temporaries stay ~0.5 GB
+# however long the text (np.bincount widens its input to int64)
+SCAN_CHUNK = 1 << 26
+
+
+def symbol_positions(bwt: np.ndarray, c: int) -> np.ndarray:
+    """Positions of rank c in the BWT, by chunks (int64)."""
+    return np.concatenate(
+        [np.flatnonzero(bwt[i : i + SCAN_CHUNK] == c) + i
+         for i in range(0, len(bwt), SCAN_CHUNK)] or [np.zeros(0, np.int64)]
+    ).astype(np.int64)
+
+
 def compute_less(bwt: np.ndarray, alphabet_size: int) -> np.ndarray:
     """C table: less[c] = number of text symbols strictly smaller than c."""
-    counts = np.bincount(bwt, minlength=alphabet_size)
+    counts = np.zeros(alphabet_size, dtype=np.int64)
+    for i in range(0, len(bwt), SCAN_CHUNK):
+        counts = counts + np.bincount(bwt[i : i + SCAN_CHUNK],
+                                      minlength=alphabet_size)
     less = np.zeros(alphabet_size + 1, dtype=np.int64)
     less[1:] = np.cumsum(counts)
     return less[:-1].copy()
@@ -88,7 +104,7 @@ class FmdIndex:
             # genome-scale mmapped load would fault in the whole multi-GB
             # array (measured 375 s at hg19 scale) -- the index bundle
             # stores the two positions in meta.json instead
-            sentinels = np.flatnonzero(self.bwt == 0)
+            sentinels = symbol_positions(self.bwt, 0)
         sentinels = np.asarray(sentinels, dtype=np.int64)
         self.sentinel_occ = np.zeros(2, dtype=np.int64)
         self.sentinel_occ[: min(2, len(sentinels))] = sentinels[:2]

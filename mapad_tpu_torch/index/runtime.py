@@ -25,7 +25,7 @@ import numpy as np
 
 from ..errors import IndexVersionMismatch, InvalidIndex
 from ..utils.seq import RankTransform
-from .fmd import FmdIndex
+from .fmd import FmdIndex, symbol_positions
 
 INDEX_VERSION = 1
 SA_SAMPLING_RATE = 32
@@ -156,9 +156,10 @@ class SampledSuffixArray:
         """Build from a full SA (reference SampledSuffixArrayOwned::sample)."""
         n = len(suffix_array)
         sample = suffix_array[::sampling_rate].astype(np.int64)
-        mask = (fmd.bwt == 0)
-        mask[::sampling_rate] = False
-        keys = np.flatnonzero(mask).astype(np.int64)
+        # the sentinel rows the sample misses (a chunked scan: no
+        # whole-text mask)
+        keys = symbol_positions(fmd.bwt, 0)
+        keys = keys[keys % sampling_rate != 0]
         vals = suffix_array[keys].astype(np.int64)
         assert n == len(fmd.bwt)
         return cls(fmd, sample, sampling_rate, keys, vals)

@@ -44,6 +44,9 @@ N_CP = 6
 OCC_K = (ROW_WORDS - N_CP) * 8  # 976 symbols per fused row
 N_CP_BIG = 12
 OCC_K_BIG = (ROW_WORDS - N_CP_BIG) * 8  # 928 symbols per big-mode row
+# rows packed at once by `from_host`: 30 MB of symbols, ~250 MB of
+# temporaries
+PACK_CHUNK_ROWS = 1 << 15
 
 
 def resolve_device(device) -> torch.device:
@@ -108,9 +111,12 @@ class DeviceFmIndex(NamedTuple):
         mapad_tpu/ops/fm.py:58-136, read from and written to the same
         `device_rows_k976.npy` (big: `device_rows_k928_big.npy`) cache next
         to the index bundle, and put them on `device` (default: the card).
-        `big` defaults to automatic: int64 mode iff the text needs it."""
-        from ..index.fmd import compute_occ_checkpoints
+        `big` defaults to automatic: int64 mode iff the text needs it.
 
+        The rows are made PACK_CHUNK_ROWS at a time, straight into the one
+        table on `device`: the host holds a chunk of the BWT and of the
+        rows at once, never a whole-text copy (a genome-scale text is
+        billions of symbols; the reference packs it as one uint32 array)."""
         n = len(fmd.bwt)
         if big is None:
             big = n >= 2**31 - 1
@@ -125,45 +131,138 @@ class DeviceFmIndex(NamedTuple):
             )
             if cache_dir else None
         )
-        rows = None
+        rows = torch.empty((nb, ROW_WORDS), dtype=torch.int32, device=device)
+        cached = None
         if cache_path and os.path.exists(cache_path):
             cached = np.load(cache_path, mmap_mode="r")
-            if cached.shape == (nb, ROW_WORDS) and cached.dtype == np.int32:
-                rows = cached
-        if rows is None:
-            bwt = np.asarray(fmd.bwt, dtype=np.uint8)
-            padded = np.full(nb * k, 15, dtype=np.uint8)
-            padded[:n] = bwt
-            nibbles = padded.reshape(nb, k // 8, 8).astype(np.uint32)
-            packed = np.zeros((nb, k // 8), dtype=np.uint32)
-            for b in range(8):
-                packed |= nibbles[:, :, b] << (4 * b)
-            packed = packed.view(np.int32)
-            if k == fmd.occ_k:
-                cp = np.asarray(fmd.occ_cp, dtype=np.int64)
-            else:
-                alphabet_size = len(fmd.rank_transform)
-                cp = compute_occ_checkpoints(bwt, k, alphabet_size)
-            cp = cp[:nb]
-            if cp.shape[1] < 6:
-                cp = np.pad(cp, ((0, 0), (0, 6 - cp.shape[1])))
-            cp = cp[:, :6]
-            if big:
-                cp_lo = (cp & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-                cp_hi = (cp >> 32).astype(np.int32)
-                rows = np.concatenate([cp_lo, cp_hi, packed], axis=1)
-            else:
-                rows = np.concatenate([cp.astype(np.int32), packed], axis=1)
-            if cache_path:
-                try:
-                    tmp = f"{cache_path}.{os.getpid()}.tmp"
-                    with open(tmp, "wb") as f:
-                        np.save(f, rows)
-                    os.replace(tmp, cache_path)
-                except OSError:  # read-only bundle: skip the cache
-                    pass
-        return cls.from_numpy(rows, fmd.less, fmd.sentinel_occ, k, n,
-                              big, device)
+            if cached.shape != (nb, ROW_WORDS) or cached.dtype != np.int32:
+                cached = None
+        if cached is not None:
+            for b0 in range(0, nb, PACK_CHUNK_ROWS):
+                b1 = min(nb, b0 + PACK_CHUNK_ROWS)
+                rows[b0:b1] = torch.from_numpy(np.array(cached[b0:b1]))
+        else:
+            # the index's own checkpoints where their spacing is k, as in
+            # the reference; else the running counts of the chunks
+            cps = fmd.occ_cp if k == fmd.occ_k else None
+            with _RowCache(cache_path, nb) as cache:
+                fill_rows(rows, _bwt_chunks(fmd.bwt, k, nb, device), big,
+                          cps, cache)
+        idt = torch.int64 if big else torch.int32
+        return cls(
+            rows=rows,
+            less=torch.from_numpy(
+                np.array(fmd.less, dtype=np.int64)).to(idt).to(device),
+            sentinels=torch.from_numpy(
+                np.array(fmd.sentinel_occ, dtype=np.int64)
+            ).to(idt).to(device),
+            occ_k=int(k),
+            text_len=int(n),
+            big=bool(big),
+        )
+
+
+def _pack_rows(sym: torch.Tensor, cp: torch.Tensor,
+               big: bool) -> torch.Tensor:
+    """(r, k) uint8 symbol ranks (15 past the text) and their rows'
+    (r, 6) int64 exclusive-prefix counts -> (r, 128) int32 fused rows:
+    `[cp(6) | symbols]`, big `[cp_lo(6) | cp_hi(6) | symbols]`, eight
+    4-bit symbols a word, the first in the low nibble."""
+    r, k = sym.shape
+    nib = sym.reshape(r, k // 8, 8).to(torch.int64)
+    word = nib[:, :, 0].clone()
+    for b in range(1, 8):
+        word |= nib[:, :, b] << (4 * b)
+    # int64 -> int32 keeps the low 32 bits (numpy's uint32 view)
+    cols = ([(cp & 0xFFFFFFFF).to(torch.int32), (cp >> 32).to(torch.int32)]
+            if big else [cp.to(torch.int32)])
+    return torch.cat([*cols, word.to(torch.int32)], dim=1)
+
+
+def fill_rows(rows: torch.Tensor, chunks, big: bool, cps=None,
+              cache=None) -> torch.Tensor:
+    """Pack `chunks`, (first row, (r, k) uint8 symbol ranks on the rows'
+    device, 15 past the text) in row order, into the fused rows `rows`,
+    each chunk appended to `cache` (a `_RowCache`) as it is made.  The
+    checkpoints are the (nb, >= 6) host array `cps` where given, else the
+    running counts of the chunks.  -> the (6,) int64 counts of ranks 0..5
+    in the whole text."""
+    running = torch.zeros(N_CP, dtype=torch.int64, device=rows.device)
+    for b0, sym in chunks:
+        b1 = b0 + sym.shape[0]
+        # each row's counts of ranks 0..5 (the padding, 15, counts in none)
+        counts = torch.stack([(sym == c).sum(dim=1) for c in range(N_CP)],
+                             dim=1)
+        if cps is None:
+            cp = running + torch.cumsum(counts, dim=0) - counts
+        else:
+            cp = np.asarray(cps[b0:b1], dtype=np.int64)[:, :N_CP]
+            cp = torch.from_numpy(np.pad(
+                cp, ((0, 0), (0, N_CP - cp.shape[1])))).to(rows.device)
+        running += counts.sum(dim=0)
+        rows[b0:b1] = _pack_rows(sym, cp, big)
+        if cache is not None:
+            cache.write(rows[b0:b1])
+    return running
+
+
+def _bwt_chunks(bwt, k: int, nb: int, device):
+    """The host BWT a PACK_CHUNK_ROWS chunk of rows at a time, padded with
+    15 past its end: (first row, (rows, k) uint8 on `device`)."""
+    n = len(bwt)
+    for b0 in range(0, nb, PACK_CHUNK_ROWS):
+        b1 = min(nb, b0 + PACK_CHUNK_ROWS)
+        seg = np.full((b1 - b0) * k, 15, dtype=np.uint8)
+        part = bwt[b0 * k : min(b1 * k, n)]
+        seg[: len(part)] = part
+        yield b0, torch.from_numpy(seg).to(device).view(b1 - b0, k)
+
+
+class _RowCache:
+    """The rows' cache file at `path` (None: none), written a chunk at a
+    time to a temporary name (np.save's header, then the rows) and put in
+    place when the `with` block ends without an error; a bundle that
+    cannot be written (read-only, full) gets none."""
+
+    def __init__(self, path: str | None, nb: int):
+        self.path, self.f = path, None
+        if path is None:
+            return
+        self.tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            self.f = open(self.tmp, "wb")
+            np.lib.format.write_array_header_1_0(self.f, {
+                "descr": np.lib.format.dtype_to_descr(np.dtype(np.int32)),
+                "fortran_order": False, "shape": (nb, ROW_WORDS)})
+        except OSError:
+            self._drop()
+
+    def write(self, rows: torch.Tensor) -> None:
+        if self.f is not None:
+            try:
+                self.f.write(rows.cpu().numpy().tobytes())
+            except OSError:
+                self._drop()
+
+    def _drop(self) -> None:
+        f, self.f = self.f, None
+        if f is not None:
+            f.close()
+        if os.path.exists(self.tmp):
+            os.remove(self.tmp)
+
+    def __enter__(self) -> "_RowCache":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if self.f is None:
+            return
+        if exc_type is not None:
+            self._drop()
+        else:
+            self.f.close()
+            self.f = None
+            os.replace(self.tmp, self.path)
 
 
 def _row_occ4(index: DeviceFmIndex, r: torch.Tensor) -> torch.Tensor:

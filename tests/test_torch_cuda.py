@@ -1919,3 +1919,74 @@ def test_probe_tools_on_the_card(probe_cuda, tmp_path):
     rows, blk = bench_dma.make_inputs(4096, 128, 256, device=probe_cuda)
     us = bench_dma.measure(rows, blk, 10, rounds=1)
     assert set(us) == set(bench_dma.FORMS) and min(us.values()) > 0
+
+
+# --- big mode past 2^32: K1 and K7 in int64 on a synthetic table of
+# 4.4e9 symbols (4,741,380 rows, 2.43 GB; tools/big_rows.py), at the
+# smoke's boundary ranks (`edge_ranks`) ---
+
+ROWS64_N = 4_400_000_000
+
+
+@pytest.fixture(scope="module")
+def rows64(cuda):
+    from mapad_tpu_torch.tools.big_rows import synthetic_index
+
+    idx = synthetic_index(ROWS64_N, 64, cuda)
+    yield idx
+    del idx
+    torch.cuda.empty_cache()
+
+
+def test_occ4_batch_int64_rows_past_2_32(rows64):
+    from mapad_tpu_torch.ops import fm
+    from mapad_tpu_torch.tools.big_rows import edge_ranks
+
+    r = edge_ranks(rows64, 65_536, 1)
+    got = fm.occ4_batch(rows64, r)
+    _equal((got,), (fm._row_occ4(rows64, r),), "occ4_batch_i64")
+    assert int(got.sum(dim=1).max()) > 2**32
+
+
+@pytest.mark.parametrize("end", ["lower", "upper"])
+def test_extend_batch_int64_rows_past_2_32(rows64, end):
+    """K1's sweep where the interval's lower end (r1 = lower - 1) or upper
+    end (r2 = lower + size - 1) ranks the boundary positions."""
+    from mapad_tpu_torch.ops import fm
+    from mapad_tpu_torch.tools.big_rows import edge_ranks
+
+    n = rows64.text_len
+    r = edge_ranks(rows64, 32_768, 2)
+    g = torch.Generator().manual_seed(3)
+    size = torch.randint(0, 65, r.shape, generator=g,
+                         dtype=torch.int64).to(r.device)
+    lower = ((r + 1) if end == "lower" else (r - size + 1)).clamp(0, n - 1)
+    size = torch.minimum(size, n - lower)
+    lower[0], size[0] = 0, n
+    lrev = torch.randint(0, n, r.shape, generator=g,
+                         dtype=torch.int64).to(r.device)
+    got = fm.extend_batch(rows64, lower, lrev, size)
+    _equal(got, fm.extend_batch_plain(rows64, lower, lrev, size),
+           f"extend_batch_i64 ({end} ends)")
+    assert int(got[0].max()) > 2**32
+
+
+@pytest.mark.parametrize("forward_part", [False, True])
+def test_bi_d_int64_rows_past_2_32(rows64, forward_part):
+    """K7 on 256 random reads at M = 128: each walk restarts over the whole
+    table, its rows reached by K7's multiply-high past 2^31 and 2^32."""
+    from mapad_tpu_torch.ops import bi_d
+
+    g = torch.Generator().manual_seed(4)
+    R, M = 256, 128
+    dev = rows64.rows.device
+    rank = torch.randint(1, 5, (R, M), generator=g, dtype=torch.int32)
+    pen = -4 * torch.rand((R, M), generator=g)
+    n = torch.randint(M // 2, M + 1, (R,), generator=g, dtype=torch.int32)
+    rank[torch.arange(M)[None, :] >= n[:, None]] = 0
+    split = n // 2 if forward_part else n
+    steps = (int(split.max()), int((n - split).max()))
+    t = [x.to(dev) for x in (rank, pen, n, split)]
+    got = bi_d.compute_bi_d(rows64, *t, forward_part, steps)
+    _equal((got,), (bi_d.compute_bi_d_plain(rows64, *t, forward_part,
+                                            steps),), "bi_d_i64")

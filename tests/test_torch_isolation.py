@@ -46,11 +46,14 @@ def test_port_imports_no_jax_and_no_mapad_tpu():
                 if os.sep + "parallel" + os.sep in f}
     assert {f"mapad_tpu_torch/parallel/{m}.py"
             for m in ("sharding", "pool_sharded", "multihost")} <= parallel
-    # CRAM input, the mapAD-native index and distributed mode
+    # CRAM input, the mapAD-native index and distributed mode; big mode's
+    # tools
     assert {f"mapad_tpu_torch/{m}.py" for m in (
         "io/rans_nx16", "io/arith", "io/fqzcomp", "io/tok3", "io/cram",
         "index/mapad_native", "distributed/wire", "distributed/dispatcher",
-        "distributed/worker")} <= {os.path.relpath(f, ROOT) for f in files}
+        "distributed/worker", "tools/big_rows", "tools/measure_big",
+        "tools/load_time")} <= {
+            os.path.relpath(f, ROOT) for f in files}
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)
         # "mapad_tpu_torch" shares the prefix but is its own root

@@ -7,6 +7,9 @@
     python3 chip_smoke.py --knobs   # the knobs phase alone (path 1's index)
     python3 chip_smoke.py --big-text [SIZE]  # path 11 alone: a genome of
                                     # SIZE bp (1.1e9), its text past 2^31
+    python3 chip_smoke.py --assembly [SCALE]  # path 12 alone: a GRCh37-
+                                    # shaped assembly (86 sequences, N runs,
+                                    # IUPAC runs) at SCALE (1: past 2^31)
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
@@ -87,21 +90,49 @@ around 2^31, 2^32 and n - 1 among them), K7 in int64 on 256 random reads
 at M = 128 (both parts), and K2 in int64 at a fixed step count, then K3
 and K5 on its result, on 512 of path 2's reads made the table's own
 strings (LF walks) and prepared by path 2's engine; the largest hit
-`lower` K3 returns must pass 2^32.
+`lower` K3 returns must pass 2^32.  The table holds seeded X runs (rank 5,
+a genome's long N runs) of 20 bp to 50 kbp, about one a Mbp; a quarter of
+K1's ranks sit on its X symbols (read from the rows), and K1's and K7's
+queries that read a row holding X are counted: each must have some.
+
+Then the small assembly: tools/assembly.py's GRCh37-shaped assembly at
+0.0075 of its size (8.3 Mbp: hs37d5's 86 sequences, long N runs that the
+index makes X, short IUPAC runs whose bases it replaces and keeps in
+OriginalSymbols) and N_READS of its reads (a tenth of them at N-run edges,
+on short runs and at sequence joins; some carry N), indexed by the CLI;
+on its rows K1 in both widths (ranks on X symbols), K4, K6, K7 (walks into
+the X runs) and K2 at a fixed step count with K3 and K5 in both widths,
+each against its plain version; then `map --engine device` (int32) and
+`pipeline.run` with `big=True` and MAPAD_RETRY_TIER=1 (the step budget
+starved where the defaults retry nothing), each BAM equal to `map --engine
+native`'s and held to the assembly's invariants (the header's 86
+sequences, no record on an X or across a sequence's end, M-only records'
+mismatches equal to NM, MD's original symbols on replaced bases), and the
+host searcher's hits at the joins located as the BAM conversion does.
 
 Path 11 (`--big-text [SIZE]`, alone, not in the default run: its index
 build takes minutes): `gen_genome(SIZE)` (1.1e9 by default: a text of
 2,200,000,002 symbols) as contigs of 50 Mbp, indexed by the CLI into
 .smoke/big_text/ (reused there for the same size and seed; the build's
-seconds and host peak printed), the rows' host peak at load (`from_host`,
-by chunks), then 16,384 of its reads
-through `map --engine device` with nothing forcing big mode (the engine
-must choose it; K6, K7 and the int64 K1, K2, K3, K5 must launch, no int32
-form), `map` (hybrid) and `map --engine native`, the first two BAMs equal
-to the third (XD aside); the mapped records past text position 2^31 are
-counted (there must be some) and every M-only record's mismatches against
-the genome must equal its NM; last `tools/measure_big.py` on the loaded
-index.
+seconds and the CLI process's own host peak printed), the rows' host
+peak at load (`from_host`, by chunks), then 16,384 of its reads through
+`map --engine native`, `map --engine device` with nothing forcing big
+mode (the engine must choose it; K6, K7 and the int64 K1, K2, K3, K5 must
+launch, no int32 form) and `map` (hybrid), the last two BAMs equal to the
+first (XD aside); the native BAM is held to the genome as path 12's is
+(header, NM, MD) and its records past text position 2^31 are counted
+(there must be some); last `tools/measure_big.py` on the loaded index.
+
+Path 12 (`--assembly [SCALE]`, alone: its index build takes minutes):
+the assembly above at SCALE (1 by default: 1,106,352,191 bp, a text of
+2,212,704,384 symbols, past 2^31; chromosomes 1-5 at GRCh37's lengths,
+6-22, X and Y at a thousandth of theirs), indexed by the CLI into
+.smoke/assembly/ (the build's seconds and host peak printed), then 16,384
+of its reads through `map --engine native`, `map --engine device` (the
+engine chooses big mode), `map` (hybrid) and `map --engine device` with
+MAPAD_RETRY_TIER=1, every BAM equal to the native one and held to the
+assembly's invariants; some MD tag must carry an original IUPAC symbol
+past text position 2^31.
 
 Before the paths, K8 runs against its plain version at full width with a
 step budget just above the per-read cap, so that the check's reads force
@@ -261,6 +292,23 @@ BIG_TEXT_SIZE = 1_100_000_000
 BIG_TEXT_CONTIG = 50_000_000
 BIG_TEXT_SEED = 62
 BIG_TEXT_MEASURE_READS = 4096
+# path 12 (--assembly [SCALE]) and the default smoke's small assembly:
+# tools/assembly.py's GRCh37-shaped assembly, at scale 1 a text of
+# 2,212,704,384 symbols; ASSEMBLY_SMALL_SCALE makes it 8.3 Mbp
+ASSEMBLY_SCALE = 1.0
+ASSEMBLY_SMALL_SCALE = 0.0075
+ASSEMBLY_SEED = 37
+ASSEMBLY_CHECK_READS = 256  # the small assembly's kernel check
+ASSEMBLY_RANKS = 65_536
+ASSEMBLY_FIXED = 512  # K2's fixed step count there
+ASSEMBLY_STARVED_STEPS = "2048"  # where the defaults retry nothing
+JOIN_POSITIONS = 64  # positions located a hit at a join
+BIG_TEXT_MIN = 2**31 - 1  # the text length from which the engine is big
+# the kernels of a map in each width (int32: the Bi-D on the host)
+KERNELS_I32 = ["unpack_prep", "extend_batch", "pool_search",
+               "extract_chains", "pack_result"]
+KERNELS_I64 = ["unpack_prep_full", "bi_d_i64", "extend_batch_i64",
+               "pool_search_i64", "extract_chains_i64", "pack_result_i64"]
 
 
 def index_rows(genome_size: int, k: int) -> int:
@@ -283,59 +331,8 @@ def log(*a):
     print(*a, flush=True)
 
 
-# --- bench workload (copied from bench.py: gen_genome, make_reads) ------
-
-
-def gen_genome(size, np, seed=42):
-    """Deterministic genome with repeat structure: ~20% of it is segments
-    duplicated from elsewhere with ~1% divergence."""
-    rng = np.random.default_rng(seed)
-    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-    out = acgt[rng.integers(0, 4, size=size, dtype=np.uint8)]
-    rep = np.random.default_rng(seed + 1)
-    placed = 0
-    while placed < int(size * 0.2):
-        seg = int(10 ** rep.uniform(3.0, min(5.0, np.log10(size / 4))))
-        src = int(rep.integers(0, size - seg))
-        dst = int(rep.integers(0, size - seg))
-        chunk = out[src : src + seg].copy()
-        n_mut = rep.binomial(seg, 0.01)
-        if n_mut:
-            pos = rep.integers(0, seg, size=n_mut)
-            chunk[pos] = acgt[rep.integers(0, 4, size=n_mut)]
-        out[dst : dst + seg] = chunk
-        placed += seg
-    return out
-
-
-def make_reads(genome, n_reads, np, seed=7):
-    """Lognormal fragment lengths (35..120 bp), C->T deamination decaying
-    from both ends, sequencing errors, per-base qualities, ~8% exogenous
-    reads.  Returns [(sequence, qualities)]."""
-    from mapad_tpu_torch.utils.seq import revcomp
-
-    rng = np.random.default_rng(seed)
-    starts = rng.integers(0, len(genome) - 128, size=n_reads)
-    acgt = b"ACGT"
-    reads = []
-    for i in range(n_reads):
-        ln = int(np.clip(rng.lognormal(np.log(60), 0.25), 35, 120))
-        if rng.random() < 0.08:
-            seq = bytearray(acgt[c] for c in rng.integers(0, 4, size=ln))
-        else:
-            seq = bytearray(genome[starts[i] : starts[i] + ln].tobytes())
-            for pos in range(ln):
-                p = 0.4 * (0.55 ** pos) + 0.4 * (0.55 ** (ln - 1 - pos)) + 0.005
-                if seq[pos] == ord("C") and rng.random() < p:
-                    seq[pos] = ord("T")
-                elif rng.random() < 0.002:
-                    seq[pos] = acgt[int(rng.integers(0, 4))]
-            if rng.random() < 0.5:
-                seq = bytearray(revcomp(seq))
-        quals = bytes(int(q) for q in np.clip(
-            rng.normal(36, 4, size=ln), 10, 41).astype(np.uint8))
-        reads.append((bytes(seq), quals))
-    return reads
+# The bench workload (bench.py's gen_genome and make_reads) is
+# mapad_tpu_torch/tools/assembly.py's, which the assembly's reads share.
 
 
 # --- measurement helpers --------------------------------------------------
@@ -2347,17 +2344,25 @@ def check_kernels_big(torch, np, engine, reads):
     return rows
 
 
-def rows64_k1(torch, fm, tables, card):
+def rows64_k1(torch, fm, tables, xs, card):
     """K1 int64 (`occ4_batch`, `extend_batch`) against its plain versions
-    at ROWS64_RANKS ranks of each table: the positions themselves, and as
-    many intervals whose lower end (the first half) or upper end (the
-    second) ranks them."""
+    at ROWS64_RANKS ranks of each table (`edge_ranks`; on a table with X,
+    the second quarter of them on X symbols of `xs`): the positions
+    themselves, and as many intervals whose lower end (the first half) or
+    upper end (the second) ranks them.  The queries that read a row
+    holding X are counted."""
     from mapad_tpu_torch.tools.big_rows import edge_ranks
 
     out = {}
     for what, idx in tables:
         n = idx.text_len
+        has_x, x_pos = xs[what]
         r = edge_ranks(idx, ROWS64_RANKS, ROWS64_SEED)
+        q = ROWS64_RANKS // 4
+        if x_pos.numel():
+            g = torch.Generator(device="cpu").manual_seed(ROWS64_SEED + 4)
+            r[q : 2 * q] = x_pos[torch.randint(
+                0, x_pos.numel(), (q,), generator=g).to(x_pos.device)]
         half = r[: ROWS64_RANKS // 2]
         g = torch.Generator(device="cpu").manual_seed(ROWS64_SEED + 1)
         size = torch.randint(0, 65, half.shape, generator=g,
@@ -2375,9 +2380,13 @@ def rows64_k1(torch, fm, tables, card):
         ext = fm.extend_batch(idx, lower, lrev, size)
         err = max(err, compare(torch, ext, fm.extend_batch_plain(
             idx, lower, lrev, size), f"extend_batch_i64 on {what}"))
+        ends = interval_ends(torch, lower, size)
         out[what] = dict(
             max_abs_err=err, ranks=int(r.numel()),
             intervals=int(lower.numel()),
+            x_rows=int(has_x.sum()), x_symbols=int(x_pos.numel()),
+            x_rank_queries=x_queried(torch, idx, has_x, r),
+            x_row_queries=x_queried(torch, idx, has_x, ends),
             max_rank=int(r.max()), max_child_lower=int(ext[0].max()),
             occ4_ms=timed(torch, lambda: fm.occ4_batch(idx, r), 20),
             occ4_plain_ms=timed(torch, lambda: fm._row_occ4(idx, r), 3),
@@ -2386,12 +2395,14 @@ def rows64_k1(torch, fm, tables, card):
             plain_ms=timed(torch, lambda: fm.extend_batch_plain(
                 idx, lower, lrev, size), 3),
             occ4_bound_ms=bound_ms(occ_bytes(torch, idx, r) + nbytes(r, occ)),
-            bound_ms=bound_ms(occ_bytes(torch, idx, interval_ends(
-                torch, lower, size)) + nbytes(lower, lrev, size, *ext)))
+            bound_ms=bound_ms(occ_bytes(torch, idx, ends)
+                              + nbytes(lower, lrev, size, *ext)))
         o = out[what]
-        log(f"K1 int64 on {what} ({n:,} symbols): occ4_batch on "
-            f"{o['ranks']} ranks and extend_batch on {o['intervals']} "
-            f"intervals bit-exact against their plain versions (largest "
+        log(f"K1 int64 on {what} ({n:,} symbols; {o['x_rows']:,} rows hold "
+            f"{o['x_symbols']:,} X symbols): occ4_batch on {o['ranks']} "
+            f"ranks ({o['x_rank_queries']} in rows with X) and extend_batch "
+            f"on {o['intervals']} intervals ({o['x_row_queries']} ends in "
+            f"rows with X) bit-exact against their plain versions (largest "
             f"rank {o['max_rank']:,}, largest child lower "
             f"{o['max_child_lower']:,}); occ4_batch {o['occ4_ms']:.4f} ms "
             f"(plain {o['occ4_plain_ms']:.2f}, bound "
@@ -2401,10 +2412,11 @@ def rows64_k1(torch, fm, tables, card):
     return out
 
 
-def rows64_k7(torch, bi_d, tables, card):
+def rows64_k7(torch, bi_d, tables, xs, card):
     """K7 int64 against its plain version on ROWS64_BID_READS random reads
     at M = 128, both parts (split n // 2), on each table: random ranks
-    over a random table, so the walks' restarts spread over all of it."""
+    over a random table, so the walks' restarts spread over all of it,
+    into the rows holding X (`xs`; their queries counted)."""
     g = torch.Generator(device="cpu").manual_seed(ROWS64_SEED + 2)
     R, M = ROWS64_BID_READS, 128
     rank = torch.randint(1, 5, (R, M), generator=g, dtype=torch.int32)
@@ -2423,20 +2435,25 @@ def rows64_k7(torch, bi_d, tables, card):
             want = bi_d.compute_bi_d_plain(idx, *a)
         assert q7.steps == walk, (q7.steps, walk)
         err = compare(torch, (got,), (want,), f"bi_d_i64 on {what}")
+        ranks7 = torch.cat(q7.ranks)
         out[what] = dict(
             max_abs_err=err, reads=R, walk_steps=walk,
+            queries=int(ranks7.numel()),
+            x_row_queries=x_queried(torch, idx, xs[what][0], ranks7),
             ms=timed(torch, lambda: bi_d.compute_bi_d(idx, *a), 10),
             plain_ms=timed(torch, lambda: bi_d.compute_bi_d_plain(idx, *a),
                            1),
             bound_ms=bound_ms(nbytes(*a[:4], got) + q7.bytes(idx)))
         o = out[what]
         log(f"K7 int64 on {what}: {R} reads at M={M}, both parts, "
-            f"{walk} walk steps, bit-exact; {o['ms']:.4f} ms (plain "
+            f"{walk} walk steps ({o['x_row_queries']} of their "
+            f"{o['queries']} rank queries in rows with X), bit-exact; "
+            f"{o['ms']:.4f} ms (plain "
             f"{o['plain_ms']:.1f}, bound {o['bound_ms']:.5f}); {card}")
     return out
 
 
-def rows64_pool(torch, np, engine, reads, tables, card):
+def rows64_pool(torch, np, engine, reads, tables, xs, card):
     """K2 int64 at a fixed step count, then K3 and K5 on its result,
     against their plain versions on the first table; timed on each.  The
     block is CHECK2_READS of path 2's reads (their lengths and qualities)
@@ -2444,7 +2461,8 @@ def rows64_pool(torch, np, engine, reads, tables, card):
     (`text_strings`), so that they hit; the same prepared inputs go to each
     table, its Bi-D made there (K7).  The count: the first of ROWS64_FIXED,
     twice it, ... (the kernel alone) whose hits pass ROWS64_PAST, so that
-    the plain loop runs no more steps than the check needs."""
+    the plain loop runs no more steps than the check needs.  The chains'
+    interval ends that fall in a row holding X (`xs`) are counted."""
     from mapad_tpu_torch.map.record import Record
     from mapad_tpu_torch.ops import engine as eng
     from mapad_tpu_torch.ops import search_pool2 as sp2
@@ -2497,7 +2515,10 @@ def rows64_pool(torch, np, engine, reads, tables, card):
         packed = eng._pack_buffer(buf, c, R, True)
         steps = int(res.steps)
         n_hits, max_lower, max_lrev = hits(res)
+        n_ch = min(int(res.n_chains), c.max_chains)
         o = out[what] = dict(
+            x_row_ends=x_queried(torch, idx, xs[what][0], interval_ends(
+                torch, res.c_lower[:n_ch], res.c_size[:n_ch])),
             reads=R, fixed_steps=fixed, steps=steps, k2_ms=k2_ms,
             k2_us_step=k2_ms * 1e3 / max(steps, 1),
             k3_ms=timed(torch, lambda: sp2._extract_chains_cuda(*state, c),
@@ -2525,7 +2546,8 @@ def rows64_pool(torch, np, engine, reads, tables, card):
             + ("bit-exact against the plain versions "
                f"(plain K2+K3 {o['plain_ms']:.0f} ms); " if idx is syn
                else "")
-            + f"{o['chains']} chains, {n_hits} hits, largest hit lower "
+            + f"{o['chains']} chains ({o['x_row_ends']} of their interval "
+            f"ends in rows with X), {n_hits} hits, largest hit lower "
             f"{max_lower:,} (lower_rev {max_lrev:,}); K2 {k2_ms:.2f} ms "
             f"({o['k2_us_step']:.3f} us a step), K3 {o['k3_ms']:.4f} ms, "
             f"K5 {o['k5_ms']:.4f} ms; {card}")
@@ -2552,26 +2574,37 @@ def rows64_phase(torch, np, engine, reads, card):
         f"{made_s:.1f} s")
     tables = (("the synthetic table", syn),
               ("path 2's rows", engine.device_index))
-    k1 = rows64_k1(torch, fm, tables, card)
-    k7 = rows64_k7(torch, bi_d, tables, card)
-    pool = rows64_pool(torch, np, engine, reads, tables, card)
-    del syn, tables
+    xs = {what: rows_with_x(torch, idx) for what, idx in tables}
+    k1 = rows64_k1(torch, fm, tables, xs, card)
+    k7 = rows64_k7(torch, bi_d, tables, xs, card)
+    pool = rows64_pool(torch, np, engine, reads, tables, xs, card)
+    del syn, tables, xs
     torch.cuda.empty_cache()
     syn_k, p2 = "the synthetic table", "path 2's rows"
     if k1[syn_k]["max_child_lower"] <= ROWS64_PAST:
         raise AssertionError("K1 int64: no child interval past 2^32")
+    for what, n_x in (
+            ("occ4_batch_i64", k1[syn_k]["x_rank_queries"]),
+            ("extend_batch_i64", k1[syn_k]["x_row_queries"]),
+            ("bi_d_i64", k7[syn_k]["x_row_queries"])):
+        if not n_x:
+            raise AssertionError(f"{what}: no query on the synthetic table "
+                                 "read a row holding X")
     common = dict(n=ROWS64_N, rows=-(-ROWS64_N // 928), made_s=made_s)
     po, pp = pool[syn_k], pool[p2]
     rows = {
         "extend_batch_i64": dict(common, **{
             k: k1[syn_k][k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "occ4_ms", "occ4_bound_ms",
-                                      "max_child_lower")},
+                                      "max_child_lower", "x_rows",
+                                      "x_symbols", "x_rank_queries",
+                                      "x_row_queries")},
             ms_path2=k1[p2]["ms"], occ4_ms_path2=k1[p2]["occ4_ms"],
             bound_ms_path2=k1[p2]["bound_ms"]),
         "bi_d_i64": dict(common, **{
             k: k7[syn_k][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                      "bound_ms", "walk_steps")},
+                                      "bound_ms", "walk_steps", "queries",
+                                      "x_row_queries")},
             ms_path2=k7[p2]["ms"], bound_ms_path2=k7[p2]["bound_ms"]),
         "pool_search_i64": dict(
             common, max_abs_err=po["max_abs_err"], ms=po["k2_ms"],
@@ -2581,6 +2614,7 @@ def rows64_phase(torch, np, engine, reads, card):
         "extract_chains_i64": dict(
             common, max_abs_err=po["max_abs_err"], ms=po["k3_ms"],
             chains=po["chains"], hits=po["hits"],
+            x_row_ends=po["x_row_ends"],
             max_lower=po["max_lower"], ms_path2=pp["k3_ms"]),
         "pack_result_i64": dict(
             common, max_abs_err=po["max_abs_err"], ms=po["k5_ms"],
@@ -2596,17 +2630,20 @@ def write_workload(np, size, seed, tag):
     """Genome and reads from a seed -> (fasta path, fastq path, reads)."""
     fasta = os.path.join(WORK, f"genome{tag}.fa")
     fastq = os.path.join(WORK, f"reads{tag}.fq")
+    from mapad_tpu_torch.tools.assembly import (
+        gen_genome,
+        make_reads,
+        write_fastq,
+    )
+
     t = time.perf_counter()
-    genome = gen_genome(size, np, seed)
+    genome = gen_genome(size, seed)
     with open(fasta, "w") as f:
         f.write(f">bench{tag}_chr1\n")
         s = genome.tobytes().decode()
         f.writelines(s[i : i + 80] + "\n" for i in range(0, len(s), 80))
-    reads = make_reads(genome, N_READS, np, seed + 100)
-    with open(fastq, "w") as f:
-        for i, (s, q) in enumerate(reads):
-            f.write(f"@read{i}\n{s.decode()}\n+\n"
-                    + "".join(chr(c + 33) for c in q) + "\n")
+    reads = make_reads(genome, N_READS, seed + 100)
+    write_fastq(reads, fastq)
     log(f"data{tag}: {size} bp genome, {N_READS} reads in "
         f"{time.perf_counter() - t:.1f} s")
     return fasta, fastq, reads
@@ -2862,70 +2899,200 @@ def knobs_alone(torch, np, cli, load_index, params, args, card, t_start):
     return 0
 
 
-def write_big_genome(np, size, seed, fasta):
-    """`gen_genome(size)` written as contigs of BIG_TEXT_CONTIG bp, lines of
-    80 -> the genome (uint8 bases)."""
-    genome = gen_genome(size, np, seed)
-    tmp = f"{fasta}.{os.getpid()}.tmp"
-    with open(tmp, "wb") as f:
-        for i, o in enumerate(range(0, size, BIG_TEXT_CONTIG)):
-            f.write(f">big_chr{i + 1}\n".encode())
-            seq = genome[o : o + BIG_TEXT_CONTIG]
-            full = len(seq) // 80 * 80
-            lines = np.empty((full // 80, 81), dtype=np.uint8)
-            lines[:, :80] = seq[:full].reshape(-1, 80)
-            lines[:, 80] = ord("\n")
-            f.write(lines.tobytes())
-            if full < len(seq):
-                f.write(seq[full:].tobytes() + b"\n")
-    os.replace(tmp, fasta)
-    return genome
+def big_text_layout(np, size):
+    """Path 11's genome of `size` bp as contigs of BIG_TEXT_CONTIG bp: a
+    tools/assembly.py Layout with no runs, so that its BAMs are held to
+    the assembly's invariants."""
+    from mapad_tpu_torch.tools.assembly import Layout
+
+    starts = np.arange(0, size, BIG_TEXT_CONTIG, dtype=np.int64)
+    none = np.zeros(0, dtype=np.int64)
+    return Layout(names=tuple(f"big_chr{i + 1}" for i in range(len(starts))),
+                  lengths=np.minimum(BIG_TEXT_CONTIG, size - starts),
+                  starts=starts, run_start=none, run_len=none,
+                  run_sym=np.zeros(0, dtype=np.uint8))
 
 
-def run_measured(cmd, log_path):
-    """Run `cmd` from the repo's root, its output into `log_path` -> (exit
-    code, seconds, the process's peak resident GiB)."""
+# `python -c PEAK_LAUNCHER PEAK_FILE CMD...` runs CMD as its own child and
+# writes that child's peak resident kB (wait4's ru_maxrss) to PEAK_FILE.
+# The launcher is small, so the child's figure is its own: a process takes
+# over the high-water mark of the one that forks it (and, where that forks
+# by vfork, its whole peak), which for the smoke is gigabytes.
+PEAK_LAUNCHER = r"""
+import os, subprocess, sys
+peak_file, cmd = sys.argv[1], sys.argv[2:]
+_pid, status, usage = os.wait4(subprocess.Popen(cmd).pid, 0)
+with open(peak_file, "w") as f:
+    f.write(str(usage.ru_maxrss))
+sys.exit(os.waitstatus_to_exitcode(status))
+"""
+
+
+def run_measured(module, args, log_path):
+    """`python -m module args` from the repo's root, its output into
+    `log_path` -> (exit code, seconds, its own peak resident GiB, or None
+    where it left none), the peak by PEAK_LAUNCHER."""
+    peak_path = f"{log_path}.peak"
+    if os.path.exists(peak_path):
+        os.remove(peak_path)
     t = time.perf_counter()
     with open(log_path, "w") as out:
-        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out,
-                                stderr=subprocess.STDOUT)
-        _pid, status, usage = os.wait4(proc.pid, 0)
-    proc.returncode = os.waitstatus_to_exitcode(status)
-    return (proc.returncode, time.perf_counter() - t,
-            usage.ru_maxrss / 2**20)
+        rc = subprocess.call(
+            [sys.executable, "-c", PEAK_LAUNCHER, peak_path, sys.executable,
+             "-m", module, *args],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    secs = time.perf_counter() - t
+    peak = None
+    if os.path.exists(peak_path):
+        with open(peak_path) as f:
+            peak = int(f.read()) / 2**20
+    return rc, secs, peak
 
 
-def ref_span(cigar):
-    """Reference bases a CIGAR string covers (M, D, N, =, X)."""
-    import re
+def cli_index(fasta, text_len, work, what, card):
+    """The CLI's index of `fasta`, reused where its bundle is of a text of
+    `text_len` symbols, else built (`run_measured`, its log in `work`) ->
+    (seconds, host peak GiB), both None where reused."""
+    meta_path = os.path.join(f"{fasta}.tpx", "meta.json")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            if json.load(f).get("text_len") != text_len:
+                os.remove(meta_path)
+    secs = peak = None
+    if os.path.exists(meta_path):
+        log(f"{what}: index reused ({meta_path})")
+    else:
+        log_path = os.path.join(work, "index.log")
+        rc, secs, peak = run_measured("mapad_tpu_torch.cli",
+                                      ["index", "-g", fasta], log_path)
+        if rc != 0:
+            with open(log_path) as f:
+                tail = f.read()[-2000:]
+            raise SystemExit(f"{what}: index failed ({rc}; {log_path}):\n"
+                             f"{tail}")
+        log(f"{what}: index built in {secs:.1f} s, host peak {peak:.2f} GiB "
+            f"(the CLI's own process); {card}")
+    with open(meta_path) as f:
+        got = json.load(f)["text_len"]
+    assert got == text_len, (got, text_len)
+    return secs, peak
 
-    return sum(int(n) for n in re.findall(r"(\d+)[MDN=X]", cigar))
+
+class CliMaps:
+    """`map` through the CLI on one workload, an engine a run, as paths 11
+    and 12 and the small assembly run it.  The native engine's run comes
+    first: its BAM is the yardstick.  A device engine's run must leave
+    `big` to the engine and find the mode `big`, launch every kernel of
+    that width (K2's launches held to its form) and none of the other, and
+    write a BAM equal to the native one (XD aside)."""
+
+    def __init__(self, torch, cli, what, fasta, fastq, work, text_len, big,
+                 card):
+        self.torch, self.cli, self.what, self.work = torch, cli, what, work
+        self.text_len, self.big, self.card = text_len, big, card
+        self.argv = ["--threads", "0", "map", "-r", fastq, "-g", fasta,
+                     "--force_overwrite", *MAP_FLAGS]
+        self.figures = {}
+
+    def bam(self, key):
+        return os.path.join(self.work, f"{key}.bam")
+
+    def run(self, key, extra, env=None):
+        """`map ... extra` into KEY.bam with `env` set -> its figures:
+        seconds and reads/s; for a device engine also its mode, rows and
+        peak card memory, launches and the pipeline's stats."""
+        from mapad_tpu_torch._build import LAUNCHES
+        from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+
+        torch, env = self.torch, env or {}
+        what = (f"{self.what}, map {' '.join(extra) or '(hybrid)'}"
+                + "".join(f" {k}={v}" for k, v in env.items()))
+        made, init = [], DeviceSearchEngine.__init__
+
+        def recording_init(engine, *a, **kw):
+            if kw.get("big") is not None:
+                raise AssertionError(f"{what} must leave `big` to the "
+                                     "engine")
+            init(engine, *a, **kw)
+            made.append(engine)
+
+        tap = _StatsTap()
+        logger = logging.getLogger("mapad_tpu_torch.map.pipeline")
+        logger.addHandler(tap)
+        LAUNCHES.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        DeviceSearchEngine.__init__ = recording_init
+        t = time.perf_counter()
+        try:
+            with _Env(**env):
+                if self.cli.main([*self.argv, "-o", self.bam(key),
+                                  *extra]) != 0:
+                    raise SystemExit(f"{what} failed")
+        finally:
+            DeviceSearchEngine.__init__ = init
+            logger.removeHandler(tap)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        e = self.figures[key] = dict(seconds=secs,
+                                     reads_per_s=N_READS / secs)
+        if env:
+            e["env"] = env
+        if key == "native":
+            log(f"{what}: {N_READS} reads in {secs:.2f} s = "
+                f"{N_READS / secs:.1f} reads/s; {self.card}")
+            return e
+        if len(made) != 1:
+            raise AssertionError(f"{what}: {len(made)} device engines")
+        idx = made.pop().device_index
+        if idx.big != self.big or idx.text_len != self.text_len:
+            raise AssertionError(f"{what}: big mode {idx.big} on a text of "
+                                 f"{idx.text_len:,}")
+        e.update(big=idx.big, rows_gb=nbytes(idx.rows) / 1e9,
+                 peak_card_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del idx
+        mine, other = ((KERNELS_I64, KERNELS_I32 + ["bi_d"]) if self.big
+                       else (KERNELS_I32, KERNELS_I64))
+        counts = {k: LAUNCHES.get(k) for k in mine + other}
+        report_run(what, self.card, secs, tap.stats,
+                   {k: counts[k] for k in mine})
+        check_k2_launches(counts, what, sfx="_i64" if self.big else "")
+        if any(counts[k] for k in other):
+            raise AssertionError(f"{what}: kernels of the other width "
+                                 f"launched: { {k: counts[k] for k in other} }")
+        e.update(launches={k: counts[k] for k in mine},
+                 stats=tier_stats(tap.stats))
+        log(f"  {'big' if e['big'] else 'int32'} mode chosen by the engine "
+            f"(text {self.text_len:,} symbols); rows {e['rows_gb']:.3f} GB "
+            f"on the card, peak card memory {e['peak_card_gb']:.3f} GB; "
+            f"{self.card}")
+        bam_compare(self.bam(key), self.bam("native"), what)
+        return e
 
 
-def big_text_positions(np, recs, meta, genome):
-    """The text positions of a BAM's mapped records (a reverse-strand hit
-    sits in the text's second half: text_len - pos - span - 1), and each
-    M-only record's mismatches against the genome, which must equal its NM
-    tag -> (text positions, records checked)."""
-    starts = [c["start"] for c in meta["contigs"]]
-    text_len = meta["text_len"]
-    where, checked = [], 0
-    for name, flags, ref_id, pos, _mq, cigar, seq, _q, tags in recs:
-        if flags & 0x4:
-            continue
-        a = starts[ref_id] + pos
-        span = ref_span(cigar)
-        where.append(text_len - a - span - 1 if flags & 0x10 else a)
-        if cigar == f"{len(seq)}M":
-            nm = next(v for t, _tc, v in tags if t == b"NM")
-            ref = genome[a : a + len(seq)]
-            read = np.frombuffer(seq, dtype=np.uint8)
-            if int((ref != read).sum()) != nm:
-                raise AssertionError(
-                    f"{name}: {int((ref != read).sum())} mismatches against "
-                    f"the genome at {a:,}, NM {nm}")
-            checked += 1
-    return np.asarray(where, dtype=np.int64), checked
+def bam_invariants(lay, bases, bam, what):
+    """A BAM's records held to the reference `lay`, `bases`
+    (`assembly.check_records`: the header's names and lengths, no record
+    on an X or across a sequence's end, M-only records' mismatches equal
+    to NM, MD's letters the reference's) -> its counts, with the mapped
+    records past text positions 2^31 and 2^32 and the largest."""
+    from mapad_tpu_torch.tools.assembly import EDGE_SPAN, check_records
+
+    _h, recs = bam_records(bam)
+    got = check_records(lay, bases, bam_references(bam), recs)
+    where = got.pop("text_pos")
+    got.update(past_2_31=int((where >= 2**31).sum()),
+               past_2_32=int((where >= 2**32).sum()),
+               max_text_pos=int(where.max()))
+    log(f"{what}: header of {len(lay.names)} sequences, names and lengths "
+        f"the reference's; {got['mapped']} mapped records, none on an X or "
+        f"across a sequence's end, {got['beside_long_run']} within "
+        f"{EDGE_SPAN} bp of an N run, {got['past_2_31']} at text positions "
+        f"past 2^31, {got['past_2_32']} past 2^32 (largest "
+        f"{got['max_text_pos']:,}); {got['checked']} M-only records' "
+        f"mismatches against the index's text equal their NM; every MD "
+        f"letter the reference's")
+    return got
 
 
 def big_text_alone(torch, np, cli, load_index, params, card, t_start, size):
@@ -2933,67 +3100,51 @@ def big_text_alone(torch, np, cli, load_index, params, card, t_start, size):
     BIG_TEXT_SIZE: a text of 2,200,000,002 symbols, past 2^31) end to end:
     its index by the CLI (cached in .smoke/big_text/ for the same size and
     seed), the rows' host peak at load (by chunks), then `map --engine
-    device` (big mode chosen by the engine itself), `map` (the hybrid
-    engine) and `map --engine native`, the first two BAMs equal to the
-    third (XD aside), the mapped records past
-    text position 2^31 counted and checked against the genome; last
-    `tools/measure_big.py` on the loaded index."""
-    from mapad_tpu_torch._build import LAUNCHES
-    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    native`, `map --engine device` (big mode chosen by the engine itself)
+    and `map` (the hybrid engine), the last two BAMs equal to the first
+    (XD aside), the mapped records held to the genome (`bam_invariants`)
+    and those past text position 2^31 counted; last `tools/measure_big.py`
+    on the loaded index."""
+    from mapad_tpu_torch.map.record import Record
     from mapad_tpu_torch.tools import measure_big
+    from mapad_tpu_torch.tools.assembly import (
+        gen_genome,
+        make_reads,
+        write_fasta,
+        write_fastq,
+    )
 
     work = os.path.join(WORK, "big_text")
     os.makedirs(work, exist_ok=True)
     seed = BIG_TEXT_SEED
     fasta = os.path.join(work, f"genome_{size}_{seed}.fa")
     fastq = os.path.join(work, f"reads_{size}_{seed}.fq")
-    meta_path = os.path.join(f"{fasta}.tpx", "meta.json")
-    text_len = 2 * size + 2
-    summary = dict(genome_bp=size, contigs=-(-size // BIG_TEXT_CONTIG),
+    lay = big_text_layout(np, size)
+    text_len = lay.text_len
+    summary = dict(genome_bp=size, contigs=len(lay.names),
                    text_len=text_len, seed=seed)
     log(f"path 11: a {size:,} bp genome, {summary['contigs']} contigs of "
         f"{BIG_TEXT_CONTIG:,} bp: a text of {text_len:,} symbols "
         f"({text_len / 2**31:.3f} x 2^31)")
     t = time.perf_counter()
-    cached = os.path.exists(meta_path) and os.path.exists(fasta)
-    if cached:
-        with open(meta_path) as f:
-            cached = json.load(f).get("text_len") == text_len
-    genome = (gen_genome(size, np, seed) if cached
-              else write_big_genome(np, size, seed, fasta))
-    reads = make_reads(genome, N_READS, np, seed + 100)
-    with open(fastq, "w") as f:
-        for i, (sq, q) in enumerate(reads):
-            f.write(f"@read{i}\n{sq.decode()}\n+\n"
-                    + "".join(chr(c + 33) for c in q) + "\n")
+    genome = gen_genome(size, seed)
+    written = not os.path.exists(fasta)
+    if written:
+        write_fasta(fasta, genome, lay.names, lay.starts, lay.lengths)
+    reads = make_reads(genome, N_READS, seed + 100)
+    write_fastq(reads, fastq)
     log(f"path 11: genome and {N_READS} reads in "
         f"{time.perf_counter() - t:.1f} s (FASTA "
-        f"{'reused' if cached else 'written'})")
-    if cached:
-        summary["index"] = dict(cache="reused")
-        log(f"path 11: index cache reused ({meta_path})")
-    else:
-        del genome  # the build's peak without the smoke's copy
-        rc, secs, peak = run_measured(
-            [sys.executable, "-m", "mapad_tpu_torch.cli", "index", "-g",
-             fasta], os.path.join(work, "index.log"))
-        if rc != 0:
-            raise SystemExit(f"path 11: index failed ({rc}; "
-                             f"{os.path.join(work, 'index.log')})")
-        summary["index"] = dict(cache="built", seconds=secs, peak_gib=peak)
-        log(f"path 11: index built in {secs:.1f} s, host peak {peak:.2f} "
-            f"GiB (the CLI's process); {card}")
-        genome = gen_genome(size, np, seed)
-    with open(meta_path) as f:
-        meta = json.load(f)
-    assert meta["text_len"] == text_len, meta["text_len"]
+        f"{'written' if written else 'reused'})")
+    secs, peak = cli_index(fasta, text_len, work, "path 11", card)
+    summary["index"] = (dict(cache="reused") if secs is None else
+                        dict(cache="built", seconds=secs, peak_gib=peak))
 
     # the rows' host peak at load, packed by chunks (the bundle's row cache
     # made anew)
     log_path = os.path.join(work, "load_peak.log")
-    rc, secs, peak = run_measured(
-        [sys.executable, "-m", "mapad_tpu_torch.tools.big_rows",
-         "load-peak", "-g", fasta], log_path)
+    rc, secs, peak = run_measured("mapad_tpu_torch.tools.big_rows",
+                                  ["load-peak", "-g", fasta], log_path)
     if rc != 0:
         raise SystemExit(f"path 11: load-peak failed ({rc}; {log_path})")
     with open(log_path) as f:
@@ -3006,98 +3157,23 @@ def big_text_alone(torch, np, cli, load_index, params, card, t_start, size):
         f"packing: the index loaded, the card's context), rows "
         f"{got['rows_bytes'] / 1e9:.3f} GB; {card}")
 
-    # the three engines through the CLI
-    tap = _StatsTap()
-    logging.getLogger("mapad_tpu_torch.map.pipeline").addHandler(tap)
-    made = []
-    init = DeviceSearchEngine.__init__
-
-    def recording_init(self, *a, **kw):
-        if kw.get("big") is not None:
-            raise AssertionError("path 11 must leave `big` to the engine")
-        init(self, *a, **kw)
-        made.append(self)
-
-    map_argv = ["--threads", "0", "map", "-r", fastq, "-g", fasta,
-                "--force_overwrite", *MAP_FLAGS]
-    bams = {e: os.path.join(work, f"{e}.bam")
-            for e in ("native", "device", "hybrid")}
-    i64 = ["unpack_prep_full", "bi_d_i64", "extend_batch_i64",
-           "pool_search_i64", "extract_chains_i64", "pack_result_i64"]
-    i32 = ["unpack_prep", "bi_d", "extend_batch", "pool_search",
-           "extract_chains", "pack_result"]
-    summary["engines"] = {}
-    for engine in ("native", "device", "hybrid"):
-        tap.stats = None
-        LAUNCHES.reset()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        DeviceSearchEngine.__init__ = recording_init
-        t = time.perf_counter()
-        try:
-            extra = [] if engine == "hybrid" else ["--engine", engine]
-            if cli.main([*map_argv, "-o", bams[engine], *extra]) != 0:
-                raise SystemExit(f"path 11: map {engine} failed")
-        finally:
-            DeviceSearchEngine.__init__ = init
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        e = summary["engines"][engine] = dict(
-            seconds=secs, reads_per_s=N_READS / secs)
-        if engine == "native":
-            log(f"path 11, map --engine native: {N_READS} reads in "
-                f"{secs:.2f} s = {N_READS / secs:.1f} reads/s")
-            continue
-        if len(made) != 1:
-            raise AssertionError(f"path 11 {engine}: {len(made)} device "
-                                 "engines")
-        idx = made.pop().device_index
-        if not idx.big or idx.text_len != text_len:
-            raise AssertionError(f"path 11 {engine}: the engine did not "
-                                 f"choose int64 mode ({idx.big}, "
-                                 f"{idx.text_len})")
-        e.update(rows_gb=nbytes(idx.rows) / 1e9,
-                 peak_card_gb=torch.cuda.max_memory_allocated() / 1e9)
-        del idx
-        counts = {k: LAUNCHES.get(k) for k in i64 + i32}
-        what = ("path 11, map --engine device" if engine == "device"
-                else "path 11, map (hybrid)")
-        report_run(what, card, secs, tap.stats, {k: counts[k] for k in i64})
-        check_k2_launches(counts, what, sfx="_i64")
-        if any(counts[k] for k in i32):
-            raise AssertionError(f"{what}: int32 kernels launched: "
-                                 f"{ {k: counts[k] for k in i32} }")
-        e.update(launches={k: counts[k] for k in i64},
-                 stats={k: tap.stats.get(k) for k in (
-                     "batches", "steps", "escalated", "esc_why", "oracle",
-                     "deep_retried", "prep_s", "device_s", "wait_s",
-                     "decode_s", "fb_secs", "device_fraction")})
-        log(f"  big mode chosen by the engine (text {text_len:,} symbols); "
-            f"rows {e['rows_gb']:.3f} GB on the card, peak card memory "
-            f"{e['peak_card_gb']:.3f} GB; {card}")
-        bam_compare(bams[engine], bams["native"], what)
-    logging.getLogger("mapad_tpu_torch.map.pipeline").removeHandler(tap)
-
-    _h, recs = bam_records(bams["native"])
-    where, checked = big_text_positions(np, recs, meta, genome)
-    past = int((where >= 2**31).sum())
-    summary["mapped"] = int(where.size)
-    summary["past_2_31"] = past
-    summary["past_2_32"] = int((where >= 2**32).sum())
-    summary["max_text_pos"] = int(where.max())
-    summary["checked_against_genome"] = checked
-    log(f"path 11: {where.size} mapped records, {past} of them at text "
-        f"positions past 2^31, {summary['past_2_32']} past 2^32 (largest "
-        f"{int(where.max()):,}); {checked} M-only records' mismatches "
-        f"against the genome equal their NM")
-    if not past:
+    maps = CliMaps(torch, cli, "path 11", fasta, fastq, work, text_len,
+                   True, card)
+    maps.run("native", ["--engine", "native"])
+    maps.run("device", ["--engine", "device"])
+    maps.run("hybrid", [])
+    summary["engines"] = maps.figures
+    got = bam_invariants(lay, genome, maps.bam("native"), "path 11")
+    summary.update(mapped=got["mapped"], past_2_31=got["past_2_31"],
+                   past_2_32=got["past_2_32"],
+                   max_text_pos=got["max_text_pos"],
+                   checked_against_genome=got["checked"])
+    if not got["past_2_31"]:
         raise AssertionError("path 11: no mapped record past text position "
                              "2^31")
-    del genome, recs
+    del genome
 
     # the int64 pool kernel alone on the loaded index
-    from mapad_tpu_torch.map.record import Record
-
     index = load_index(fasta)
     m = measure_big.measure(index, params, [
         Record(sequence=sq, base_qualities=q)
@@ -3107,6 +3183,414 @@ def big_text_alone(torch, np, cli, load_index, params, card, t_start, size):
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"big_text": summary}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# --- the GRCh37-shaped assembly: path 12 and the default smoke's small run
+
+
+def assembly_workload(scale, work, card):
+    """tools/assembly.py's assembly at `scale` and N_READS of its reads
+    under `work`, its index by the CLI (`cli_index`) -> dict: layout,
+    bases, reads, kinds, fasta, fastq, the index's seconds and host peak
+    (None: reused)."""
+    from mapad_tpu_torch.tools import assembly
+
+    t = time.perf_counter()
+    lay, bases, reads, kinds, fasta, fastq = assembly.make(
+        work, scale, ASSEMBLY_SEED, N_READS)
+    made_s = time.perf_counter() - t
+    s = lay.summary()
+    log(f"assembly at scale {scale:g}: {s['sequences']} sequences, "
+        f"{s['bp']:,} bp (a text of {s['text_len']:,} symbols, "
+        f"{s['text_len'] / 2**31:.3f} x 2^31), {s['long_runs']} N runs of "
+        f"20 bp or more ({s['long_run_bp']:,} bp, {s['n_share']:.2%}: X in "
+        f"the index), {s['short_runs']} short IUPAC runs; {N_READS} reads "
+        f"({int((kinds != '').sum())} at edges: "
+        f"{ {k: int((kinds == k).sum()) for k in ('long', 'short', 'join')} }"
+        f", {sum(b'N' in r for r, _q in reads)} carrying N) in "
+        f"{made_s:.1f} s")
+    index_s, peak = cli_index(fasta, lay.text_len, work, "assembly", card)
+    return dict(lay=lay, bases=bases, reads=reads, kinds=kinds, fasta=fasta,
+                fastq=fastq, made_s=made_s, index_s=index_s,
+                index_peak_gib=peak)
+
+
+def bam_references(path):
+    """The (name, length) of each sequence of a BAM's header."""
+    from mapad_tpu_torch.io.bam import BamReader
+
+    with open(path, "rb") as f:
+        return list(BamReader(f).references)
+
+
+def assembly_invariants(w, bam, what, past_2_31):
+    """A BAM's records held to the assembly (`bam_invariants`); some MD
+    must carry an original symbol, past text position 2^31 where
+    `past_2_31`.  -> the counts."""
+    got = bam_invariants(w["lay"], w["bases"], bam, what)
+    log(f"{what}: {got['md_original']} MD tags carry an original IUPAC "
+        f"symbol, each on a replaced base (the furthest at text position "
+        f"{got['md_original_max_text_pos']:,})")
+    if not got["md_original"]:
+        raise AssertionError(f"{what}: no MD tag carries an original symbol")
+    if past_2_31 and got["md_original_max_text_pos"] < 2**31:
+        raise AssertionError(f"{what}: no MD tag with an original symbol "
+                             "past text position 2^31")
+    return got
+
+
+def join_drops(w, index, params):
+    """The host searcher's hits of the reads placed at sequence joins,
+    each hit's positions (at most JOIN_POSITIONS of them) located as the
+    BAM conversion locates them: a hit every one of whose positions
+    crosses a join is dropped there (the next-best hit is reported)."""
+    from mapad_tpu_torch.map.native_search import NativeSearchEngine
+    from mapad_tpu_torch.map.record import Record, effective_len
+
+    picked = [i for i, k in enumerate(w["kinds"]) if k == "join"]
+    recs = [Record(sequence=w["reads"][i][0], base_qualities=w["reads"][i][1])
+            for i in picked]
+    out = NativeSearchEngine(index.fmd, params).search_chunk(recs)
+    sa, ids = index.suffix_array, index.id_pos_map
+    strand = len(sa) // 2
+    hits = positions = crossing = dropped = 0
+    for hit_list, _d in out:
+        for h in hit_list:
+            hits += 1
+            eff = effective_len(h.edit_operations)
+            lo = h.interval.lower
+            cross = n = 0
+            for sar in range(lo, lo + min(h.interval.size, JOIN_POSITIONS)):
+                a = sa.get(sar)
+                if a is None:
+                    continue
+                if a >= strand:
+                    a = len(sa) - a - eff - 1
+                n += 1
+                cross += ids.get_reference_identifier(a, eff) is None
+            positions += n
+            crossing += cross
+            dropped += n > 0 and cross == n
+    got = dict(reads=len(recs), hits=hits, positions=positions,
+               crossing=crossing, dropped=dropped)
+    log(f"  joins: {len(recs)} reads placed at sequence joins, {hits} hits "
+        f"of the host searcher, {positions} positions located, {crossing} "
+        f"of them across a join; {dropped} hits dropped at a join (every "
+        f"position across one)")
+    if not dropped:
+        raise AssertionError("no hit was dropped at a join")
+    return got
+
+
+def tier_stats(stats):
+    return {k: stats.get(k, 0) for k in (
+        "batches", "steps", "escalated", "esc_why", "oracle", "retried",
+        "deep_retried", "nohit_host", "prep_s", "device_s", "wait_s",
+        "decode_s", "fb_secs")}
+
+
+def assembly_retry(run, what):
+    """`run(env)` -> stats, with MAPAD_RETRY_TIER=1; when the defaults
+    retry nothing (no read was left unfinished or undispatched), once more
+    with the primary step budget starved to ASSEMBLY_STARVED_STEPS."""
+    stats = run(dict(MAPAD_RETRY_TIER="1"))
+    if stats.get("retried", 0):
+        return stats, None
+    log(f"{what}: the defaults retried nothing (escalated by cause "
+        f"{stats.get('esc_why')}); once more with MAPAD_POOL_STEPS="
+        f"{ASSEMBLY_STARVED_STEPS}")
+    stats = run(dict(MAPAD_RETRY_TIER="1",
+                     MAPAD_POOL_STEPS=ASSEMBLY_STARVED_STEPS))
+    if not stats.get("retried", 0):
+        raise AssertionError(f"{what}: the retry tier retried nothing")
+    return stats, ASSEMBLY_STARVED_STEPS
+
+
+def rows_with_x(torch, idx):
+    """(nb,) bool: the fused rows whose symbols hold an X (rank 5), and
+    the BWT positions of the X symbols (int64, on the rows' device), read
+    from the rows 65,536 at a time."""
+    k, step = idx.occ_k, 1 << 16
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32,
+                          device=idx.rows.device)
+    has, pos = [], []
+    for b0 in range(0, idx.rows.shape[0], step):
+        words = idx.rows[b0 : b0 + step, idx.n_cp_cols:]
+        x = ((words[:, :, None] >> shifts) & 0xF).reshape(
+            words.shape[0], -1) == 5
+        has.append(x.any(dim=1))
+        pos.append(torch.nonzero(x.reshape(-1))[:, 0] + b0 * k)
+    pos = torch.cat(pos)
+    return torch.cat(has), pos[pos < idx.text_len]
+
+
+def x_queried(torch, idx, has_x, ranks):
+    """How many of the rank queries `ranks` read a row holding X."""
+    r = ranks.to(idx.rows.device).long()
+    r = r[r >= 0]
+    return int(has_x[(r // idx.occ_k).clamp(max=has_x.numel() - 1)].sum())
+
+
+def assembly_kernels(torch, small, big, w, card):
+    """The kernels of the small assembly's two runs against their plain
+    versions on its rows (X in them), on ASSEMBLY_CHECK_READS reads (the
+    edge reads first, then reads with N): K1 (`occ4_batch`,
+    `extend_batch`) in both widths on ranks at the BWT's X symbols and at
+    random; K4 (int32); K6 and K7 (int64: walks into the X runs); K2 at
+    ASSEMBLY_FIXED steps, K3 and K5 in both widths.  -> {kernel-table
+    row: its `assembly` keys}."""
+    from mapad_tpu_torch.map.record import Record
+    from mapad_tpu_torch.ops import bi_d, fm
+    from mapad_tpu_torch.ops import engine as eng
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+    from mapad_tpu_torch.ops.prep import _DEV_LUT_Q
+
+    reads, kinds = w["reads"], w["kinds"]
+    order = sorted(range(len(reads)),
+                   key=lambda i: (kinds[i] == "", b"N" not in reads[i][0]))
+    R = ASSEMBLY_CHECK_READS
+    recs = [Record(sequence=reads[i][0], base_qualities=reads[i][1])
+            for i in order[:R]]
+    out = {}
+    for engine in (small, big):
+        idx = engine.device_index
+        sfx = "_i64" if idx.big else ""
+        has_x, x_pos = rows_with_x(torch, idx)
+        g = torch.Generator(device="cpu").manual_seed(ASSEMBLY_SEED)
+        pick = torch.randint(0, x_pos.numel(), (ASSEMBLY_RANKS // 2,),
+                             generator=g).to(x_pos.device)
+        r = torch.cat([x_pos[pick], torch.randint(
+            -1, idx.text_len, (ASSEMBLY_RANKS // 2,), generator=g).to(
+                x_pos.device)]).to(idx.idx_dtype)
+        occ = fm.occ4_batch(idx, r)
+        err = compare(torch, (occ,), (fm._row_occ4(idx, r),),
+                      f"occ4_batch{sfx} on the assembly's rows")
+        lower = (r.long() - 3).clamp(0, idx.text_len - 1).to(idx.idx_dtype)
+        size = torch.minimum(torch.full_like(lower, 7), idx.text_len - lower)
+        lrev = lower.flip(0)
+        ext = fm.extend_batch(idx, lower, lrev, size)
+        err = max(err, compare(
+            torch, ext, fm.extend_batch_plain(idx, lower, lrev, size),
+            f"extend_batch{sfx} on the assembly's rows"))
+        ends = interval_ends(torch, lower, size)
+        out["extend_batch" + sfx] = dict(
+            max_abs_err=err, ranks=int(r.numel()),
+            x_rows=int(has_x.sum()), rows=int(has_x.numel()),
+            x_symbols=int(x_pos.numel()),
+            x_row_queries=x_queried(torch, idx, has_x, ends),
+            ms=timed(torch, lambda: fm.extend_batch(idx, lower, lrev, size),
+                     20),
+            bound_ms=bound_ms(occ_bytes(torch, idx, ends)
+                              + nbytes(lower, lrev, size, *ext)),
+            occ4_ms=timed(torch, lambda: fm.occ4_batch(idx, r), 20),
+            occ4_bound_ms=bound_ms(occ_bytes(torch, idx, r)
+                                   + nbytes(r, occ)))
+        o = out["extend_batch" + sfx]
+        log(f"K1{sfx} on the small assembly's rows ({o['x_rows']} of "
+            f"{o['rows']} rows hold X, {o['x_symbols']:,} X symbols): "
+            f"occ4_batch and extend_batch on {o['ranks']} ranks, half of "
+            f"them on an X, bit-exact ({o['x_row_queries']} interval ends "
+            f"in rows with X); extend_batch {o['ms']:.4f} ms (bound "
+            f"{o['bound_ms']:.5f}), occ4_batch {o['occ4_ms']:.4f} ms (bound "
+            f"{o['occ4_bound_ms']:.5f}); {card}")
+
+        cfg, prep, _t0 = engine._prep_block(recs, R, engine.pool_config)
+        M = prep["max_len"]
+        blob = torch.from_numpy(prep["blob"]).to(engine.device)
+        tab, pen_tab, off = engine._device_lut()
+        if idx.big:
+            dense = eng._unpack_prep_full(blob, tab, pen_tab, off, R, M,
+                                          _DEV_LUT_Q)
+            err = compare(torch, dense, eng._unpack_prep_full_plain(
+                blob, tab, pen_tab, off, R, M, _DEV_LUT_Q),
+                "unpack_prep_full on the assembly's reads")
+            out["unpack_prep_full"] = dict(max_abs_err=err, reads=R)
+            rank, code, n, score_lut, pen, split, *_rest = dense
+            steps = prep["bid_steps"]
+            fwd = cfg.compute_forward_part
+            bid = bi_d.compute_bi_d(idx, rank, pen, n, split, fwd, steps)
+            with K7Queries(torch, bi_d) as q7:
+                want = bi_d.compute_bi_d_plain(idx, rank, pen, n, split, fwd,
+                                               steps)
+            ranks7 = torch.cat(q7.ranks)
+            out["bi_d_i64"] = o = dict(
+                max_abs_err=compare(torch, (bid,), (want,),
+                                    "bi_d_i64 on the assembly's reads"),
+                reads=R, walk_steps=q7.steps,
+                x_row_queries=x_queried(torch, idx, has_x, ranks7),
+                ms=timed(torch, lambda: bi_d.compute_bi_d(
+                    idx, rank, pen, n, split, fwd, steps), 10),
+                bound_ms=bound_ms(nbytes(rank, pen, n, split, bid)
+                                  + q7.bytes(idx)))
+            log(f"K6, K7 on the small assembly's rows: {R} reads (edge "
+                f"reads, reads with N), bit-exact; K7 {q7.steps} walk "
+                f"steps, {o['x_row_queries']} of their rank queries in rows "
+                f"with X, {o['ms']:.4f} ms (bound {o['bound_ms']:.5f}); "
+                f"{card}")
+            if not o["x_row_queries"]:
+                raise AssertionError("K7 walked into no row with X")
+            consts = (n, split, *dense[6:])
+            slut = sp2._dense_slut(idx, (rank, code, score_lut, pen), n,
+                                   split, cfg, steps)
+        else:
+            parts = eng._unpack_prep_lut(blob, tab, off, R, M, _DEV_LUT_Q,
+                                         prep["rle"])
+            err = compare(torch, parts, eng._unpack_prep_lut_plain(
+                blob, tab, off, R, M, _DEV_LUT_Q, prep["rle"]),
+                "unpack_prep on the assembly's reads")
+            out["unpack_prep"] = dict(max_abs_err=err, reads=R)
+            consts, slut = parts[:5], parts[5]
+        c = cfg._replace(debug_fixed_steps=ASSEMBLY_FIXED)
+        a = (idx, *consts, engine._params(), c, slut)
+        res = sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*a), c)
+        state = sp2._pool_loop_cuda(*a)
+        buf = sp2._extract_chains_cuda(*state, c, views=False)
+        pres = sp2._extract_chains_plain(*sp2._pool_loop_plain(*a), c)
+        err = compare(torch, tuple(res), tuple(pres),
+                      f"pool_search{sfx} + extract_chains{sfx} on the "
+                      "assembly's reads")
+        err = max(err, compare(torch, (eng._pack_buffer(buf, c, R, idx.big),),
+                               (eng._pack_result_plain(res),),
+                               f"pack_result{sfx} on the assembly's reads"))
+        n_ext = min(int(res.n_chains), c.max_chains)
+        done = int(((res.c_read[:n_ext] >= 0)
+                    & ~res.c_abandon[:n_ext]).sum())
+        if not done:
+            raise AssertionError(f"K2{sfx} on the assembly's reads: no hit "
+                                 f"in {ASSEMBLY_FIXED} steps")
+        for name in ("pool_search", "extract_chains", "pack_result"):
+            out[name + sfx] = dict(max_abs_err=err, reads=R,
+                                   fixed_steps=ASSEMBLY_FIXED,
+                                   chains=int(res.n_chains), hits=done)
+        log(f"K4{' (K6, K7)' if idx.big else ''}, K2 + K3 + K5{sfx} on the "
+            f"small assembly's rows: {R} reads, debug_fixed_steps="
+            f"{ASSEMBLY_FIXED}, bit-exact against the plain versions; "
+            f"{int(res.n_chains)} chains, {done} of them hits")
+    return out
+
+
+def small_assembly_phase(torch, cli, load_index, params, args, card,
+                         pipeline):
+    """The default smoke's assembly: tools/assembly.py's at
+    ASSEMBLY_SMALL_SCALE (86 sequences, X runs, short IUPAC runs, reads
+    beside them and with N), its kernels against their plain versions
+    there, then `map --engine device` (int32, through the CLI) and
+    `pipeline.run` with `big=True` and MAPAD_RETRY_TIER=1, each BAM equal
+    to the native engine's and held to the assembly's invariants.  ->
+    kernel-table keys {row: {"assembly": ..., "assembly_launches": n}}
+    (the phase's figures on a JSON line of their own)."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+
+    t0 = time.perf_counter()
+    work = os.path.join(WORK, "assembly_small")
+    w = assembly_workload(ASSEMBLY_SMALL_SCALE, work, card)
+    index = load_index(w["fasta"])
+    small = DeviceSearchEngine(index.fmd, params, lanes=args.lanes,
+                               packed_hits=True)
+    big = DeviceSearchEngine(index.fmd, params, lanes=args.lanes, big=True,
+                             packed_hits=True)
+    assert not small.device_index.big and big.device_index.big
+    kernels = assembly_kernels(torch, small, big, w, card)
+    del small, big
+    maps = CliMaps(torch, cli, "small assembly", w["fasta"], w["fastq"],
+                   work, w["lay"].text_len, False, card)
+    maps.run("native", ["--engine", "native"])
+    got = assembly_invariants(w, maps.bam("native"),
+                              "small assembly, native", False)
+    e = maps.run("device", ["--engine", "device"])
+    launches = dict(e["launches"])
+    runs = {"device": e}
+    secs = None
+
+    def big_run(env):
+        nonlocal secs
+        LAUNCHES.reset()
+        with _Env(**env):
+            engine = DeviceSearchEngine(index.fmd, params, lanes=args.lanes,
+                                        big=True, packed_hits=True)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pipeline.run(w["fastq"], w["fasta"], maps.bam("big_retry"), True,
+                         params, None, engine=engine,
+                         position_seed=args.seed, cmdline="mapad map",
+                         threads=os.cpu_count() or 1, index=index)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        return engine.stats()
+
+    stats, starved = assembly_retry(big_run, "small assembly, big mode")
+    i32, i64 = KERNELS_I32 + ["bi_d"], KERNELS_I64
+    counts = {k: LAUNCHES.get(k) for k in i32 + i64}
+    what = ("small assembly, pipeline.run big=True MAPAD_RETRY_TIER=1"
+            + (f" MAPAD_POOL_STEPS={starved}" if starved else ""))
+    report_run(what, card, secs, stats, {k: counts[k] for k in i64})
+    check_k2_launches(counts, what, sfx="_i64")
+    if any(counts[k] for k in i32):
+        raise AssertionError(f"{what}: int32 kernels launched")
+    bam_compare(maps.bam("big_retry"), maps.bam("native"), what)
+    for k in i64:
+        launches[k] = counts[k]
+    runs["big_retry"] = dict(seconds=secs, reads_per_s=N_READS / secs,
+                             starved_steps=starved, stats=tier_stats(stats))
+    got["joins"] = join_drops(w, index, params)
+    got["reads_with_n"] = sum(b"N" in r for r, _q in w["reads"])
+    summary = dict(scale=ASSEMBLY_SMALL_SCALE, **w["lay"].summary(),
+                   index_s=w["index_s"], index_peak_gib=w["index_peak_gib"],
+                   runs=runs, records=got,
+                   seconds=time.perf_counter() - t0)
+    log(f"small assembly: the phase {summary['seconds']:.1f} s; {card}")
+    log(json.dumps({"small_assembly": summary}))
+    return {name: dict(assembly=k, assembly_launches=launches[name])
+            for name, k in kernels.items()}
+
+
+def assembly_alone(torch, cli, load_index, params, card, t_start, scale):
+    """`--assembly [SCALE]`: path 12, tools/assembly.py's GRCh37-shaped
+    assembly at SCALE (1: 86 sequences, 1,106,352,191 bp, a text of
+    2,212,704,384 symbols, past 2^31) end to end: its index by the CLI
+    (cached in .smoke/assembly/), then `map --engine native`, `map
+    --engine device` (the engine chooses the mode: big past 2^31), `map`
+    (hybrid) and `map --engine device` with MAPAD_RETRY_TIER=1 (the step
+    budget starved where the defaults retry nothing), each BAM equal to
+    the native one (XD aside), which is held to the assembly's invariants;
+    the host searcher's hits at sequence joins located as the BAM
+    conversion does."""
+    work = os.path.join(WORK, "assembly")
+    w = assembly_workload(scale, work, card)
+    text_len = w["lay"].text_len
+    want_big = text_len >= BIG_TEXT_MIN
+    summary = dict(scale=scale, seed=ASSEMBLY_SEED, **w["lay"].summary(),
+                   made_s=w["made_s"], index_s=w["index_s"],
+                   index_peak_gib=w["index_peak_gib"])
+    log(f"path 12: the assembly at scale {scale:g}, a text of {text_len:,} "
+        f"symbols: big mode {'expected' if want_big else 'not expected'}; "
+        f"{card}")
+    maps = CliMaps(torch, cli, "path 12", w["fasta"], w["fastq"], work,
+                   text_len, want_big, card)
+    maps.run("native", ["--engine", "native"])
+    maps.run("device", ["--engine", "device"])
+    maps.run("hybrid", [])
+    _stats, starved = assembly_retry(
+        lambda env: maps.run("retry", ["--engine", "device"], env)["stats"],
+        "path 12")
+    summary["engines"] = maps.figures
+    summary["engines"]["retry"]["starved_steps"] = starved
+
+    index = load_index(w["fasta"])
+    got = assembly_invariants(w, maps.bam("native"), "path 12",
+                              text_len > 2**31)
+    got["joins"] = join_drops(w, index, params)
+    got["reads_with_n"] = sum(b"N" in r for r, _q in w["reads"])
+    log(f"path 12: {got['reads_with_n']} reads carry N; {card}")
+    summary["records"] = got
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    print(json.dumps({"assembly": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3175,6 +3659,14 @@ def main() -> int:
                 and sys.argv[at].isdigit() else BIG_TEXT_SIZE)
         return big_text_alone(torch, np, cli, load_index, params, card,
                               t_start, size)
+
+    if "--assembly" in sys.argv[1:]:
+        at = sys.argv.index("--assembly") + 1
+        scale = ASSEMBLY_SCALE
+        if at < len(sys.argv) and not sys.argv[at].startswith("--"):
+            scale = float(sys.argv[at])
+        return assembly_alone(torch, cli, load_index, params, card, t_start,
+                              scale)
 
     if "--knobs" in sys.argv[1:]:
         return knobs_alone(torch, np, cli, load_index, params, args, card,
@@ -3323,6 +3815,12 @@ def main() -> int:
     # --- the rows past 2^32: the int64 kernels on a synthetic table ---
     for name, keys in rows64_phase(torch, np, engine2, reads2, card).items():
         rows[name]["past_2_32"] = keys
+
+    # --- the small assembly: X runs, IUPAC runs, 86 sequences, reads with
+    # N, the retry tier; int32 and big mode ---
+    for name, k in small_assembly_phase(torch, cli, load_index, params, args,
+                                        card, pipeline).items():
+        rows[name].update(k)
 
     from mapad_tpu_torch.map.native_search import NativeSearchEngine
     from mapad_tpu_torch.map.record import Record
@@ -3646,7 +4144,8 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
             "both_plan", "host_ms", "launches_per_call", "walk_floor_ms",
             "deepest_chain", "load_ns",
             "fixed_check", "fixed_steps", "fixed_ms", "fixed_us_step",
-            "fixed_natural_steps", "occ4_batch", "past_2_32")
+            "fixed_natural_steps", "occ4_batch", "past_2_32", "assembly",
+            "assembly_launches")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},

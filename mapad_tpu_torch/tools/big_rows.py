@@ -4,14 +4,16 @@
 at a time, the fused rows of big mode (`[cp_lo(6) | cp_hi(6) | 116 words of
 4-bit symbols]`, k = 928; `DeviceFmIndex.from_host(..., big=True)`'s
 layout byte for byte) of a BWT of `n` symbols: random ranks 1..4 from a
-seeded `torch.Generator` on that device, and two sentinels (rank 0) at
-positions drawn from the seed.  The whole BWT never exists, on the host or
+seeded `torch.Generator` on that device, runs of X (rank 5: a genome's long
+N runs) of 20 bp to tens of kbp, about one a SYNTHETIC_X_EVERY symbols,
+and two sentinels (rank 0), all at positions drawn from the seed.  The whole BWT never exists, on the host or
 on the card: a table of rows past 2^32 (n = 4.4e9: 4,741,380 rows, 2.43 GB)
 takes seconds, with no genome and no index build.  The symbols are not the
 BWT of a text, but every rank query is well defined on them, so a kernel
 and its plain version can be held against each other there;
 `text_strings` walks the LF mapping backwards to give strings whose
-backward search never runs empty (reads that hit).
+backward search never runs empty (reads that hit; a walk that meets an X
+is drawn again).
 
     python -m mapad_tpu_torch.tools.big_rows load-peak -g GENOME.fa \\
         [--device cuda]
@@ -47,6 +49,11 @@ from ..ops.fm import (
 # rows of the synthetic table made at once: 61 M symbols, ~0.6 GB of
 # temporaries on the card
 SYNTHETIC_CHUNK_ROWS = 1 << 16
+# X runs: about one a SYNTHETIC_X_EVERY symbols, of 20 bp (a run the index
+# builder makes X) to X_RUN_MAX, log-uniform (~0.6% of the symbols); on a
+# short table at most n // 256
+SYNTHETIC_X_EVERY = 1 << 20
+X_RUN_MIN, X_RUN_MAX = 20, 50_000
 
 
 def synthetic_sentinels(n: int, seed: int) -> tuple[int, int]:
@@ -59,12 +66,32 @@ def synthetic_sentinels(n: int, seed: int) -> tuple[int, int]:
     return min(a, b), max(a, b)
 
 
+def synthetic_x_runs(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """The X runs of the synthetic BWT of `n` symbols -> (starts, ends),
+    int64, in order, none touching another."""
+    rng = np.random.default_rng([seed, 5])
+    count = n // SYNTHETIC_X_EVERY + 1
+    top = max(X_RUN_MIN, min(X_RUN_MAX, n // 256))
+    length = np.exp(rng.uniform(np.log(X_RUN_MIN), np.log(top + 1),
+                                size=count)).astype(np.int64)
+    length = np.clip(length, X_RUN_MIN, top)
+    start = np.sort(rng.integers(0, n - top, size=count))
+    keep, end = [], -1
+    for i, s in enumerate(start.tolist()):
+        if s > end:
+            keep.append(i)
+            end = s + int(length[i])
+    start, length = start[keep], length[keep]
+    return start, start + length
+
+
 def synthetic_bwt(n: int, seed: int, device):
     """The synthetic BWT of `n` symbols, SYNTHETIC_CHUNK_ROWS rows at a
     time: yields (first row, (rows, 928) uint8 ranks on `device`, 15 past
     the text)."""
     k = OCC_K_BIG
     sent = synthetic_sentinels(n, seed)
+    x_start, x_end = synthetic_x_runs(n, seed)
     g = torch.Generator(device=device).manual_seed(seed)
     nb = -(-n // k)
     for b0 in range(0, nb, SYNTHETIC_CHUNK_ROWS):
@@ -74,6 +101,11 @@ def synthetic_bwt(n: int, seed: int, device):
                          device=device)
         sym[: hi - lo] = torch.randint(1, 5, (hi - lo,), generator=g,
                                        dtype=torch.uint8, device=device)
+        first = int(np.searchsorted(x_end, lo, side="right"))
+        last = int(np.searchsorted(x_start, hi, side="left"))
+        for a, b in zip(x_start[first:last].tolist(),
+                        x_end[first:last].tolist()):
+            sym[max(a, lo) - lo : min(b, hi) - lo] = 5
         for s in sent:
             if lo <= s < hi:
                 sym[s - lo] = 0

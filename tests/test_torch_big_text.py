@@ -58,7 +58,7 @@ def test_synthetic_index_equals_both_device_indexes(monkeypatch, n,
     bwt = _synthetic_bwt(n, 11)
     assert np.array_equal(np.flatnonzero(bwt == 0),
                           big_rows.synthetic_sentinels(n, 11))
-    assert set(np.unique(bwt)) == {0, 1, 2, 3, 4}
+    assert set(np.unique(bwt)) == {0, 1, 2, 3, 4, 5}
     tf, jf = _fmds(bwt)
     want = tfm.DeviceFmIndex.from_host(tf, big=True, device="cpu")
     assert syn.big and syn.occ_k == want.occ_k == 928
@@ -70,6 +70,29 @@ def test_synthetic_index_equals_both_device_indexes(monkeypatch, n,
     assert_bits_equal(np.asarray(jidx.rows), syn.rows.numpy())
     assert_bits_equal(np.asarray(jidx.less), syn.less.numpy())
     assert_bits_equal(np.asarray(jidx.sentinels), syn.sentinels.numpy())
+
+
+@pytest.mark.parametrize("n", [928 * 7 + 300, 3001, 4_400_000_000])
+def test_synthetic_x_runs(n):
+    """X runs of 20 bp to X_RUN_MAX, none touching another, about one a
+    SYNTHETIC_X_EVERY symbols; in a table the BWT holds X exactly there
+    (sentinels aside)."""
+    start, end = big_rows.synthetic_x_runs(n, 64)
+    length = end - start
+    assert start.size >= 1 and (start[1:] > end[:-1]).all()
+    assert length.min() >= big_rows.X_RUN_MIN and end.max() <= n
+    assert length.max() <= max(big_rows.X_RUN_MIN, n // 256)
+    if n > 2**32:
+        assert start.size > 0.95 * (n // big_rows.SYNTHETIC_X_EVERY)
+        assert length.max() > 10_000 and 0.003 < length.sum() / n < 0.01
+        return
+    bwt = _synthetic_bwt(n, 64)
+    x = np.zeros(n, dtype=bool)
+    for a, b in zip(start, end):
+        x[a:b] = True
+    sent = np.asarray(big_rows.synthetic_sentinels(n, 64))
+    x[sent] = False
+    assert np.array_equal(bwt == 5, x)
 
 
 def test_synthetic_bwt_does_not_depend_on_the_chunk(monkeypatch):

@@ -1000,6 +1000,72 @@ def test_engine_on_the_card_equals_plain(fmd, cuda, big, qual, monkeypatch):
         assert deep_g > 0
 
 
+def _assembly_index_and_reads(tmp_path, n_reads):
+    """tools/assembly.py's GRCh37-shaped assembly at 1/2000 (86 sequences,
+    N runs as X, short IUPAC runs) indexed by the port -> (its FmdIndex,
+    the reads: edge reads first, then reads placed at random)."""
+    from mapad_tpu_torch.index import builder, load_index
+    from mapad_tpu_torch.tools import assembly
+
+    _lay, _b, reads, kinds, fasta, _fq = assembly.make(
+        str(tmp_path), 1 / 2000, n_reads=2000)
+    builder.run(fasta)
+    order = sorted(range(len(reads)), key=lambda i: kinds[i] == "")
+    return load_index(fasta).fmd, [reads[i][0] for i in order[:n_reads]]
+
+
+@pytest.mark.parametrize("genome", ["bench", "assembly"])
+def test_retry_tier_on_the_card_equals_plain(fmd, cuda, genome, tmp_path,
+                                             monkeypatch):
+    """MAPAD_RETRY_TIER=1 on big-mode blocks (a starved step budget, so
+    that unfinished and undispatched reads re-run in retry blocks, their
+    futures resolved inside the lazy fallback, beside the deep tier): the
+    engine on the card against the same engine on the CPU's plain
+    versions, the same escalations, tier counts and hits; on the bench
+    genome and on the assembly's rows, X in them, with its edge reads and
+    reads carrying N."""
+    from concurrent.futures import Future
+
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.ops.search_pool import PoolConfig
+    from torch_port_helpers import packed_equal
+
+    for name in ("MAPAD_DEEP_TIER", "MAPAD_HOST_BID", "MAPAD_DEEP_LANES",
+                 "MAPAD_DEEP_NOHIT_HOST"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("MAPAD_RETRY_TIER", "1")
+    index = fmd
+    seqs = bench_reads(seed=4, n_random=60)
+    if genome == "assembly":
+        index, seqs = _assembly_index_and_reads(tmp_path, 96)
+    cfg = PoolConfig(lanes=16, total_steps=128, read_step_cap=128,
+                     max_chains=256)
+    reads = records("mapad_tpu_torch", seqs)
+    outs = []
+    for dev in (cuda, "cpu"):
+        eng = DeviceSearchEngine(index, adna_params("mapad_tpu_torch"),
+                                 pool_config=cfg, packed_hits=True,
+                                 device=dev, big=True)
+        assert eng.device_index.big and eng.deep_tier_enabled()
+        eng.block_reads = 48
+        LAUNCHES.reset()
+        res = eng.search_chunk(reads, lazy_fallback=True)
+        outs.append(({i for i, r in enumerate(res) if isinstance(r, Future)},
+                     [(r.result() if isinstance(r, Future) else r)[0]
+                      for r in res], eng._stats["esc_why"],
+                     {k: eng._stats.get(k, 0) for k in (
+                         "retried", "deep_retried", "oracle", "batches")},
+                     LAUNCHES.get("pool_search_i64")))
+    (esc_g, hits_g, why_g, tiers_g, k2), (esc_c, hits_c, why_c, tiers_c,
+                                          _) = outs
+    assert esc_g == esc_c and why_g == why_c and tiers_g == tiers_c
+    assert all(packed_equal(a, b) for a, b in zip(hits_g, hits_c))
+    assert tiers_g["retried"] > 0, tiers_g
+    assert k2 > 0
+    assert sum(len(h) > 0 for h in hits_g) > len(reads) // 4
+
+
 @pytest.mark.parametrize("where", ["below", "above"])
 @pytest.mark.parametrize("model", ["adna", "vindija"])
 @pytest.mark.parametrize("big", [False, True])

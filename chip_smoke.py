@@ -10,6 +10,9 @@
     python3 chip_smoke.py --assembly [SCALE]  # path 12 alone: a GRCh37-
                                     # shaped assembly (86 sequences, N runs,
                                     # IUPAC runs) at SCALE (1: past 2^31)
+    python3 chip_smoke.py --cards [SCALE] [--phases abcd]  # path 13
+                                    # alone: a node of two cards or more
+                                    # (the assembly at SCALE)
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
@@ -134,6 +137,26 @@ MAPAD_RETRY_TIER=1, every BAM equal to the native one and held to the
 assembly's invariants; some MD tag must carry an original IUPAC symbol
 past text position 2^31.
 
+Path 13 (`--cards [SCALE] [--phases LETTERS]`, alone: a node of two
+cards or more, which it refuses to run without; the phases named, all by
+default): (a) path 1's workload at CARDS_READS reads (bench.py's whole
+65,536, so that every layout fills its blocks) through `pipeline.run` with
+the pool engine on one card, over `make_mesh(2)` and over the automatic
+mesh of every card, in turns and back, then `map` with no `--engine` (the
+hybrid over every card), each with its reads/s, stage seconds, shard steps
+and each card's peak memory; (b) K9's API over every card and over two in
+both widths at a full block, against its shards run one after the other,
+with the block's step efficiency, and over every card against its plain
+version (the int64 block; int32 at n x 512 reads); (d) `run_multihost`
+with a process per card (CUDA_VISIBLE_DEVICES) and per pair of cards, and
+`map --dispatcher` with a `worker --device cuda:i` per card, over
+8,192-read chunks, each process or worker held to its layout; then (c)
+the assembly at SCALE (path 12's; its index built after (d); big mode
+chosen by the engine at 1, forced below 2^31) through `map --engine
+native`, then `--engine device` and the hybrid over every card, each
+card's peak above its replica of the rows.  Every BAM equals the native
+one of the same chunks; the assembly's are held to its invariants.
+
 Before the paths, K8 runs against its plain version at full width with a
 step budget just above the per-read cap, so that the check's reads force
 store boundaries whose moved window overlaps itself (uncapped and capped
@@ -217,6 +240,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -1032,11 +1056,14 @@ def k9_run(torch, engine, recs, plain):
     """K9 (`pool_search_sharded`) on the block `recs` through the sharded
     `engine`'s shard threads and streams (`ShardRunner`) and shard body, as
     path 7 runs it: the block dealt and prepared per shard by the engine,
-    uploaded to the shards' card.  Held bit for bit against the same
-    shards run one after the other through the unsharded pool search and
-    re-based, and with `plain` against its plain version; timed in turns
-    with the shards one after the other (do two streams on one card
-    overlap?).  -> (K9's numbers, the shards' unsharded results)."""
+    uploaded to the shards' cards (the packed rows in int32, K6's dense
+    inputs in big mode; each shard's K7 in K9).  Held bit for bit against
+    the same shards run one after the other through the unsharded pool
+    search, each on its card, and re-based, and with `plain` against its
+    plain version; timed in turns with the shards one after the other,
+    each card waited for before the next shard starts (do two streams on
+    one card, or the cards, overlap?).  -> (K9's numbers, the shards'
+    unsharded results)."""
     from mapad_tpu_torch._build import LAUNCHES
     from mapad_tpu_torch.ops import search_pool2 as sp2
     from mapad_tpu_torch.ops.search_pool import PoolResult
@@ -1045,21 +1072,31 @@ def k9_run(torch, engine, recs, plain):
     D, R = engine.n_shards, len(recs)
     r = R // D
     mesh, indexes, params = engine.mesh, engine._mesh_index, engine._params()
+    big = engine.device_index.big
     cfg, prep, _t0 = engine._prep_block(recs, R, engine.pool_config)
     ups = []
     for d, part in enumerate(prep["shards"]):
         with torch.cuda.device(mesh[d]):
             ups.append(engine._upload(part, mesh[d]))
-    p = {k: torch.cat([consts[i] for consts, _ in ups])
+    sync_cards(torch)
+
+    def cat(parts):  # the shards' parts as the block's, on the first card
+        return torch.cat([t.to(mesh[0]) for t in parts])
+
+    p = {k: cat([consts[i] for consts, _ in ups])
          for i, k in enumerate(tps.CONST_KEYS)}
-    p["slut_packed"] = torch.cat([kw["slut"] for _, kw in ups])
+    if big:
+        p.update((k, cat([kw["dense"][i] for _, kw in ups]))
+                 for i, k in enumerate(tps.DENSE_KEYS))
+    else:
+        p["slut_packed"] = cat([kw["slut"] for _, kw in ups])
     parts = tps.shard_reads(mesh, p)
 
     def wall_ms(fn):
-        torch.cuda.synchronize()
+        sync_cards(torch)
         t = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
+        sync_cards(torch)
         return out, (time.perf_counter() - t) * 1e3
 
     def k9():
@@ -1067,12 +1104,19 @@ def k9_run(torch, engine, recs, plain):
                                        runner=engine._shards)
 
     def one_after_the_other():
-        return [sp2.k_mismatch_search_pool2(
-            indexes[d], *[parts[d][k] for k in tps.CONST_KEYS], params, cfg,
-            slut=parts[d]["slut_packed"]) for d in range(D)]
+        out = []
+        for d in range(D):
+            consts, kw = tps._shard_inputs(parts[d])
+            with torch.cuda.device(mesh[d]):
+                out.append(sp2.k_mismatch_search_pool2(
+                    indexes[d], *consts, params, cfg, **kw))
+            # K2 returns before the card ends: without the wait, shards on
+            # distinct cards would overlap here too
+            torch.cuda.synchronize(mesh[d])
+        return out
 
-    def fields(res):
-        return tuple(t for t in res if t is not None)
+    def fields(res, dev=None):
+        return tuple(t.to(dev or t.device) for t in res if t is not None)
 
     LAUNCHES.reset()
     res, first_ms = wall_ms(k9)
@@ -1099,29 +1143,40 @@ def k9_run(torch, engine, recs, plain):
         err = max(err, compare(
             torch, fields(PoolResult(*[None if t is None else t[d]
                                        for t in res])),
-            fields(want), f"K9 shard {d} against its unsharded run"))
+            fields(want, mesh[0]), f"K9 shard {d} against its unsharded run"))
     steps = [int(x) for x in res.steps]
     C, L = cfg.max_chains, cfg.lanes
-    k9_bytes = D * ((C + L) * 4 * 2 + 8) + sum(
-        pool_search_bytes(indexes[d], [parts[d][k] for k in tps.CONST_KEYS],
-                          parts[d]["slut_packed"], cfg, steps[d], False)
-        + extract_bytes(torch, cfg, seq[d], False)
-        for d in range(D))
+    # each card's bytes (its shards' search, extraction and rebase): shards
+    # on distinct cards run at once, each from its own memory, so the bound
+    # is the busiest card's; shards on one card add up
+    card_bytes = {}
+    for d in range(D):
+        consts, kw = tps._shard_inputs(parts[d])
+        card_bytes[mesh[d]] = card_bytes.get(mesh[d], 0) + (
+            (C + L) * 4 * 2 + 8
+            + pool_search_bytes(indexes[d], [*consts, *kw.get("dense", ())],
+                                kw.get("slut"), cfg, steps[d], big)
+            + extract_bytes(torch, cfg, seq[d], big))
+    k9_bound = bound_ms(max(card_bytes.values()))
     k9_ms, seq_ms = median(times["k9"]), median(times["seq"])
-    log(f"K9 pool_search_sharded {D} shards x {r} reads on one card through "
-        f"a sharded engine's shard threads (L={L} S={cfg.total_steps} "
-        f"CAP={cfg.read_step_cap} C={C}): bit-exact against "
-        f"{'its plain version and ' if plain else ''}the same shards "
-        f"unsharded; shard steps {steps} (step efficiency "
-        f"{sum(steps) / (D * max(steps)):.4f}); {k9_ms:.1f} ms (median of "
+    where = ("one card" if len(set(mesh)) == 1
+             else f"{len(set(mesh))} distinct cards")
+    eff = sum(steps) / (D * max(steps))
+    log(f"K9 pool_search_sharded {'int64' if big else 'int32'} {D} shards x "
+        f"{r} reads on {where} through a sharded engine's shard threads "
+        f"(L={L} S={cfg.total_steps} CAP={cfg.read_step_cap} C={C}): "
+        f"bit-exact against {'its plain version and ' if plain else ''}the "
+        f"same shards unsharded; shard steps {steps} (the block's step "
+        f"efficiency {eff:.4f}); {k9_ms:.1f} ms (median of "
         f"{', '.join(f'{x:.1f}' for x in times['k9'])}; first call "
         f"{first_ms:.1f}), the same shards one after the other {seq_ms:.1f} "
         f"ms (median of {', '.join(f'{x:.1f}' for x in times['seq'])}): "
-        f"K9 at {k9_ms / seq_ms:.2f}x; bound {bound_ms(k9_bytes):.3f} ms"
-        + (f", plain {plain_ms:.1f} ms" if plain else ""))
-    return dict(reads=R, steps=steps, ms=k9_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms(k9_bytes), sequential_ms=seq_ms,
-                max_abs_err=err, rebase_launches=rebases), seq
+        f"K9 at {k9_ms / seq_ms:.2f}x; bound {k9_bound:.3f} ms (the busiest "
+        f"card's bytes)" + (f", plain {plain_ms:.1f} ms" if plain else ""))
+    return dict(reads=R, steps=steps, step_efficiency=eff, ms=k9_ms,
+                plain_ms=plain_ms, bound_ms=k9_bound,
+                sequential_ms=seq_ms, max_abs_err=err,
+                rebase_launches=rebases), seq
 
 
 def k9_check(torch, engine, reads):
@@ -1359,9 +1414,10 @@ def probe_phase(torch, card):
 
 PATH8_PROCESS = r"""
 import dataclasses, json, sys, time
-(root, fasta, fastq, out, coordinator, pid, flags, seed, chunk,
+(root, fasta, fastq, out, coordinator, pid, count, flags, seed, chunk,
  device) = sys.argv[1:]
 sys.path.insert(0, root)
+import torch
 from mapad_tpu_torch import cli
 from mapad_tpu_torch.index import load_index
 from mapad_tpu_torch.ops.engine import DeviceSearchEngine
@@ -1372,14 +1428,21 @@ args = cli.build_parser().parse_args(
     ["map", "-r", fastq, "-g", fasta, "-o", out, *json.loads(flags)])
 params = dataclasses.replace(cli.build_alignment_parameters(args),
                              chunk_size=int(chunk))
-engine = DeviceSearchEngine(load_index(fasta).fmd, params, lanes=args.lanes,
-                            packed_hits=True, device=device)
+fmd = load_index(fasta).fmd
+# no device named: the engine `run_multihost` makes when given none, made
+# here to read its stats
+engine = (DeviceSearchEngine(fmd, params, lanes=args.lanes, packed_hits=True,
+                             device=device) if device else
+          DeviceSearchEngine(fmd, params))
 run_multihost(fastq, fasta, out, True, params, engine=engine,
               position_seed=int(seed), cmdline="mapad map",
-              coordinator=coordinator, num_processes=2, process_id=int(pid))
+              coordinator=coordinator, num_processes=int(count),
+              process_id=int(pid))
 st = engine.stats()
-print(f"process {pid}: {st['device_lanes']} reads in {st['batches']} "
-      f"blocks, {time.perf_counter() - t:.2f} s from start to merge", flush=True)
+print(f"process {pid}: {torch.cuda.device_count()} visible cards, "
+      f"{engine.n_shards} shards, {st['device_lanes']} reads in "
+      f"{st['batches']} blocks, shard steps {st.get('shard_steps')}, "
+      f"{time.perf_counter() - t:.2f} s from start to merge", flush=True)
 """
 
 
@@ -1391,37 +1454,49 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def path8(cli, fasta, fastq, native_bam, seed, device="cuda:0"):
-    """Two processes on one machine run `run_multihost` over gloo on
-    localhost, each over its own chunk on cuda:0; process 0 merges.  The
-    merged BAM equals the native engine's BAM of the same chunks (the
-    position drawn for a read with several best hits is seeded by its
-    chunk's id and its place in the chunk, as in mapAD, so it depends on
-    the chunk size: path 1's native BAM, one chunk, differs there).  A
-    process that fails or hangs fails the smoke."""
-    native_chunks = os.path.join(WORK, f"native_{PATH8_CHUNK}.bam")
+def native_chunks(cli, fasta, fastq, seed=None):
+    """`map --engine native --batch_size PATH8_CHUNK` (with `--seed` where
+    given) of the workload -> its BAM: the yardstick of a run over the
+    same chunks (the position drawn for a read with several best hits is
+    seeded by the seed, its chunk's id and its place in the chunk)."""
+    bam = os.path.join(WORK, f"native_{PATH8_CHUNK}"
+                       f"{'' if seed is None else f'_seed{seed}'}.bam")
     t = time.perf_counter()
-    if cli.main(["--threads", "0", "map", "-r", fastq, "-g", fasta, "-o",
-                 native_chunks, "--force_overwrite", "--engine", "native",
+    if cli.main([*([] if seed is None else ["--seed", str(seed)]),
+                 "--threads", "0", "map", "-r", fastq, "-g", fasta, "-o",
+                 bam, "--force_overwrite", "--engine", "native",
                  "--batch_size", str(PATH8_CHUNK), *MAP_FLAGS]) != 0:
         raise SystemExit("native map failed")
-    a, b = bam_records(native_chunks)[1], bam_records(native_bam)[1]
-    log(f"path 8: map --engine native --batch_size {PATH8_CHUNK} "
-        f"{time.perf_counter() - t:.2f} s; {sum(x != y for x, y in zip(a, b))}"
-        f" records differ from the one-chunk native BAM (positions of reads "
-        f"with several best hits)")
-    out = os.path.join(WORK, "multihost.bam")
+    log(f"map{'' if seed is None else f' --seed {seed}'} --engine native "
+        f"--batch_size {PATH8_CHUNK}: {time.perf_counter() - t:.2f} s")
+    return bam
+
+
+def multihost(fasta, fastq, out, seed, what, device="", visible=None,
+              processes=2):
+    """`run_multihost` in `processes` processes (PATH8_PROCESS) over gloo on
+    localhost, each over its own chunks; process 0 merges into `out`.
+    `device`: the engine's card ("": none named, the engine run_multihost
+    makes by itself); `visible`: each process's CUDA_VISIBLE_DEVICES (None:
+    every card, MAPAD_SHARD=0).  A process that fails or hangs, or that
+    does not report as many shards as it sees cards (one without
+    `visible`), fails the smoke.  -> seconds from the processes' start to
+    the merged BAM."""
     coordinator = f"127.0.0.1:{free_port()}"
     env = dict(os.environ, MAPAD_SHARD="0")
+    envs = [env] * processes
+    if visible is not None:
+        env.pop("MAPAD_SHARD")
+        envs = [dict(env, CUDA_VISIBLE_DEVICES=v) for v in visible]
     t = time.perf_counter()
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", PATH8_PROCESS, ROOT, fasta, fastq, out,
-             coordinator, str(pid), json.dumps(MAP_FLAGS), str(seed),
-             str(PATH8_CHUNK), device],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+             coordinator, str(pid), str(processes), json.dumps(MAP_FLAGS),
+             str(seed), str(PATH8_CHUNK), device],
+            env=envs[pid], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         )
-        for pid in range(2)
+        for pid in range(processes)
     ]
     try:
         outs = [p.communicate(timeout=PATH8_TIMEOUT)[0].decode(
@@ -1432,16 +1507,45 @@ def path8(cli, fasta, fastq, native_bam, seed, device="cuda:0"):
             p.wait()
     for pid, (p, text) in enumerate(zip(procs, outs)):
         if p.returncode != 0:
-            raise AssertionError(f"path 8: process {pid} exited with "
+            raise AssertionError(f"{what}: process {pid} exited with "
                                  f"{p.returncode}:\n{text[-4000:]}")
+        # the layout: as many shards as the process sees cards (one where
+        # MAPAD_SHARD=0)
+        cards = None if visible is None else len(visible[pid].split(","))
+        shown = re.findall(rf"^process {pid}: (\d+) visible cards, (\d+) "
+                           "shards", text, re.M)
+        if (len(shown) != 1 or int(shown[0][1]) != (cards or 1)
+                or cards not in (None, int(shown[0][0]))):
+            raise AssertionError(
+                f"{what}: process {pid} ran {shown} (visible cards, shards), "
+                f"not {cards or 'any'} and {cards or 1}:\n{text[-4000:]}")
         for line in text.splitlines():
             if line.startswith("process "):
-                log(f"  {line}")
+                log(f"  {line}"
+                    + ("" if visible is None
+                       else f" (CUDA_VISIBLE_DEVICES={visible[pid]})"))
     secs = time.perf_counter() - t
-    log(f"path 8, run_multihost in 2 processes (gloo on localhost, "
-        f"{PATH8_CHUNK}-read chunks): {N_READS} reads in {secs:.2f} s = "
-        f"{N_READS / secs:.1f} reads/s, process start to merged BAM")
-    bam_compare(out, native_chunks, "path 8")
+    log(f"{what}, run_multihost in {processes} processes (gloo on "
+        f"localhost, {PATH8_CHUNK}-read chunks): {N_READS} reads in "
+        f"{secs:.2f} s = {N_READS / secs:.1f} reads/s, process start to "
+        f"merged BAM")
+    return secs
+
+
+def path8(cli, fasta, fastq, native_bam, seed, device="cuda:0"):
+    """Two processes on one machine run `run_multihost` over gloo on
+    localhost, each over its own chunk on cuda:0; process 0 merges.  The
+    merged BAM equals the native engine's BAM of the same chunks (the
+    position drawn for a read with several best hits depends on the chunk
+    size: path 1's native BAM, one chunk, differs there)."""
+    chunks = native_chunks(cli, fasta, fastq)
+    a, b = bam_records(chunks)[1], bam_records(native_bam)[1]
+    log(f"path 8: {sum(x != y for x, y in zip(a, b))} records differ from "
+        f"the one-chunk native BAM (positions of reads with several best "
+        f"hits)")
+    out = os.path.join(WORK, "multihost.bam")
+    secs = multihost(fasta, fastq, out, seed, "path 8", device=device)
+    bam_compare(out, chunks, "path 8")
     return secs
 
 
@@ -1486,83 +1590,97 @@ class _Lines:
             return "\n".join(self.lines[-n:])
 
 
-def path9(torch, cli, fasta, fastq, card, kernels):
-    """Distributed mode on the card: `map --dispatcher` in a subprocess
-    with two workers on cuda:0, the CLI's `worker` in a subprocess and a
-    `Worker` on a thread of this process (its launches counted), one
-    8,192-read chunk each.  The BAM equals `map --engine native` of the
-    same chunks with the dispatcher's position seed (0): the position
-    drawn for a read with several best hits is seeded by the seed, the
-    chunk's id and the read's place in it.  The dispatcher writes a chunk
-    as its result comes in, so the records are compared in name order.  A
-    process or thread that fails or hangs fails the smoke.  -> the
-    in-process worker's launch counts."""
-    from mapad_tpu_torch._build import LAUNCHES
+def dispatcher_run(what, fasta, fastq, native, out, workers, env,
+                   in_process=False):
+    """`map --dispatcher --batch_size PATH8_CHUNK` in a subprocess, a CLI
+    `worker` subprocess for each argument list in `workers` and, with
+    `in_process`, a `Worker` on a thread of this process once the first
+    CLI worker holds the first chunk; every subprocess under `env`.  A
+    process or thread that fails or hangs fails the smoke, and the BAM
+    `out` must equal `native` (`map --seed 0 --engine native` of the same
+    chunks: the position drawn for a read with several best hits is seeded
+    by the seed, the chunk's id and the read's place in it) in read-name
+    order (the dispatcher writes a chunk as its result comes in).  ->
+    (seconds from the dispatcher's start to its BAM, the in-process
+    `Worker` or None, each CLI worker's `_Lines`)."""
     from mapad_tpu_torch.distributed.worker import Worker
 
-    native = os.path.join(WORK, f"native_{PATH8_CHUNK}_seed0.bam")
-    t = time.perf_counter()
-    if cli.main(["--seed", "0", "--threads", "0", "map", "-r", fastq, "-g",
-                 fasta, "-o", native, "--force_overwrite", "--engine",
-                 "native", "--batch_size", str(PATH8_CHUNK),
-                 *MAP_FLAGS]) != 0:
-        raise SystemExit("native map failed")
-    log(f"path 9: map --seed 0 --engine native --batch_size {PATH8_CHUNK} "
-        f"{time.perf_counter() - t:.2f} s")
-    out = os.path.join(WORK, "distributed.bam")
     port = str(free_port())
     cmd = [sys.executable, "-m", "mapad_tpu_torch.cli", "--port", port]
-    env = dict(os.environ, MAPAD_SHARD="0")
-    procs, errors = [], []
+    procs, lines, errors = [], [], []
+    worker = thread = None
 
     def start(argv):
         procs.append(subprocess.Popen(
             cmd + argv, cwd=ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT))
-        return _Lines(procs[-1])
+        lines.append(_Lines(procs[-1]))
+        return lines[-1]
 
-    def serve(worker):
+    def serve():
         try:
             worker.run()
-        except Exception as e:  # noqa: BLE001 - fails the path below
+        except Exception as e:  # noqa: BLE001 - fails the run below
             errors.append(e)
 
-    LAUNCHES.reset()
-    torch.cuda.synchronize()
     t = time.perf_counter()
     try:
         dispatcher = start(["map", "--dispatcher", "--batch_size",
                             str(PATH8_CHUNK), "-r", fastq, "-g", fasta, "-o",
                             out, "--force_overwrite", *MAP_FLAGS])
         dispatcher.wait_for("Dispatcher listening", PATH9_TIMEOUT,
-                            "path 9 dispatcher")
-        cli_worker = start(["worker", "--host", "127.0.0.1"])
-        # the CLI worker holds the first chunk before this one connects
-        dispatcher.wait_for("Worker connected", PATH9_TIMEOUT,
-                            "path 9 dispatcher", other=cli_worker)
-        worker = Worker("127.0.0.1", int(port))
-        thread = threading.Thread(target=serve, args=(worker,), daemon=True)
-        thread.start()
-        for proc, lines, what in ((procs[0], dispatcher, "dispatcher"),
-                                  (procs[1], cli_worker, "CLI worker")):
+                            f"{what}: the dispatcher")
+        for argv in workers:
+            start(["worker", "--host", "127.0.0.1", *argv])
+        if in_process:
+            # the first CLI worker holds the first chunk before this one
+            # connects
+            dispatcher.wait_for("Worker connected", PATH9_TIMEOUT,
+                                f"{what}: the dispatcher", other=lines[1])
+            worker = Worker("127.0.0.1", int(port))
+            thread = threading.Thread(target=serve, daemon=True)
+            thread.start()
+        for k, (proc, text) in enumerate(zip(procs, lines)):
+            who = ("the dispatcher" if k == 0 else
+                   f"CLI worker {k} {' '.join(workers[k - 1])}".rstrip())
             try:
                 rc = proc.wait(timeout=PATH9_TIMEOUT)
             except subprocess.TimeoutExpired:
-                raise AssertionError(f"path 9: the {what} hangs:\n"
-                                     + lines.tail()) from None
+                raise AssertionError(f"{what}: {who} hangs:\n"
+                                     + text.tail()) from None
             if rc != 0:
-                raise AssertionError(f"path 9: the {what} exited with {rc}:"
-                                     f"\n{lines.tail()}")
-        thread.join(timeout=PATH9_TIMEOUT)
-        if thread.is_alive() or errors:
-            raise AssertionError(f"path 9: the in-process worker "
-                                 f"{'hangs' if not errors else errors[0]}")
+                raise AssertionError(f"{what}: {who} exited with {rc}:\n"
+                                     f"{text.tail()}")
+        if thread is not None:
+            thread.join(timeout=PATH9_TIMEOUT)
+            if thread.is_alive() or errors:
+                raise AssertionError(
+                    f"{what}: the in-process worker "
+                    f"{errors[0] if errors else 'hangs'}")
     finally:
         for proc in procs:
             proc.kill()
             proc.wait()
-    torch.cuda.synchronize()
     secs = time.perf_counter() - t
+    bam_compare(out, native, what, in_name_order=True)
+    return secs, worker, lines[1:]
+
+
+def path9(torch, cli, fasta, fastq, card, kernels):
+    """Distributed mode on the card (`dispatcher_run`): `map --dispatcher`
+    in a subprocess with two workers on cuda:0, the CLI's `worker` in a
+    subprocess and a `Worker` on a thread of this process (its launches
+    counted), one 8,192-read chunk each; the BAM equal to the native one
+    of the same chunks with the dispatcher's position seed (0).  -> the
+    in-process worker's launch counts."""
+    from mapad_tpu_torch._build import LAUNCHES
+
+    native = native_chunks(cli, fasta, fastq, seed=0)
+    LAUNCHES.reset()
+    torch.cuda.synchronize()
+    secs, worker, _ = dispatcher_run(
+        "path 9", fasta, fastq, native, os.path.join(WORK, "distributed.bam"),
+        [[]], dict(os.environ, MAPAD_SHARD="0"), in_process=True)
     counts = {k: LAUNCHES.get(k) for k in kernels}
     st = worker.engine.stats()
     log(f"path 9, map --dispatcher with a CLI worker and an in-process "
@@ -1583,7 +1701,6 @@ def path9(torch, cli, fasta, fastq, card, kernels):
         raise AssertionError(f"path 9: the in-process worker ran "
                              f"{st['batches']} blocks, not one chunk's")
     check_k2_launches(counts, "path 9")
-    bam_compare(out, native, "path 9", in_name_order=True)
     return counts
 
 
@@ -1678,6 +1795,8 @@ def stats_since(after, before):
         b = before.get(k)
         if isinstance(v, dict):
             out[k] = {c: n - (b or {}).get(c, 0) for c, n in v.items()}
+        elif isinstance(v, list):  # shard_steps
+            out[k] = [n - m for n, m in zip(v, b or [0] * len(v))]
         elif isinstance(v, (int, float)):
             out[k] = v - (b or 0)
     return out
@@ -2766,52 +2885,88 @@ def block_against_native(np, engine, recs, want, what):
     return dict(stats, secs=secs)
 
 
+def sync_cards(torch):
+    """Wait for every visible card."""
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+
+
+def reset_card_peaks(torch):
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def card_peaks_gb(torch):
+    """Each visible card's peak allocated GB since `reset_card_peaks`."""
+    return [torch.cuda.max_memory_allocated(d) / 1e9
+            for d in range(torch.cuda.device_count())]
+
+
+def mesh_run(torch, what, engine, index, params, args, fastq, fasta,
+             native_bam, card, kernels):
+    """`pipeline.run` of `fastq` with a pool `engine` (one card, or a
+    mesh), its BAM equal to `native_bam`.  A run makes no `shard_rebase`
+    launch: a shard's K5 makes its ids global (`pack_result_rebase` counts
+    those launches, one a shard and block).  Prints its reads/s, stage
+    seconds, launches, shard steps with their summed efficiency and each
+    card's peak memory.  -> (seconds, launch counts, the engine's stats,
+    each card's peak GB)."""
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.map import pipeline
+
+    bam = os.path.join(WORK, "sharded.bam")
+    before = engine.stats()  # the engine may have run blocks before
+    LAUNCHES.reset()
+    sync_cards(torch)
+    reset_card_peaks(torch)
+    t = time.perf_counter()
+    pipeline.run(fastq, fasta, bam, True, params, None, engine=engine,
+                 position_seed=args.seed, cmdline="mapad map",
+                 threads=os.cpu_count() or 1, index=index)
+    sync_cards(torch)
+    secs = time.perf_counter() - t
+    st = stats_since(engine.stats(), before)
+    peaks = card_peaks_gb(torch)
+    counts = {k: LAUNCHES.get(k) for k in kernels}
+    report_run(what, card, secs, st, counts)
+    check_k2_launches(counts, what)
+    counts.update((k, LAUNCHES.get(k))
+                  for k in ("shard_rebase", "pack_result_rebase"))
+    rebases = engine.n_shards * st["batches"] if engine.mesh else 0
+    log(f"  shard_rebase launches {counts['shard_rebase']}, K5's "
+        f"rebasing launches {counts['pack_result_rebase']} (one a shard "
+        f"and block: {rebases})")
+    if counts["shard_rebase"] or counts["pack_result_rebase"] != rebases:
+        raise AssertionError(
+            f"{what}: {counts['shard_rebase']} shard_rebase and "
+            f"{counts['pack_result_rebase']} rebasing K5 launches for "
+            f"{st['batches']} blocks")
+    if engine.mesh:
+        steps = st["shard_steps"]
+        log(f"  shards {engine.n_shards} on {engine.mesh}, "
+            f"block_reads {engine.block_reads}, shard steps {steps}, "
+            f"step efficiency {sum(steps) / (len(steps) * max(steps)):.4f}"
+            f" (sum / (D x max), summed over the run's blocks)")
+    log("  peak card memory, GB: " + ", ".join(
+        f"cuda:{d} {gb:.3f}" for d, gb in enumerate(peaks)))
+    bam_compare(bam, native_bam, what.split(",")[0])
+    return secs, counts, st, peaks
+
+
 def path7(torch, index, params, args, fastq, fasta, native_bam, card,
           kernels):
     """Path 1's workload through `pipeline.run` with one card's pool engine,
     then over two shards on cuda:0 (MAPAD_SHARD=1, `mesh`), and, on a
     machine with more than one card, over all of them with no `mesh` (the
-    automatic mesh); each BAM equal to path 1's native BAM.  A run makes
-    no `shard_rebase` launch: a shard's K5 makes its ids global
-    (`pack_result_rebase` counts those launches, one a shard and block).
+    automatic mesh); each BAM equal to path 1's native BAM (`mesh_run`).
     -> the launch counts of the two-shard run (`kernels`, shard_rebase and
     pack_result_rebase) and its shards' steps."""
-    from mapad_tpu_torch._build import LAUNCHES
-    from mapad_tpu_torch.map import pipeline
     from mapad_tpu_torch.ops.engine import DeviceSearchEngine
 
     def run(what, engine):
-        bam = os.path.join(WORK, "sharded.bam")
-        LAUNCHES.reset()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        pipeline.run(fastq, fasta, bam, True, params, None, engine=engine,
-                     position_seed=args.seed, cmdline="mapad map",
-                     threads=os.cpu_count() or 1, index=index)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t
-        st = engine.stats()
-        counts = {k: LAUNCHES.get(k) for k in kernels}
-        report_run(what, card, secs, st, counts)
-        check_k2_launches(counts, what)
-        counts.update((k, LAUNCHES.get(k))
-                      for k in ("shard_rebase", "pack_result_rebase"))
-        rebases = engine.n_shards * st["batches"] if engine.mesh else 0
-        log(f"  shard_rebase launches {counts['shard_rebase']}, K5's "
-            f"rebasing launches {counts['pack_result_rebase']} (one a shard "
-            f"and block: {rebases})")
-        if counts["shard_rebase"] or counts["pack_result_rebase"] != rebases:
-            raise AssertionError(
-                f"{what}: {counts['shard_rebase']} shard_rebase and "
-                f"{counts['pack_result_rebase']} rebasing K5 launches for "
-                f"{st['batches']} blocks")
-        if engine.mesh:
-            steps = st["shard_steps"]
-            log(f"  shards {engine.n_shards} on {engine.mesh}, "
-                f"block_reads {engine.block_reads}, shard steps {steps}, "
-                f"step efficiency {sum(steps) / (len(steps) * max(steps)):.4f}"
-                f" (sum / (D x max))")
-        bam_compare(bam, native_bam, what.split(",")[0])
+        secs, counts, st, _peaks = mesh_run(
+            torch, what, engine, index, params, args, fastq, fasta,
+            native_bam, card, kernels)
         return secs, counts, st.get("shard_steps")
 
     def pool_engine(**kw):
@@ -2987,9 +3142,11 @@ class CliMaps:
     write a BAM equal to the native one (XD aside)."""
 
     def __init__(self, torch, cli, what, fasta, fastq, work, text_len, big,
-                 card):
+                 card, force_big=False):
         self.torch, self.cli, self.what, self.work = torch, cli, what, work
         self.text_len, self.big, self.card = text_len, big, card
+        # below the size that selects big mode: the engines made big
+        self.force_big = force_big
         self.argv = ["--threads", "0", "map", "-r", fastq, "-g", fasta,
                      "--force_overwrite", *MAP_FLAGS]
         self.figures = {}
@@ -2998,21 +3155,25 @@ class CliMaps:
         return os.path.join(self.work, f"{key}.bam")
 
     def run(self, key, extra, env=None):
-        """`map ... extra` into KEY.bam with `env` set -> its figures:
-        seconds and reads/s; for a device engine also its mode, rows and
-        peak card memory, launches and the pipeline's stats."""
+        """`map ... extra` into KEY.bam with `env` set (None: unset) -> its
+        figures: seconds and reads/s; for a device engine also its mode,
+        shards, rows and each card's peak memory, launches and the
+        pipeline's stats."""
         from mapad_tpu_torch._build import LAUNCHES
         from mapad_tpu_torch.ops.engine import DeviceSearchEngine
 
         torch, env = self.torch, env or {}
         what = (f"{self.what}, map {' '.join(extra) or '(hybrid)'}"
-                + "".join(f" {k}={v}" for k, v in env.items()))
+                + "".join(f" {k}={'(unset)' if v is None else v}"
+                          for k, v in env.items()))
         made, init = [], DeviceSearchEngine.__init__
 
         def recording_init(engine, *a, **kw):
             if kw.get("big") is not None:
                 raise AssertionError(f"{what} must leave `big` to the "
                                      "engine")
+            if self.force_big:
+                kw["big"] = True
             init(engine, *a, **kw)
             made.append(engine)
 
@@ -3020,8 +3181,8 @@ class CliMaps:
         logger = logging.getLogger("mapad_tpu_torch.map.pipeline")
         logger.addHandler(tap)
         LAUNCHES.reset()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        sync_cards(torch)
+        reset_card_peaks(torch)
         DeviceSearchEngine.__init__ = recording_init
         t = time.perf_counter()
         try:
@@ -3032,7 +3193,7 @@ class CliMaps:
         finally:
             DeviceSearchEngine.__init__ = init
             logger.removeHandler(tap)
-        torch.cuda.synchronize()
+        sync_cards(torch)
         secs = time.perf_counter() - t
         e = self.figures[key] = dict(seconds=secs,
                                      reads_per_s=N_READS / secs)
@@ -3044,13 +3205,16 @@ class CliMaps:
             return e
         if len(made) != 1:
             raise AssertionError(f"{what}: {len(made)} device engines")
-        idx = made.pop().device_index
+        engine = made.pop()
+        idx = engine.device_index
         if idx.big != self.big or idx.text_len != self.text_len:
             raise AssertionError(f"{what}: big mode {idx.big} on a text of "
                                  f"{idx.text_len:,}")
-        e.update(big=idx.big, rows_gb=nbytes(idx.rows) / 1e9,
-                 peak_card_gb=torch.cuda.max_memory_allocated() / 1e9)
-        del idx
+        peaks = card_peaks_gb(torch)
+        e.update(big=idx.big, shards=engine.n_shards,
+                 rows_gb=nbytes(idx.rows) / 1e9, peak_card_gb=peaks[0],
+                 peak_cards_gb=peaks)
+        del idx, engine
         mine, other = ((KERNELS_I64, KERNELS_I32 + ["bi_d"]) if self.big
                        else (KERNELS_I32, KERNELS_I64))
         counts = {k: LAUNCHES.get(k) for k in mine + other}
@@ -3062,10 +3226,17 @@ class CliMaps:
                                  f"launched: { {k: counts[k] for k in other} }")
         e.update(launches={k: counts[k] for k in mine},
                  stats=tier_stats(tap.stats))
-        log(f"  {'big' if e['big'] else 'int32'} mode chosen by the engine "
-            f"(text {self.text_len:,} symbols); rows {e['rows_gb']:.3f} GB "
-            f"on the card, peak card memory {e['peak_card_gb']:.3f} GB; "
-            f"{self.card}")
+        log(f"  {'big' if e['big'] else 'int32'} mode "
+            f"{'forced' if self.force_big else 'chosen by the engine'} "
+            f"(text {self.text_len:,} symbols), {e['shards']} shards; rows "
+            f"{e['rows_gb']:.3f} GB on a card, peak card memory "
+            + ", ".join(f"cuda:{d} {gb:.3f}" for d, gb in enumerate(peaks))
+            + f" GB; {self.card}")
+        if e["shards"] > 1:
+            steps = e["shard_steps"] = tap.stats["shard_steps"]
+            log(f"  shard steps {steps}, step efficiency "
+                f"{sum(steps) / (len(steps) * max(steps)):.4f} (sum / (D x "
+                f"max), summed over the run's blocks)")
         bam_compare(self.bam(key), self.bam("native"), what)
         return e
 
@@ -3192,11 +3363,10 @@ def big_text_alone(torch, np, cli, load_index, params, card, t_start, size):
 # --- the GRCh37-shaped assembly: path 12 and the default smoke's small run
 
 
-def assembly_workload(scale, work, card):
+def assembly_make(scale, work):
     """tools/assembly.py's assembly at `scale` and N_READS of its reads
-    under `work`, its index by the CLI (`cli_index`) -> dict: layout,
-    bases, reads, kinds, fasta, fastq, the index's seconds and host peak
-    (None: reused)."""
+    under `work` -> dict: layout, bases, reads, kinds, fasta, fastq and the
+    seconds they took."""
     from mapad_tpu_torch.tools import assembly
 
     t = time.perf_counter()
@@ -3213,10 +3383,17 @@ def assembly_workload(scale, work, card):
         f"{ {k: int((kinds == k).sum()) for k in ('long', 'short', 'join')} }"
         f", {sum(b'N' in r for r, _q in reads)} carrying N) in "
         f"{made_s:.1f} s")
-    index_s, peak = cli_index(fasta, lay.text_len, work, "assembly", card)
     return dict(lay=lay, bases=bases, reads=reads, kinds=kinds, fasta=fasta,
-                fastq=fastq, made_s=made_s, index_s=index_s,
-                index_peak_gib=peak)
+                fastq=fastq, made_s=made_s)
+
+
+def assembly_workload(scale, work, card):
+    """`assembly_make`, then its index by the CLI (`cli_index`) -> its dict
+    with the index's seconds and host peak (None: reused)."""
+    w = assembly_make(scale, work)
+    w["index_s"], w["index_peak_gib"] = cli_index(
+        w["fasta"], w["lay"].text_len, work, "assembly", card)
+    return w
 
 
 def bam_references(path):
@@ -3597,11 +3774,302 @@ def assembly_alone(torch, cli, load_index, params, card, t_start, scale):
     return 0
 
 
+# --- path 13 (`--cards [SCALE]`): one node of several cards ----------------
+
+CARDS_READS = 65_536  # bench.py's whole workload: every layout fills blocks
+
+
+def run_figures(secs, stats, peaks):
+    """A run's figures for path 13's summary line."""
+    steps = stats.get("shard_steps")
+    return dict(seconds=secs, reads_per_s=N_READS / secs,
+                shard_steps=steps,
+                step_efficiency=(sum(steps) / (len(steps) * max(steps))
+                                 if steps else None),
+                peak_cards_gb=peaks,
+                **{k: stats[k] for k in ("batches", "escalated", "oracle",
+                                         "prep_s", "device_s", "wait_s",
+                                         "decode_s", "fb_secs")})
+
+
+def cards_workload(np, cli, load_index):
+    """Path 1's workload at N_READS (CARDS_READS) and its index -> (fasta,
+    fastq, reads, index, text length)."""
+    fasta, fastq, reads = write_workload(np, GENOME_SIZE, 42, "")
+    if cli.main(["index", "-g", fasta]) != 0:
+        raise SystemExit("index failed")
+    with open(os.path.join(f"{fasta}.tpx", "meta.json")) as f:
+        text_len = json.load(f)["text_len"]
+    return fasta, fastq, reads, load_index(fasta), text_len
+
+
+def cards_scaling(torch, cli, params, args, card, n, fasta, fastq, reads,
+                  index, text_len):
+    """Path 13 (a): path 1's workload through `pipeline.run` with the pool
+    engine on one card (`device="cuda:0"`: a named card is that card
+    alone), over `make_mesh(2)` and over the automatic mesh of every card
+    (no device named, MAPAD_SHARD unset), in turns (one, two, every card,
+    then back), each turn's engine made anew and warmed by a block, then
+    `map` through the CLI with no `--engine` (the hybrid over the automatic
+    mesh); every BAM equal to `map --engine native`'s.  -> figures."""
+    from mapad_tpu_torch.map.record import Record
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.parallel.sharding import make_mesh
+
+    work = os.path.join(WORK, "cards")
+    os.makedirs(work, exist_ok=True)
+    maps = CliMaps(torch, cli, "path 13 (a)", fasta, fastq, work, text_len,
+                   False, card)
+    maps.run("native", ["--engine", "native"])
+    figs = {"native": maps.figures["native"]}
+    layouts = (("one card", dict(device="cuda:0")),
+               ("2 cards", dict(mesh=make_mesh(2))),
+               (f"{n} cards, the automatic mesh", {}))
+    recs = [Record(sequence=s, base_qualities=q) for s, q in reads]
+    runs = {name: [] for name, _ in layouts}
+    order = [*range(len(layouts)), *reversed(range(len(layouts)))]
+    for turn, k in enumerate(order):
+        name, kw = layouts[k]
+        with _Env(MAPAD_SHARD=None):
+            engine = DeviceSearchEngine(index.fmd, params, lanes=args.lanes,
+                                        packed_hits=True, **kw)
+            # one block first, so that no run pays the first use of a card
+            # or of the engine (its LUT tables, plans, threads)
+            engine.warm(recs[: engine.block_reads])
+        want = None if "device" in kw else make_mesh(2 if kw else None)
+        if engine.mesh != want:
+            raise AssertionError(f"path 13 (a), {name}: {engine.n_shards} "
+                                 f"shards on {engine.mesh}")
+        secs, _counts, st, peaks = mesh_run(
+            torch, f"path 13 (a), pipeline.run on {name} (turn {turn + 1} "
+            f"of {len(order)})", engine, index, params, args, fastq, fasta,
+            maps.bam("native"), card, KERNELS_I32)
+        runs[name].append(run_figures(secs, st, peaks))
+        if engine.mesh:
+            engine._shards.shutdown()
+        del engine
+    for name, got in runs.items():
+        rates = [g["reads_per_s"] for g in got]
+        figs[name] = dict(got[0], turns_reads_per_s=rates,
+                          reads_per_s=median(rates))
+    e = maps.run("hybrid", [], env=dict(MAPAD_SHARD=None))
+    if e["shards"] != n:
+        raise AssertionError(f"path 13 (a): the CLI's hybrid engine took "
+                             f"{e['shards']} shards of {n} cards")
+    figs["map (hybrid), the automatic mesh"] = e
+    one = figs["one card"]["reads_per_s"]
+
+    def rate(name, v):
+        turns = v.get("turns_reads_per_s")
+        return (f"{name} {v['reads_per_s']:.1f} ({v['reads_per_s'] / one:.2f}"
+                "x one card"
+                + (f"; turns {', '.join(f'{x:.1f}' for x in turns)}"
+                   if turns else "") + ")")
+
+    log("path 13 (a), reads/s (the median of a layout's turns): "
+        + "; ".join(rate(k, v) for k, v in figs.items()) + f"; {card}")
+    return figs
+
+
+def cards_k9(torch, index, params, args, reads, n):
+    """Path 13 (b): K9's API (`pool_search_sharded`) on the shard threads of
+    an engine over distinct cards, int64 then int32, over two cards and
+    over every card (the automatic mesh): one full block of the engine's
+    (D x 8,192 reads; D x 4,096 in big mode) against its shards run one
+    after the other, each on its card, with the block's step efficiency
+    from its PoolResult's steps.  Over every card, the int64 block is also
+    held bit for bit against `pool_search_sharded_plain`; the int32 one
+    against it at n x K9_READS reads (the plain loop takes ~6.6 ms a
+    shard's step: the int32 block's 4 x 8,192 steps would add ~3.6
+    minutes)."""
+    from mapad_tpu_torch.map.record import Record
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.parallel.sharding import make_mesh
+
+    recs = [Record(sequence=s, base_qualities=q) for s, q in reads]
+    out = {}
+    for big in (True, False):
+        for D in sorted({2, n}):
+            with _Env(MAPAD_SHARD=None):
+                engine = DeviceSearchEngine(
+                    index.fmd, params, lanes=args.lanes, packed_hits=True,
+                    big=big, **({} if D == n else dict(mesh=make_mesh(D))))
+            if engine.mesh != make_mesh(D):
+                raise AssertionError(f"path 13 (b): {engine.n_shards} shards "
+                                     f"on {engine.mesh}")
+            got = {}
+            got["block"], _ = k9_run(torch, engine,
+                                     recs[: engine.block_reads],
+                                     plain=D == n and big)
+            if D == n and not big:
+                got["plain_check"], _ = k9_run(
+                    torch, engine, recs[: n * K9_READS], plain=True)
+            out[f"{'int64' if big else 'int32'}, {D} cards"] = got
+            engine._shards.shutdown()
+            del engine
+    return out
+
+
+def worker_layout(lines, device):
+    """The line a CLI worker logs on making its engine, where the engine is
+    on `device` alone -> whether `lines` (its `_Lines`) hold it."""
+    return f"Search engine on {device}, 1 shard(s)" in lines.tail(10**4)
+
+
+def dispatcher_per_card(cli, fasta, fastq, card, n):
+    """`dispatcher_run` with a CLI `worker --device cuda:i` for every card i
+    (MAPAD_SHARD unset): each worker must log its engine on its named card
+    alone.  -> seconds from the dispatcher's start to its BAM."""
+    native = native_chunks(cli, fasta, fastq, seed=0)
+    env = dict(os.environ)
+    env.pop("MAPAD_SHARD", None)
+    what = f"path 13 (d), map --dispatcher with a worker on each of {n} cards"
+    secs, _, workers = dispatcher_run(
+        what, fasta, fastq, native, os.path.join(WORK, "distributed_cards.bam"),
+        [["--device", f"cuda:{i}"] for i in range(n)], env)
+    for i, lines in enumerate(workers):
+        if not worker_layout(lines, f"cuda:{i}"):
+            raise AssertionError(f"{what}: worker --device cuda:{i} logged no "
+                                 f"engine on cuda:{i} alone:\n{lines.tail()}")
+    log(f"{what} ({PATH8_CHUNK}-read chunks): {N_READS} reads in "
+        f"{secs:.2f} s = {N_READS / secs:.1f} reads/s, dispatcher start to "
+        f"BAM, on {card}; each worker's engine on its card alone")
+    return secs
+
+
+def cards_processes(cli, fasta, fastq, seed, card, n):
+    """Path 13 (d): path 1's workload in PATH8_CHUNK-read chunks through
+    `run_multihost` with a process per card (CUDA_VISIBLE_DEVICES=i), then
+    with a process per pair of cards, each taking its own automatic mesh
+    (four cards or more), then `map --dispatcher` with a worker per card;
+    each BAM equal to `map --engine native` of the same chunks, in
+    read-name order."""
+    chunks = native_chunks(cli, fasta, fastq)
+    out = os.path.join(WORK, "multihost_cards.bam")
+    figs = {}
+    layouts = [("a process per card", [str(i) for i in range(n)])]
+    if n >= 4:
+        layouts.append(("a process per pair of cards",
+                        [f"{2 * i},{2 * i + 1}" for i in range(n // 2)]))
+    else:
+        log(f"path 13 (d): a process per pair of cards needs four cards; "
+            f"skipped on {n}")
+    for name, visible in layouts:
+        what = f"path 13 (d), {name}"
+        secs = multihost(fasta, fastq, out, seed, what, visible=visible,
+                         processes=len(visible))
+        bam_compare(out, chunks, what, in_name_order=True)
+        figs[name] = dict(processes=len(visible), seconds=secs,
+                          reads_per_s=N_READS / secs)
+    secs = dispatcher_per_card(cli, fasta, fastq, card, n)
+    figs["a worker per card"] = dict(workers=n, seconds=secs,
+                                     reads_per_s=N_READS / secs)
+    return figs
+
+
+def cards_assembly(torch, cli, w, card, n):
+    """Path 13 (c): the assembly through `map --engine native`, then `map
+    --engine device` and `map` (the hybrid) over the automatic mesh of
+    every card, in big mode (chosen by the engine past 2^31, else forced);
+    each BAM equal to the native one and held to the assembly's
+    invariants, each card's peak memory above its replica of the rows."""
+    text_len = w["lay"].text_len
+    want_big = text_len >= BIG_TEXT_MIN
+    maps = CliMaps(torch, cli, "path 13 (c)", w["fasta"], w["fastq"],
+                   os.path.dirname(w["fasta"]), text_len, True, card,
+                   force_big=not want_big)
+    maps.run("native", ["--engine", "native"])
+    records = {"native": assembly_invariants(
+        w, maps.bam("native"), "path 13 (c), native", text_len > 2**31)}
+    for key, extra in (("device", ["--engine", "device"]), ("hybrid", [])):
+        what = f"path 13 (c), {key}"
+        e = maps.run(key, extra, env=dict(MAPAD_SHARD=None))
+        if e["shards"] != n:
+            raise AssertionError(f"{what}: {e['shards']} shards of {n} "
+                                 "cards")
+        low = [d for d, gb in enumerate(e["peak_cards_gb"][:n])
+               if gb < e["rows_gb"]]
+        if low:
+            raise AssertionError(f"{what}: cards {low} peaked below their "
+                                 f"replica of the rows ({e['rows_gb']:.3f} "
+                                 "GB)")
+        records[key] = bam_invariants(w["lay"], w["bases"], maps.bam(key),
+                                      what)
+        st = e["stats"]
+        log(f"{what}: {records[key]['past_2_31']} records past text position "
+            f"2^31; deep tier: {st['deep_retried']} reads retried, "
+            f"{st['nohit_host']} no-hit reads to the host, {st['oracle']} "
+            f"host searches")
+    return dict(big_chosen=want_big, engines=maps.figures, records=records)
+
+
+def cards_alone(torch, np, cli, load_index, params, args, t_start, scale,
+                phases):
+    """`--cards [SCALE] [--phases LETTERS]`: path 13, one node of several
+    cards (two or more; main refuses fewer before any work), the phases
+    named in `phases` (all by default): (a) path 1's workload at
+    CARDS_READS reads on one card, two and all (`cards_scaling`); (b) K9's
+    API over every card in both widths (`cards_k9`); (d) a process per
+    card, per pair of cards and a worker per card (`cards_processes`);
+    then (c) the assembly at SCALE over the automatic mesh
+    (`cards_assembly`), its index built after (a), (b) and (d), which
+    measure the host's work and so run on a quiet host."""
+    from mapad_tpu_torch import tools
+
+    global N_READS
+    N_READS = CARDS_READS
+    n = torch.cuda.device_count()
+    lines = tools.cards()
+    for i, line in enumerate(lines):
+        log(f"cuda:{i}: {line}")
+    card = (f"{n} x {lines[0]}" if len(set(lines)) == 1
+            else "; ".join(lines))
+    summary = dict(cards=lines, reads=N_READS, scale=scale, phases=phases)
+    if set(phases) & set("abd"):
+        fasta, fastq, reads, index, text_len = cards_workload(np, cli,
+                                                              load_index)
+    if "a" in phases:
+        summary["scaling"] = cards_scaling(torch, cli, params, args, card, n,
+                                           fasta, fastq, reads, index,
+                                           text_len)
+    if "b" in phases:
+        summary["k9"] = cards_k9(torch, index, params, args, reads, n)
+    if "d" in phases:
+        summary["processes"] = cards_processes(cli, fasta, fastq, args.seed,
+                                               card, n)
+    if "c" in phases:
+        work = os.path.join(WORK, "assembly")
+        w = assembly_make(scale, work)
+        summary["index_s"], summary["index_peak_gib"] = cli_index(
+            w["fasta"], w["lay"].text_len, work, "path 13 (c)", card)
+        summary["assembly"] = cards_assembly(torch, cli, w, card, n)
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    for line in lines:
+        log(line)
+    print(json.dumps({"cards": summary}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": n}}), flush=True)
+    return 0
+
+
+def scale_arg(flag, default):
+    """The number after `flag` on the command line, else `default`."""
+    at = sys.argv.index(flag) + 1
+    if at < len(sys.argv) and not sys.argv[at].startswith("--"):
+        return float(sys.argv[at])
+    return default
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if "--cards" in sys.argv[1:] and torch.cuda.device_count() < 2:
+        print(f"chip_smoke --cards: needs two cards or more, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -3661,12 +4129,14 @@ def main() -> int:
                               t_start, size)
 
     if "--assembly" in sys.argv[1:]:
-        at = sys.argv.index("--assembly") + 1
-        scale = ASSEMBLY_SCALE
-        if at < len(sys.argv) and not sys.argv[at].startswith("--"):
-            scale = float(sys.argv[at])
         return assembly_alone(torch, cli, load_index, params, card, t_start,
-                              scale)
+                              scale_arg("--assembly", ASSEMBLY_SCALE))
+
+    if "--cards" in sys.argv[1:]:
+        phases = (sys.argv[sys.argv.index("--phases") + 1]
+                  if "--phases" in sys.argv[1:] else "abcd")
+        return cards_alone(torch, np, cli, load_index, params, args, t_start,
+                           scale_arg("--cards", ASSEMBLY_SCALE), phases)
 
     if "--knobs" in sys.argv[1:]:
         return knobs_alone(torch, np, cli, load_index, params, args, card,

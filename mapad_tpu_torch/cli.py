@@ -121,7 +121,9 @@ def build_parser() -> argparse.ArgumentParser:
                        help="Device batch width (reads per device step)")
     p_map.add_argument("--device", default="cuda",
                        help="torch device of the hybrid and device engines: "
-                            "cuda[:N], or cpu to run the plain PyTorch "
+                            "cuda (every visible card, sharded, where "
+                            "there are several), cuda:N (that card "
+                            "alone), or cpu to run the plain PyTorch "
                             "versions of the kernels")
     p_map.add_argument("--profile", metavar="DIR", default=None,
                        help="Write a torch.profiler trace of the mapping "
@@ -132,8 +134,10 @@ def build_parser() -> argparse.ArgumentParser:
                           help="Hostname or IP address of the dispatcher node")
     p_worker.add_argument("--device", default="cuda",
                           help="torch device of the worker's engine: "
-                               "cuda[:N], or cpu to run the plain PyTorch "
-                               "versions of the kernels")
+                               "cuda (every visible card, sharded, where "
+                               "there are several), cuda:N (that card "
+                               "alone: a worker per card), or cpu to run "
+                               "the plain PyTorch versions of the kernels")
     p_worker.add_argument("--lanes", type=int, default=2048,
                           help="Device batch width (reads per device step)")
 

@@ -46,8 +46,12 @@ class Worker:
             return self._engine_factory(self.fmd, self.parameters)
         from ..ops.engine import DeviceSearchEngine
 
-        return DeviceSearchEngine(self.fmd, self.parameters,
-                                  lanes=self.lanes, device=self.device)
+        engine = DeviceSearchEngine(self.fmd, self.parameters,
+                                    lanes=self.lanes, device=self.device)
+        logger.info("Search engine on %s, %d shard(s)",
+                    ", ".join(map(str, engine.mesh or [engine.device])),
+                    engine.n_shards)
+        return engine
 
     def run(self):
         sock = socket.create_connection((self.host, self.port))

@@ -73,10 +73,11 @@ id rebase, its own copy) over R/D reads, without waiting for the others
 shards' results, collects them shard by shard and un-deals them to input
 order, the reads the prep neutralized included.  As in mapad_tpu the mesh
 is every visible card when more than one is visible and MAPAD_SHARD is
-unset on the card or set to 1; the `mesh` keyword (a list of devices, one
-per shard, a device possibly named several times) replaces the visible
-cards under the same rule.  The blocks of the retry and deep tiers are
-sharded too.
+unset on the card or set to 1, unless `device` names one card (`cuda:i`:
+that card alone, the layout of a worker or a process per card); the
+`mesh` keyword (a list of devices, one per shard, a device possibly named
+several times) replaces the visible cards under the same rule.  The
+blocks of the retry and deep tiers are sharded too.
 """
 
 from __future__ import annotations
@@ -105,7 +106,7 @@ from ..parallel.pool_sharded import (
     _shard_rebase_plain,
     round_robin_permutation,
 )
-from ..parallel.sharding import canonical, make_mesh, replicate
+from ..parallel.sharding import automatic_mesh, canonical, replicate
 from ..utils.seq import BASE_TO_CODE, CODE_TO_BASE
 from .fm import DeviceFmIndex, resolve_device
 from .prep import (
@@ -784,7 +785,7 @@ class DeviceSearchEngine:
         # the mesh of pool mode, as in mapad_tpu: on by default on the card
         # (MAPAD_SHARD unset), opt-in elsewhere (MAPAD_SHARD=1), and only
         # over more than one device: every visible card unless `mesh`
-        # names the shards' devices
+        # names the shards' devices or `device` one card
         self.mesh = None
         self.n_shards = 1
         shard_env = os.environ.get("MAPAD_SHARD")
@@ -792,9 +793,8 @@ class DeviceSearchEngine:
             shard_env is None and self.device.type == "cuda"
         )
         if mode == "pool" and want_shard:
-            if (mesh is None and self.device.type == "cuda"
-                    and torch.cuda.device_count() > 1):
-                mesh = make_mesh()
+            if mesh is None:
+                mesh = automatic_mesh(self.device)
             if mesh is not None and len(mesh) > 1:
                 self.mesh = [canonical(d) for d in mesh]
                 self.n_shards = len(self.mesh)

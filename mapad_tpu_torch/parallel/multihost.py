@@ -15,6 +15,14 @@ call, one process per host:
 
 or, with no coordinator, the `env://` variables of `torch.distributed`
 (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK), as a launcher sets them.
+
+On a node of several cards the launcher chooses the layout; nothing here
+does.  A process that sees every card and is given no engine takes the
+engine's automatic mesh over all of them (one process per host, as in
+mapad_tpu).  One process per card is made by giving each process one
+visible card (CUDA_VISIBLE_DEVICES=i, the usual launcher layout), or by
+passing an engine built with `device="cuda:i"`; a process that sees two
+cards takes its own mesh over the pair.
 """
 
 from __future__ import annotations
@@ -77,8 +85,12 @@ def run_multihost(
     num_processes: int | None = None,
     process_id: int | None = None,
 ):
-    """Each host maps chunk_id % nprocs == pid; host 0 merges shard BAMs.
-    `engine` defaults to a `DeviceSearchEngine` on this host's card(s)."""
+    """Each process maps chunk_id % nprocs == pid; process 0 merges the
+    shard BAMs.  `engine` defaults to `DeviceSearchEngine(index.fmd,
+    alignment_parameters)`: with several visible cards its automatic mesh
+    over all of them.  For a process per card, launch each with one
+    visible card (CUDA_VISIBLE_DEVICES) or pass an engine built with
+    `device="cuda:i"`."""
     import torch.distributed as dist
 
     pid, count = initialize(coordinator, num_processes, process_id)

@@ -29,6 +29,18 @@ def make_mesh(n_devices: int | None = None) -> list:
     return [torch.device("cuda", i) for i in range(n)]
 
 
+def automatic_mesh(device) -> list | None:
+    """The mesh an engine on `device` takes by itself: every visible card
+    where the device names none in particular (`cuda` alone, the default)
+    and more than one is visible; else None.  A named card (`cuda:i`) is
+    that card alone: the layout of a process or a worker per card."""
+    device = torch.device(device)
+    if (device.type == "cuda" and device.index is None
+            and torch.cuda.device_count() > 1):
+        return make_mesh()
+    return None
+
+
 def canonical(dev) -> torch.device:
     """`dev` with its index resolved (`cuda` alone is the current card), so
     that devices compare equal when they name the same card."""

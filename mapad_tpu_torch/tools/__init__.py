@@ -46,13 +46,19 @@ import os
 import subprocess
 
 
-def card() -> str:
-    """The card as `nvidia-smi --query-gpu=name,power.limit` gives it."""
+def cards() -> list:
+    """Every card as `nvidia-smi --query-gpu=name,power.limit` gives it."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+    ).stdout.strip().splitlines()
+
+
+def card() -> str:
+    """The first card as `nvidia-smi --query-gpu=name,power.limit` gives
+    it."""
+    return cards()[0]
 
 
 def apply_edits(src: str, edits, what: str) -> str:

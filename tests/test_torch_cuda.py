@@ -1668,6 +1668,76 @@ def test_pool_search_sharded_over_distinct_cards(fmd, cuda, monkeypatch):
     assert all(packed_equal(a, b) for a, b in zip(hits_g, hits_c))
 
 
+def test_big_mode_engine_over_distinct_cards(cuda, tmp_path, monkeypatch):
+    """Where the machine has several cards: the engine's automatic mesh
+    (MAPAD_SHARD unset) in big mode on the assembly's rows at 1/2000 (X in
+    them; edge reads and reads carrying N), the deep tier on and a starved
+    step budget, so that every shard runs K6, K7, K2, K3 and K5 with its
+    rebase on its own card, in the primary blocks and the deep tier's,
+    against the same mesh of CPU devices on the plain versions: the same
+    hits, escalated reads, tier counts and shard steps."""
+    from concurrent.futures import Future
+
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.ops.search_pool import PoolConfig
+    from mapad_tpu_torch.parallel import sharding as tsh
+    from torch_port_helpers import packed_equal
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs more than one card")
+    for name in ("MAPAD_DEEP_TIER", "MAPAD_HOST_BID", "MAPAD_DEEP_LANES",
+                 "MAPAD_DEEP_NOHIT_HOST", "MAPAD_RETRY_TIER",
+                 "MAPAD_BLOCK_READS"):
+        monkeypatch.delenv(name, raising=False)
+    index, seqs = _assembly_index_and_reads(tmp_path, 128)
+    cfg = PoolConfig(lanes=16, total_steps=128, read_step_cap=128,
+                     max_chains=256)
+    reads = records("mapad_tpu_torch", seqs)
+    outs = []
+    for dev, mesh, shard in ((None, None, None),
+                             ("cpu", [torch.device("cpu")] * n, "1")):
+        if shard is None:
+            monkeypatch.delenv("MAPAD_SHARD")
+        else:
+            monkeypatch.setenv("MAPAD_SHARD", shard)
+        eng = DeviceSearchEngine(index, adna_params("mapad_tpu_torch"),
+                                 pool_config=cfg, packed_hits=True,
+                                 device=dev, mesh=mesh, big=True)
+        assert eng.device_index.big and eng.deep_tier_enabled()
+        assert eng.n_shards == n
+        eng.block_reads = 16 * n
+        LAUNCHES.reset()
+        res = eng.search_chunk(reads, lazy_fallback=True)
+        torch.cuda.synchronize()
+        outs.append((eng, {i for i, r in enumerate(res)
+                           if isinstance(r, Future)},
+                     [(r.result() if isinstance(r, Future) else r)[0]
+                      for r in res],
+                     {k: eng._stats.get(k, 0) for k in (
+                         "deep_retried", "nohit_host", "oracle", "batches",
+                         "escalated")},
+                     {k: LAUNCHES.get(k) for k in (
+                         "unpack_prep_full", "bi_d_i64", "pool_search_i64",
+                         "extract_chains_i64", "pack_result_rebase",
+                         "shard_rebase", "pool_search", "bi_d")}))
+    (eng_g, esc_g, hits_g, tiers_g, k_g), (eng_c, esc_c, hits_c, tiers_c,
+                                           _) = outs
+    assert eng_g.mesh == tsh.make_mesh()
+    assert esc_g == esc_c and tiers_g == tiers_c
+    assert eng_g._stats["shard_steps"] == eng_c._stats["shard_steps"]
+    assert all(packed_equal(a, b) for a, b in zip(hits_g, hits_c))
+    assert tiers_g["deep_retried"] > 0, tiers_g
+    # every block on every card: K6, K7 and K5's rebase a shard and block
+    blocks = k_g["pack_result_rebase"] // n
+    assert k_g["pack_result_rebase"] == n * blocks and blocks >= 2, k_g
+    for name in ("unpack_prep_full", "bi_d_i64", "extract_chains_i64"):
+        assert k_g[name] == n * blocks, (name, k_g)
+    assert k_g["shard_rebase"] == k_g["pool_search"] == k_g["bi_d"] == 0
+    assert sum(len(h) > 0 for h in hits_g) > len(reads) // 4
+
+
 # --- the ports of the TPU's DMA probes (P1-P4, mapad_tpu_torch/tools/) ------
 
 

@@ -53,6 +53,31 @@ print("process done", pid)
 """
 
 
+# one process of the four-process run: the port's device engine on the CPU
+# (the plain versions of the kernels) at a small pool shape
+DEVICE_PROCESS = r"""
+import sys
+repo, ref_path, reads, out, coordinator, pid, count = sys.argv[1:8]
+sys.path.insert(0, repo)
+sys.path.insert(0, repo + "/tests")
+from torch_port_helpers import dryrun_params
+from mapad_tpu_torch.index import load_index
+from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+from mapad_tpu_torch.ops.search_pool import PoolConfig
+from mapad_tpu_torch.parallel.multihost import run_multihost
+
+params = dryrun_params("mapad_tpu_torch", chunk_size=5)
+engine = DeviceSearchEngine(load_index(ref_path).fmd, params, device="cpu",
+                            packed_hits=True, pool_config=PoolConfig(
+                                lanes=8, total_steps=1024,
+                                read_step_cap=512, max_chains=512))
+run_multihost(reads, ref_path, out, True, params, engine=engine,
+              coordinator=coordinator, num_processes=int(count),
+              process_id=int(pid))
+print("process done", pid, engine.stats()["batches"])
+"""
+
+
 def test_sharded_task_queue():
     records = list(range(25))
     seen = {}
@@ -156,4 +181,69 @@ def test_two_process_multihost_equals_single(tmp_path):
     assert not os.path.exists(merged + ".shard1")
     # each host wrote its own chunks: the merge keeps host 0's first
     order = [int(r[0][1:]) // 5 % 2 for r in recs]
+    assert order == sorted(order)
+
+
+def test_four_process_multihost_with_the_device_engine(tmp_path):
+    """`run_multihost` in four processes, each with the port's pool engine
+    on the CPU, over five chunks of five reads (process 0 maps two, the
+    others one): the merged BAM equals the port's single-process BAM with
+    the same engine and mapad_tpu's single-process BAM of the same chunks
+    (XD aside)."""
+    from mapad_tpu.map import pipeline as j_pipeline
+    from mapad_tpu_torch.index import load_index
+    from mapad_tpu_torch.map import pipeline as t_pipeline
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.ops.search_pool import PoolConfig
+
+    tmp, n = str(tmp_path), 4
+    ref_path, reads = _fixture(tmp)
+    want = {}
+    params = dryrun_params("mapad_tpu_torch", chunk_size=5)
+    engine = DeviceSearchEngine(
+        load_index(ref_path).fmd, params, device="cpu", packed_hits=True,
+        pool_config=PoolConfig(lanes=8, total_steps=1024, read_step_cap=512,
+                               max_chains=512))
+    for name, pl, kw in (("port", t_pipeline, dict(engine=engine)),
+                         ("jax", j_pipeline, {})):
+        out = os.path.join(tmp, f"single_{name}.bam")
+        pl.run(reads, ref_path, out, True,
+               dryrun_params(f"mapad_tpu{'_torch' * (name == 'port')}",
+                             chunk_size=5), **kw)
+        want[name] = {r[0]: r for r in bam_records(out)}
+    assert engine.stats()["batches"] == 5
+
+    merged = os.path.join(tmp, "merged.bam")
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", DEVICE_PROCESS, REPO, ref_path, reads,
+             merged, coordinator, str(pid), str(n)],
+            env=dict(os.environ), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
+        )
+        for pid in range(n)
+    ]
+    try:
+        outs = [p.communicate(timeout=300)[0].decode(errors="replace")
+                for p in procs]
+    finally:
+        for p in procs:  # a hung rendezvous fails here, not the suite
+            p.kill()
+            p.wait()
+    for p, o in zip(procs, outs):
+        assert p.returncode == 0, o[-3000:]
+    # chunk k on process k mod 4: process 0 takes chunks 0 and 4
+    blocks = [int(o.split("process done")[1].split()[1]) for o in outs]
+    assert blocks == [2, 1, 1, 1]
+
+    recs = bam_records(merged)
+    got = {r[0]: r for r in recs}
+    assert len(recs) == len(got) == 23
+    assert got == want["port"] == want["jax"]
+    assert sum(1 for r in recs if not r[1] & 0x4) > 15
+    assert not any(os.path.exists(f"{merged}.shard{i}") for i in range(n))
+    # the merge keeps the processes' order: chunk k's reads after process
+    # k mod 4's earlier ones
+    order = [int(r[0][1:]) // 5 % n for r in recs]
     assert order == sorted(order)

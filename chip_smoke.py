@@ -5,6 +5,8 @@
     python3 chip_smoke.py --path7   # path 7 alone (a machine of several cards)
     python3 chip_smoke.py --probes  # the probe phase alone (P1-P4)
     python3 chip_smoke.py --knobs   # the knobs phase alone (path 1's index)
+    python3 chip_smoke.py --configs # path 14 alone: mapAD's other map
+                                    # settings on path 1's genome
     python3 chip_smoke.py --big-text [SIZE]  # path 11 alone: a genome of
                                     # SIZE bp (1.1e9), its text past 2^31
     python3 chip_smoke.py --assembly [SCALE]  # path 12 alone: a GRCh37-
@@ -156,6 +158,28 @@ chosen by the engine at 1, forced below 2^31) through `map --engine
 native`, then `--engine device` and the hybrid over every card, each
 card's peak above its replica of the rows.  Every BAM equals the native
 one of the same chunks; the assembly's are held to its invariants.
+
+Path 14 (`--configs`, alone): mapAD's other `map` settings
+(mapad_tpu_torch/tools/configs.py), each as CLI flags replacing or joining
+MAP_FLAGS: a double-stranded library (`ds`), the Continuous bound `-c 0.15
+-e 1.0` in place of `-p` (`cutoff`), `--ignore_base_quality`, the gap
+settings (0, 1), (10, 3) and no gap at all, `--no_search_limit_recovery`
+and `-R`.  Path 1's genome and N_READS reads of each library (the
+double-stranded setting's with G->A at the 3' end) with indels at
+CONFIG_INDEL_RATE a base; under MAP_FLAGS first (the yardstick of
+reads/s), then under each setting, `map --engine native` and `map --engine
+device` twice (cold, with the setting's score table built, then warm;
+for `ds` and `cutoff` also the hybrid and big mode forced), each BAM
+equal to the native one (the `-R` header line and RG tags checked; no
+record with a gap without gaps, records with an insertion and with a
+deletion where MAP_FLAGS' gap open rate allows them); then one block's
+kernels against their plain versions in both widths (up to half of
+them reads whose native record holds a gap): K4, or K6 and K7,
+then K2 at CONFIG_FIXED steps, K3 and K5, with the hits whose chains hold
+an insertion or a deletion counted; K10 and the int32 K7 for the bound
+and gap settings.  The default run holds the same kernels of `cutoff` (a
+bound scale of len^e, not 1) and `gaps_0_1` on path 1's index after path
+6 (K2 at CONFIG_DEFAULT_FIXED steps).
 
 Before the paths, K8 runs against its plain version at full width with a
 step budget just above the per-read cap, so that the check's reads force
@@ -2757,15 +2781,20 @@ def write_workload(np, size, seed, tag):
 
     t = time.perf_counter()
     genome = gen_genome(size, seed)
-    with open(fasta, "w") as f:
-        f.write(f">bench{tag}_chr1\n")
-        s = genome.tobytes().decode()
-        f.writelines(s[i : i + 80] + "\n" for i in range(0, len(s), 80))
+    write_fasta(fasta, f"bench{tag}_chr1", genome)
     reads = make_reads(genome, N_READS, seed + 100)
     write_fastq(reads, fastq)
     log(f"data{tag}: {size} bp genome, {N_READS} reads in "
         f"{time.perf_counter() - t:.1f} s")
     return fasta, fastq, reads
+
+
+def write_fasta(path, name, genome):
+    """One sequence of bases, 80 a line."""
+    with open(path, "w") as f:
+        f.write(f">{name}\n")
+        s = genome.tobytes().decode()
+        f.writelines(s[i : i + 80] + "\n" for i in range(0, len(s), 80))
 
 
 def report_run(what, card, dev_s, stats, launches):
@@ -3054,6 +3083,276 @@ def knobs_alone(torch, np, cli, load_index, params, args, card, t_start):
     return 0
 
 
+# --- path 14 (`--configs`): mapAD's other `map` settings -----------------
+
+CONFIG_INDEL_RATE = 0.001  # make_reads' indels a base
+CONFIG_SEED = 142          # path 1's reads' seed
+CONFIG_CHECK_READS = 256   # one block's kernels against their plain versions
+CONFIG_FIXED = 2048        # K2's fixed step count there
+CONFIG_BATCH_READS = 256   # K10's and the int32 K7's check
+# the settings run also through the hybrid engine and in big mode forced
+CONFIG_BOTH_MODES = ("ds", "cutoff")
+# the settings whose K10 (and int32 K7) are held against plain
+CONFIG_BATCH = ("cutoff", "gaps_0_1", "gaps_10_3", "no_gaps")
+# the settings with MAP_FLAGS' gap open rate and gaps allowed: records with
+# an insertion and with a deletion must be among their hits
+CONFIG_GAPS = ("base", "ibq", "gaps_0_1", "gaps_10_3", "abort", "rg")
+# the default run's phase: the kernels of these on path 1's index
+CONFIG_DEFAULT = ("cutoff", "gaps_0_1")
+CONFIG_DEFAULT_FIXED = 512
+
+
+def config_params(cli, name):
+    """A setting of tools/configs.py on MAP_FLAGS, as the CLI builds it ->
+    (flags, AlignmentParameters)."""
+    from mapad_tpu_torch.tools import configs
+
+    return (configs.flags(name, MAP_FLAGS),
+            configs.parameters(cli, name, base=MAP_FLAGS))
+
+
+def config_reads(genome, n, library):
+    """n of path 1's kind of reads with indels at CONFIG_INDEL_RATE, of a
+    `library` library."""
+    from mapad_tpu_torch.tools.assembly import make_reads
+
+    return make_reads(genome, n, CONFIG_SEED, library=library,
+                      indel_rate=CONFIG_INDEL_RATE)
+
+
+def config_kernels(torch, index, params, args, reads, name, fixed, card):
+    """One block of `reads` under setting `name`, in both widths: K4
+    (int32) or K6 and K7 (int64), then K2 at `fixed` steps, K3 and K5, each
+    against its plain version; and, for the settings of CONFIG_BATCH, K10
+    and the int32 K7 at CONFIG_BATCH_READS reads of the batch engine.  ->
+    {kernel-table row: its figures under the setting}."""
+    from mapad_tpu_torch.map.record import Record
+    from mapad_tpu_torch.ops import bi_d
+    from mapad_tpu_torch.ops import engine as eng
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.ops.prep import _DEV_LUT_Q
+
+    R = CONFIG_CHECK_READS
+    recs = [Record(sequence=s, base_qualities=q) for s, q in reads[:R]]
+    out = {}
+    for big in (False, True):
+        engine = DeviceSearchEngine(index.fmd, params, lanes=args.lanes,
+                                    big=big, packed_hits=True)
+        idx, sfx = engine.device_index, "_i64" if big else ""
+        cfg, prep, _t0 = engine._prep_block(recs, R, engine.pool_config)
+        M = prep["max_len"]
+        blob = torch.from_numpy(prep["blob"]).to(engine.device)
+        tab, pen_tab, off = engine._device_lut()
+        what = f"{name}'s reads"
+        if big:
+            dense = eng._unpack_prep_full(blob, tab, pen_tab, off, R, M,
+                                          _DEV_LUT_Q)
+            out["unpack_prep_full"] = dict(max_abs_err=compare(
+                torch, dense, eng._unpack_prep_full_plain(
+                    blob, tab, pen_tab, off, R, M, _DEV_LUT_Q),
+                f"unpack_prep_full on {what}"), reads=R)
+            rank, code, n, score_lut, pen, split, *_rest = dense
+            steps = prep["bid_steps"]
+            fwd = cfg.compute_forward_part
+            bid = bi_d.compute_bi_d(idx, rank, pen, n, split, fwd, steps)
+            out["bi_d_i64"] = dict(max_abs_err=compare(
+                torch, (bid,), (bi_d.compute_bi_d_plain(
+                    idx, rank, pen, n, split, fwd, steps),),
+                f"bi_d_i64 on {what}"), reads=R,
+                walk_steps=bi_d.walk_steps(n, split, fwd))
+            consts = (n, split, *dense[6:])
+            scale = dense[6]
+            slut = sp2._dense_slut(idx, (rank, code, score_lut, pen), n,
+                                   split, cfg, steps)
+        else:
+            parts = eng._unpack_prep_lut(blob, tab, off, R, M, _DEV_LUT_Q,
+                                         prep["rle"])
+            out["unpack_prep"] = dict(max_abs_err=compare(
+                torch, parts, eng._unpack_prep_lut_plain(
+                    blob, tab, off, R, M, _DEV_LUT_Q, prep["rle"]),
+                f"unpack_prep on {what}"), reads=R)
+            consts, slut = parts[:5], parts[5]
+            scale = parts[2]
+        err, res, done, indels = fixed_pool_check(
+            torch, engine, consts, slut, cfg, R, fixed, what)
+        if not done:
+            raise AssertionError(f"K2{sfx} on {what}: no hit in {fixed} "
+                                 "steps")
+        live = scale[: len(recs)].cpu()
+        for k in ("pool_search", "extract_chains", "pack_result"):
+            out[k + sfx] = dict(max_abs_err=err, reads=R, fixed_steps=fixed,
+                                chains=int(res.n_chains), hits=done,
+                                indel_hits=indels)
+        out["pool_search" + sfx]["scale"] = [float(live.min()),
+                                             float(live.max())]
+        log(f"{name}: {'K6, K7' if big else 'K4'}, K2 + K3 + K5{sfx} on "
+            f"{R} reads (indels at {CONFIG_INDEL_RATE} a base), "
+            f"debug_fixed_steps={fixed}: bit-exact against the plain "
+            f"versions; {int(res.n_chains)} chains, {done} hits, {indels} "
+            f"of them with an insertion or a deletion; bound scale "
+            f"{float(live.min()):g}-{float(live.max()):g}; {card}")
+        del engine
+    if name in CONFIG_BATCH:
+        batch = DeviceSearchEngine(index.fmd, params, mode="batch")
+        got = batch_check(torch, batch, reads, CONFIG_BATCH_READS, name,
+                          bid_row=True)
+        for k in ("search_batch", "bi_d"):
+            g = got[k]
+            out[k] = dict(max_abs_err=g["max_abs_err"],
+                          reads=CONFIG_BATCH_READS, ms=g["ms"],
+                          plain_ms=g["plain_ms"])
+    return out
+
+
+def config_setting(torch, cli, name, index, fasta, fastqs, work, card):
+    """Path 14 under setting `name`: `map --engine native`, then `map
+    --engine device` twice (cold: with the setting's score table built;
+    warm), for CONFIG_BOTH_MODES the hybrid and big mode forced, each BAM
+    equal to the native one -> its figures, with `gapped` the indexes of
+    the reads whose record holds an insertion or a deletion."""
+    from mapad_tpu_torch.tools import configs
+
+    flags, _params = config_params(cli, name)
+    where = os.path.join(work, name)
+    os.makedirs(where, exist_ok=True)
+    text_len = 2 * GENOME_SIZE + 2  # both strands, two sentinels
+    fastq = fastqs[configs.LIBRARY.get(name, "single_stranded")]
+    log(f"path 14, {name}: map {' '.join(flags)}; {card}")
+    small = CliMaps(torch, cli, f"path 14, {name}", fasta, fastq, where,
+                    text_len, False, card, flags=flags)
+    small.run("native", ["--engine", "native"])
+    # the first run builds the setting's score table (host, once a
+    # setting in a process); the second is the warm yardstick
+    small.run("device", ["--engine", "device"])
+    small.run("device_warm", ["--engine", "device"])
+    figures = small.figures
+    if name in CONFIG_BOTH_MODES:
+        small.run("hybrid", [])
+        big = CliMaps(torch, cli, f"path 14, {name}, big mode forced",
+                      fasta, fastq, where, text_len, True, card,
+                      force_big=True, flags=flags)
+        big.run("big", ["--engine", "device"])
+        figures.update(big.figures)
+    header, recs = bam_records(small.bam("native"))
+    mapped = [r for r in recs if not r[1] & 0x4]
+    ins = sum(1 for r in mapped if "I" in r[5])
+    dels = sum(1 for r in mapped if "D" in r[5])
+    gapped = [int(r[0][4:]) for r in mapped if "I" in r[5] or "D" in r[5]]
+    summary = dict(flags=flags, engines=figures, mapped=len(mapped),
+                   with_insertion=ins, with_deletion=dels, gapped=gapped)
+    if name == "no_gaps" and ins + dels:
+        raise AssertionError(f"path 14, {name}: {ins + dels} records with "
+                             "a gap")
+    if name in CONFIG_GAPS and not (ins and dels):
+        raise AssertionError(f"path 14, {name}: no record with an "
+                             f"insertion ({ins}) or no deletion ({dels})")
+    rg = configs.SETTINGS.get(name, {}).get("-R")
+    if rg:
+        line = rg.replace("\\t", "\t")
+        rg_id = line.split("\t")[1][3:]
+        if line not in header:
+            raise AssertionError(f"path 14, {name}: no {line!r} in the "
+                                 "header")
+        if not all((b"RG", "Z", rg_id.encode()) in r[8] for r in recs):
+            raise AssertionError(f"path 14, {name}: a record without "
+                                 f"RG:Z:{rg_id}")
+    log(f"path 14, {name}: {len(mapped)} of {len(recs)} reads mapped, "
+        f"{ins} records with an insertion, {dels} with a deletion; "
+        + ", ".join(f"{k} {e['reads_per_s']:.1f} reads/s"
+                    for k, e in figures.items()) + f"; {card}")
+    return summary
+
+
+def config_genome(np, work):
+    """Path 1's genome (the same seed), written once -> (fasta, bases)."""
+    from mapad_tpu_torch.tools.assembly import gen_genome
+
+    genome = gen_genome(GENOME_SIZE, 42)
+    fasta = os.path.join(work, "genome.fa")
+    write_fasta(fasta, "configs_chr1", genome)
+    return fasta, genome
+
+
+def configs_alone(torch, np, cli, load_index, args, card, t_start):
+    """`--configs`: path 14 alone.  Path 1's genome and N_READS reads of
+    each library with indels; under MAP_FLAGS ("base", the yardstick of
+    reads/s) and each setting of tools/configs.py the native and device
+    BAMs (and for CONFIG_BOTH_MODES the hybrid and big
+    mode forced) equal, and one block's kernels against their plain
+    versions in both widths (K10 too for CONFIG_BATCH)."""
+    from mapad_tpu_torch.tools import configs
+    from mapad_tpu_torch.tools.assembly import write_fastq
+
+    work = os.path.join(WORK, "configs")
+    os.makedirs(work, exist_ok=True)
+    t = time.perf_counter()
+    fasta, genome = config_genome(np, work)
+    reads, fastqs = {}, {}
+    for library in sorted(set(configs.LIBRARY.values())):
+        reads[library] = config_reads(genome, N_READS, library)
+        fastqs[library] = os.path.join(work, f"reads_{library}.fq")
+        write_fastq(reads[library], fastqs[library])
+    if cli.main(["index", "-g", fasta]) != 0:
+        raise SystemExit("index failed")
+    log(f"path 14: {GENOME_SIZE} bp genome (path 1's), {N_READS} reads of "
+        f"each library with indels at {CONFIG_INDEL_RATE} a base, index, "
+        f"in {time.perf_counter() - t:.1f} s")
+    index = load_index(fasta)
+    summary = {}
+    for name in ["base", *configs.SETTINGS]:
+        t = time.perf_counter()
+        s = summary[name] = config_setting(torch, cli, name, index, fasta,
+                                           fastqs, work, card)
+        gapped = s.pop("gapped")
+        if name != "base":  # the default run holds MAP_FLAGS' kernels
+            _flags, params = config_params(cli, name)
+            # the block's first half the reads whose native record holds
+            # a gap, so that its chains hold insertions and deletions
+            lib = reads[configs.LIBRARY[name]]
+            first = gapped[: CONFIG_CHECK_READS // 2]
+            taken = set(first)
+            order = first + [i for i in range(len(lib)) if i not in taken]
+            s["kernels"] = config_kernels(
+                torch, index, params, args, [lib[i] for i in order], name,
+                CONFIG_FIXED, card)
+        s["seconds"] = time.perf_counter() - t
+        log(json.dumps({"configs_" + name: s}))
+    base = summary["base"]["engines"]["device_warm"]["reads_per_s"]
+    log("path 14, map --engine device (warm) against MAP_FLAGS on the same "
+        "reads: " + ", ".join(
+            f"{k} {s['engines']['device_warm']['reads_per_s'] / base:.3f}x"
+            for k, s in summary.items()) + f"; {card}")
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def configs_phase(torch, np, cli, index, args, card):
+    """The default run's part of path 14: the kernels of CONFIG_DEFAULT's
+    settings (the Continuous bound's scale, the gap settings (0, 1)) on
+    path 1's index, each against its plain version -> {kernel-table row:
+    {setting: its figures}}."""
+    from mapad_tpu_torch.tools.assembly import gen_genome
+
+    t = time.perf_counter()
+    reads = config_reads(gen_genome(GENOME_SIZE, 42), CONFIG_CHECK_READS,
+                         "single_stranded")
+    rows = {}
+    for name in CONFIG_DEFAULT:
+        _flags, params = config_params(cli, name)
+        for row, figs in config_kernels(torch, index, params, args, reads,
+                                        name, CONFIG_DEFAULT_FIXED,
+                                        card).items():
+            rows.setdefault(row, {})[name] = figs
+    log(f"path 14's kernels ({', '.join(CONFIG_DEFAULT)}): "
+        f"{time.perf_counter() - t:.1f} s")
+    return rows
+
+
 def big_text_layout(np, size):
     """Path 11's genome of `size` bp as contigs of BIG_TEXT_CONTIG bp: a
     tools/assembly.py Layout with no runs, so that its BAMs are held to
@@ -3142,13 +3441,14 @@ class CliMaps:
     write a BAM equal to the native one (XD aside)."""
 
     def __init__(self, torch, cli, what, fasta, fastq, work, text_len, big,
-                 card, force_big=False):
+                 card, force_big=False, flags=None):
         self.torch, self.cli, self.what, self.work = torch, cli, what, work
         self.text_len, self.big, self.card = text_len, big, card
         # below the size that selects big mode: the engines made big
         self.force_big = force_big
         self.argv = ["--threads", "0", "map", "-r", fastq, "-g", fasta,
-                     "--force_overwrite", *MAP_FLAGS]
+                     "--force_overwrite",
+                     *(MAP_FLAGS if flags is None else flags)]
         self.figures = {}
 
     def bam(self, key):
@@ -3621,21 +3921,9 @@ def assembly_kernels(torch, small, big, w, card):
                 "unpack_prep on the assembly's reads")
             out["unpack_prep"] = dict(max_abs_err=err, reads=R)
             consts, slut = parts[:5], parts[5]
-        c = cfg._replace(debug_fixed_steps=ASSEMBLY_FIXED)
-        a = (idx, *consts, engine._params(), c, slut)
-        res = sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*a), c)
-        state = sp2._pool_loop_cuda(*a)
-        buf = sp2._extract_chains_cuda(*state, c, views=False)
-        pres = sp2._extract_chains_plain(*sp2._pool_loop_plain(*a), c)
-        err = compare(torch, tuple(res), tuple(pres),
-                      f"pool_search{sfx} + extract_chains{sfx} on the "
-                      "assembly's reads")
-        err = max(err, compare(torch, (eng._pack_buffer(buf, c, R, idx.big),),
-                               (eng._pack_result_plain(res),),
-                               f"pack_result{sfx} on the assembly's reads"))
-        n_ext = min(int(res.n_chains), c.max_chains)
-        done = int(((res.c_read[:n_ext] >= 0)
-                    & ~res.c_abandon[:n_ext]).sum())
+        err, res, done, _indels = fixed_pool_check(
+            torch, engine, consts, slut, cfg, R, ASSEMBLY_FIXED,
+            "the assembly's reads")
         if not done:
             raise AssertionError(f"K2{sfx} on the assembly's reads: no hit "
                                  f"in {ASSEMBLY_FIXED} steps")
@@ -3648,6 +3936,41 @@ def assembly_kernels(torch, small, big, w, card):
             f"{ASSEMBLY_FIXED}, bit-exact against the plain versions; "
             f"{int(res.n_chains)} chains, {done} of them hits")
     return out
+
+
+def fixed_pool_check(torch, engine, consts, slut, cfg, R, fixed, what):
+    """K2 at `fixed` steps (debug_fixed_steps) on R reads' device inputs,
+    then K3 (both entries) and K5 on its result, each against its plain
+    version -> (max abs error, the PoolResult, its hits, the hits whose
+    chain holds an insertion or a deletion)."""
+    from mapad_tpu_torch.ops import engine as eng
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+    from mapad_tpu_torch.ops.search import (
+        OP_DELETION,
+        OP_INSERTION,
+        OP_VALID_BIT,
+    )
+
+    idx = engine.device_index
+    sfx = "_i64" if idx.big else ""
+    c = cfg._replace(debug_fixed_steps=fixed)
+    a = (idx, *consts, engine._params(), c, slut)
+    res = sp2._extract_chains_cuda(*sp2._pool_loop_cuda(*a), c)
+    state = sp2._pool_loop_cuda(*a)
+    buf = sp2._extract_chains_cuda(*state, c, views=False)
+    pres = sp2._extract_chains_plain(*sp2._pool_loop_plain(*a), c)
+    err = compare(torch, tuple(res), tuple(pres),
+                  f"pool_search{sfx} + extract_chains{sfx} on {what}")
+    err = max(err, compare(torch, (eng._pack_buffer(buf, c, R, idx.big),),
+                           (eng._pack_result_plain(res),),
+                           f"pack_result{sfx} on {what}"))
+    n_ext = min(int(res.n_chains), c.max_chains)
+    hit = (res.c_read[:n_ext] >= 0) & ~res.c_abandon[:n_ext]
+    ops = res.c_ops[:n_ext]
+    kind = (ops >> 17) & 3
+    gap = (((ops & OP_VALID_BIT) != 0)
+           & ((kind == OP_INSERTION) | (kind == OP_DELETION))).any(1)
+    return err, res, int(hit.sum()), int((hit & gap).sum())
 
 
 def small_assembly_phase(torch, cli, load_index, params, args, card,
@@ -4142,6 +4465,10 @@ def main() -> int:
         return knobs_alone(torch, np, cli, load_index, params, args, card,
                            t_start)
 
+    if "--configs" in sys.argv[1:]:
+        return configs_alone(torch, np, cli, load_index, args, card,
+                             t_start)
+
     if "--probes" in sys.argv[1:]:
         probe_rows, probe_launches = probe_phase(torch, card)
         return finish(torch, probe_rows, probe_launches,
@@ -4477,6 +4804,12 @@ def main() -> int:
             rows.update(rows6)
             launches.update(counts)
             path_of.update({name: 6 for name in rows6})
+
+    # --- path 14's kernels: the Continuous bound's scale and the gap
+    # settings (0, 1) on path 1's index ---
+    for name, keys in configs_phase(torch, np, cli, index1, args,
+                                    card).items():
+        rows[name]["configs"] = keys
 
     # --- path 7: the pool search over two shards on the card (K9) ---
     launches7, steps7 = path7(torch, index1, params, args, fastq, fasta,

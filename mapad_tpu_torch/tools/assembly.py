@@ -102,6 +102,7 @@ EDGE_KINDS = (("long", 0.3), ("short", 0.5), ("join", 0.2))
 EDGE_SPAN = 200  # an edge read starts within this many bp of its edge
 READ_SPAN = 128  # the longest read bench.py's generator draws, and some
 _ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+INDEL_MARGIN = 10  # make_reads' indels keep this far from a read's ends
 
 
 class Layout(NamedTuple):
@@ -250,20 +251,29 @@ def gen_genome(size: int, seed: int = 42) -> np.ndarray:
     return out
 
 
-def make_reads(genome, n_reads: int, seed: int = 7, starts=None) -> list:
-    """Lognormal fragment lengths (35..120 bp), C->T deamination decaying
-    from both ends, sequencing errors, per-base qualities, ~8% exogenous
-    reads; at random starts, or at `starts` (each at most
-    len(genome) - READ_SPAN).  Any base outside ACGT is written as N.
+def make_reads(genome, n_reads: int, seed: int = 7, starts=None,
+               library: str = "single_stranded",
+               indel_rate: float = 0.0) -> list:
+    """Lognormal fragment lengths (35..120 bp), deamination, sequencing
+    errors, per-base qualities, ~8% exogenous reads; at random starts, or
+    at `starts` (each at most len(genome) - READ_SPAN).  Any base outside
+    ACGT is written as N.  A single-stranded library's reads carry C->T
+    decaying from both ends; a double-stranded one's C->T decaying from
+    the 5' end and G->A decaying from the 3' end.  `indel_rate`: each base
+    of an endogenous read starts an indel with that probability (a base
+    deleted or a random base inserted, half each), at least INDEL_MARGIN
+    bp from either end.  The defaults draw bench.py's reads.
     Returns [(sequence, qualities)]."""
     from ..utils.seq import revcomp
 
+    assert library in ("single_stranded", "double_stranded"), library
     rng = np.random.default_rng(seed)
     if starts is None:
         starts = rng.integers(0, len(genome) - READ_SPAN, size=n_reads)
     acgt = b"ACGT"
     plain = np.zeros(256, dtype=bool)
     plain[_ACGT] = True
+    single = library == "single_stranded"
     reads = []
     for i in range(n_reads):
         ln = int(np.clip(rng.lognormal(np.log(60), 0.25), 35, 120))
@@ -274,15 +284,30 @@ def make_reads(genome, n_reads: int, seed: int = 7, starts=None) -> list:
             part[~plain[part]] = ord("N")
             seq = bytearray(part.tobytes())
             for pos in range(ln):
-                p = 0.4 * (0.55 ** pos) + 0.4 * (0.55 ** (ln - 1 - pos)) + 0.005
+                five = 0.4 * (0.55 ** pos)
+                three = 0.4 * (0.55 ** (ln - 1 - pos))
+                if single:
+                    p, q = five + three + 0.005, 0.0
+                else:
+                    p, q = five + 0.005, three + 0.005
                 if seq[pos] == ord("C") and rng.random() < p:
                     seq[pos] = ord("T")
+                elif q and seq[pos] == ord("G") and rng.random() < q:
+                    seq[pos] = ord("A")
                 elif rng.random() < 0.002:
                     seq[pos] = acgt[int(rng.integers(0, 4))]
+            if indel_rate:
+                for _ in range(int(rng.binomial(ln, indel_rate))):
+                    at = int(rng.integers(INDEL_MARGIN,
+                                          len(seq) - INDEL_MARGIN))
+                    if rng.random() < 0.5:
+                        del seq[at]
+                    else:
+                        seq.insert(at, acgt[int(rng.integers(0, 4))])
             if rng.random() < 0.5:
                 seq = bytearray(revcomp(seq))
         quals = bytes(int(q) for q in np.clip(
-            rng.normal(36, 4, size=ln), 10, 41).astype(np.uint8))
+            rng.normal(36, 4, size=len(seq)), 10, 41).astype(np.uint8))
         reads.append((bytes(seq), quals))
     return reads
 

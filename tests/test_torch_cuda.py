@@ -2126,3 +2126,153 @@ def test_bi_d_int64_rows_past_2_32(rows64, forward_part):
     got = bi_d.compute_bi_d(rows64, *t, forward_part, steps)
     _equal((got,), (bi_d.compute_bi_d_plain(rows64, *t, forward_part,
                                             steps),), "bi_d_i64")
+
+
+# --- mapAD's other settings (chip_smoke.py path 14) ------------------------
+
+CONFIG_NAMES = ["cutoff", "gaps_0_1"]
+
+
+def _config_params(name, center=False):
+    """Setting `name` of tools/configs.py as the port's CLI builds it;
+    `center`: with the center-start model (VindijaPwm) and its bound
+    rebuilt on that model's representative mismatch."""
+    import dataclasses
+
+    from mapad_tpu_torch import cli, models
+    from mapad_tpu_torch.tools import configs
+
+    params = configs.parameters(cli, name)
+    if not center:
+        return params
+    pwm = models.VindijaPwm()
+    repr_mm = pwm.get_representative_mismatch_penalty()
+    mb = params.mismatch_bound
+    bound = (models.Continuous(mb.cutoff, mb.exponent, repr_mm)
+             if isinstance(mb, models.Continuous)
+             else models.Discrete(0.03, np.float32(0.02), repr_mm))
+    return dataclasses.replace(params, difference_model=pwm,
+                               mismatch_bound=bound)
+
+
+def _config_reads(n=40, seed=3):
+    """Reads of the bench reference with indels at 1% a base (and damage)."""
+    from mapad_tpu_torch.tools.assembly import make_reads
+
+    ref = np.frombuffer(bench_ref(), dtype=np.uint8)
+    return [s for s, _q in make_reads(ref, n, seed, indel_rate=0.01)]
+
+
+@pytest.mark.parametrize("name", CONFIG_NAMES)
+@pytest.mark.parametrize("big", [False, True])
+def test_configs_unpack_kernels(fmd, cuda, name, big):
+    """K4 (int32) and K6 (int64) on the tables of the setting: the bound's
+    scale in the consts (len^e under `-c`), the Bi-D penalty column of its
+    gap_dist_ends."""
+    from mapad_tpu_torch.ops import engine as teng
+    from mapad_tpu_torch.ops.prep import _DEV_LUT_Q
+
+    eng, _cfg, prep = _prepped(fmd, cuda, dict(lanes=8, total_steps=256),
+                               1, big=big, params=_config_params(name),
+                               reads=_config_reads())
+    blob = torch.from_numpy(prep["blob"]).to(cuda)
+    tab, pen_tab, off = eng._device_lut()
+    R, M = prep["L"], prep["max_len"]
+    if big:
+        got = teng._unpack_prep_full(blob, tab, pen_tab, off, R, M,
+                                     _DEV_LUT_Q)
+        want = teng._unpack_prep_full_plain(blob, tab, pen_tab, off, R, M,
+                                            _DEV_LUT_Q)
+        scale = got[6]
+    else:
+        got = teng._unpack_prep_lut(blob, tab, off, R, M, _DEV_LUT_Q,
+                                    prep["rle"])
+        want = teng._unpack_prep_lut_plain(blob, tab, off, R, M, _DEV_LUT_Q,
+                                           prep["rle"])
+        scale = got[2]
+    _equal(got, want, (name, big))
+    live = scale[:40].cpu()
+    assert bool((live != 1.0).any()) == (name == "cutoff")
+
+
+@pytest.mark.parametrize("name", CONFIG_NAMES)
+@pytest.mark.parametrize("big", [False, True])
+def test_configs_bi_d_kernel(fmd, cuda, name, big):
+    """K7 on the penalty elements of the setting's gap rule, from the dense
+    inputs of the batch engine (int32) or of big mode's K6 (int64)."""
+    from mapad_tpu_torch.ops import bi_d
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+
+    eng = DeviceSearchEngine(fmd, _config_params(name), lanes=41,
+                             mode="pool" if big else "batch", big=big,
+                             device=cuda)
+    with torch.cuda.device(cuda):
+        prep = eng._prepare(records("mapad_tpu_torch", _config_reads()),
+                            128, 41, host_bid=False, dense=True)
+        d = prep["dense"]
+        args = [d[k] for k in ("pattern_rank", "pen", "n", "split")]
+        if not args[0].is_cuda:
+            args = [torch.as_tensor(np.asarray(a)).to(cuda) for a in args]
+        args[0] = args[0].to(torch.int32)
+        st = prep["_stash"]
+        steps = (int(st["split"].max()), int((st["n"] - st["split"]).max()))
+        got = bi_d.compute_bi_d(eng.device_index, *args, False, steps)
+        want = bi_d.compute_bi_d_plain(eng.device_index, *args, False, steps)
+    _equal((got,), (want,), (name, big))
+    assert bool((got != 0).any())
+
+
+@pytest.mark.parametrize("name", CONFIG_NAMES)
+@pytest.mark.parametrize("bidir", [False, True])
+@pytest.mark.parametrize("big", [False, True])
+def test_configs_pool_search_kernels(fmd, cuda, name, bidir, big):
+    """K2 in its four forms + K3 + K5 under the setting, on reads with
+    indels: hits whose chains hold insertions or deletions."""
+    from mapad_tpu_torch.ops import engine as teng
+    from mapad_tpu_torch.ops.search import OP_DELETION, OP_INSERTION
+
+    cfg_kw = dict(lanes=8, total_steps=3072, read_step_cap=512,
+                  max_chains=512, compute_forward_part=bidir)
+    eng, cfg, prep = _prepped(fmd, cuda, cfg_kw, 17, big=big,
+                              params=_config_params(name, bidir),
+                              reads=_config_reads())
+    assert cfg.backward_only != bidir
+    got, want, _ = _pool_both(eng, cfg, prep, cuda)
+    _equal(tuple(got), tuple(want), (name, bidir, big))
+    _equal((teng._pack_result(got),), (teng._pack_result_plain(got),),
+           "pack_result")
+    n = min(int(got.n_chains), cfg.max_chains)
+    hit = (got.c_read[:n] >= 0) & ~got.c_abandon[:n]
+    kind = (got.c_ops[:n] >> 17) & 3
+    valid = (got.c_ops[:n] & (1 << 20)) != 0
+    gap = (valid & ((kind == OP_INSERTION) | (kind == OP_DELETION))).any(1)
+    assert int(hit.sum()) > 4 and (name == "gaps_0_1") <= bool(
+        (hit & gap).any())
+
+
+@pytest.mark.parametrize("name", CONFIG_NAMES)
+def test_configs_search_batch_kernel(fmd, cuda, name):
+    """K7 + K10 of the batch engine under the setting against their plain
+    versions."""
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.ops.search import (
+        k_mismatch_search_batch,
+        k_mismatch_search_batch_plain,
+    )
+
+    eng = DeviceSearchEngine(fmd, _config_params(name), lanes=41,
+                             mode="batch", device=cuda)
+    cfg = eng.config._replace(max_steps=512)
+    with torch.cuda.device(cuda):
+        prep = eng._prepare(records("mapad_tpu_torch", _config_reads()),
+                            128, 41, host_bid=False, dense=True)
+        args = [prep["dense"][k] for k in (
+            "pattern_rank", "pattern_code", "n", "score_lut", "pen", "split",
+            "scale", "thresh", "repr_mm")]
+        got = k_mismatch_search_batch(eng.device_index, *args,
+                                      eng._params(), cfg)
+        want = k_mismatch_search_batch_plain(eng.device_index, *args,
+                                             eng._params(), cfg)
+        torch.cuda.synchronize()
+    _equal(tuple(got), tuple(want), name)
+    assert int((got.hcount.cpu() > 0).sum()) > 4

@@ -52,7 +52,7 @@ def test_port_imports_no_jax_and_no_mapad_tpu():
         "io/rans_nx16", "io/arith", "io/fqzcomp", "io/tok3", "io/cram",
         "index/mapad_native", "distributed/wire", "distributed/dispatcher",
         "distributed/worker", "tools/big_rows", "tools/measure_big",
-        "tools/load_time", "tools/assembly")} <= {
+        "tools/load_time", "tools/assembly", "tools/configs")} <= {
             os.path.relpath(f, ROOT) for f in files}
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)

@@ -20,14 +20,17 @@ torch.set_num_threads(1)
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def port_twin(test_module: str) -> dict:
+def port_twin(test_module: str, subs=()) -> dict:
     """The names of tests/<test_module>.py run against mapad_tpu_torch: its
-    source with every `mapad_tpu.` import pointed at the port, executed as
-    a module of its own.  A test file re-exports the `test_*` functions
-    (and the fixtures they take) to run the JAX package's cases on the
-    port unchanged."""
+    source with every `mapad_tpu.` import pointed at the port (and each
+    (old, new) text of `subs` replaced), executed as a module of its own.
+    A test file re-exports the `test_*` functions (and the fixtures they
+    take) to run the JAX package's cases on the port unchanged."""
     path = os.path.join(HERE, f"{test_module}.py")
     src = re.sub(r"\bmapad_tpu\.", "mapad_tpu_torch.", open(path).read())
+    for old, new in subs:
+        assert old in src, (test_module, old)
+        src = src.replace(old, new)
     ns = {"__name__": f"{test_module}_on_the_port", "__file__": path}
     exec(compile(src, path, "exec"), ns)
     return ns
@@ -81,6 +84,11 @@ def adna_params(pkg):
     )
 
 
+def port_adna_params():
+    """`adna_params` of mapad_tpu_torch."""
+    return adna_params("mapad_tpu_torch")
+
+
 def vindija_params(pkg):
     """A center-start model (the alignment starts inside the read: the
     searches extend both ways), built from `pkg`'s own classes."""
@@ -95,6 +103,18 @@ def vindija_params(pkg):
         penalty_gap_extend=np.float32(0.6) * repr_mm, chunk_size=1,
         gap_dist_ends=5, stack_limit_abort=False, max_num_gaps_open=2,
     )
+
+
+def config_params(pkg, name, changes=None):
+    """The AlignmentParameters of setting `name` of
+    mapad_tpu_torch/tools/configs.py (`changes`: its flags replaced), as
+    `pkg`'s own CLI parser builds them."""
+    from mapad_tpu_torch.tools import configs
+
+    cli = __import__(f"{pkg}.cli", fromlist=["x"])
+    if changes is not None:
+        changes = {**configs.SETTINGS.get(name, {}), **changes}
+    return configs.parameters(cli, name, changes)
 
 
 def dryrun_params(pkg, chunk_size=1000):

@@ -15,6 +15,10 @@
     python3 chip_smoke.py --cards [SCALE] [--phases abcd]  # path 13
                                     # alone: a node of two cards or more
                                     # (the assembly at SCALE)
+    python3 chip_smoke.py --long [SCALE] [--phases ab]  # path 15
+                                    # alone: runs of a user's length ((a)
+                                    # 524,288 reads; (b) the assembly at
+                                    # SCALE, 262,144 reads)
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
@@ -180,6 +184,29 @@ an insertion or a deletion counted; K10 and the int32 K7 for the bound
 and gap settings.  The default run holds the same kernels of `cutoff` (a
 bound scale of len^e, not 1) and `gaps_0_1` on path 1's index after path
 6 (K2 at CONFIG_DEFAULT_FIXED steps).
+
+Path 15 (`--long [SCALE]`, alone): runs of a user's length at mapAD's
+default --batch_size (250,000 reads a sheet, so that every sheet ends in
+a short block in the middle of the stream).  (a) path 1's genome and
+524,288 of its reads with indels at CONFIG_INDEL_RATE (three sheets),
+after their first 16,384 (path 1's length, the yardstick of reads/s):
+`map --engine native`, `--engine device` and the hybrid through the CLI;
+(b) the assembly at SCALE (0.0075 by default: big mode forced; 1: chosen
+by the engine) and 262,144 of its reads (two sheets), the deep tier at
+its default (on).  Every BAM equals the native one over every read, (b)'s
+held to the assembly's invariants; at each sheet boundary
+(tools/sheets.py `SheetWatch`) the card's allocated bytes between blocks
+and its reserved bytes stay within 64 MiB of the first sheet's end and
+the host's RSS within 5%; the Python threads after each run are those
+after the first; each kernel's launches are what the run's input and
+tier blocks imply; in (b) a deep block is prepared before the input runs
+out.  Printed: reads/s of each run and each sheet, stage seconds,
+escalations by cause, the tier blocks before and after the input ran
+out, the hybrid's device fraction at each sheet's end and its reads on
+each side, the memory readings, the launches.  The default run holds a
+short form after path 1: 24,576 reads at --batch_size 10,000 (sheets of
+10,000, 10,000 and 4,576) through `--engine device` and `--engine
+native`, the same checks (`sheets_launches` in path 1's rows).
 
 Before the paths, K8 runs against its plain version at full width with a
 step budget just above the per-read cap, so that the check's reads force
@@ -3353,6 +3380,324 @@ def configs_phase(torch, np, cli, index, args, card):
     return rows
 
 
+# --- path 15 (`--long [SCALE]`): runs of a user's length ------------------
+
+LONG_READS = 524_288      # (a): sheets of 250,000, 250,000 and 24,288
+LONG_BIG_READS = 262_144  # (b): sheets of 250,000 and 12,144
+LONG_SHORT_READS = 16_384  # (a)'s yardstick: path 1's length, same reads
+LONG_SCALE = ASSEMBLY_SMALL_SCALE  # (b)'s assembly (8.3 Mbp)
+LONG_BATCH = 250_000  # mapAD's default --batch_size, the CLI's
+LONG_CARD_BYTES = 64 << 20  # card memory a later sheet may add
+LONG_RSS_SHARE = 0.05       # host RSS a later sheet may add
+SHEETS_READS = 24_576       # the default run's phase: sheets of 10,000,
+SHEETS_BATCH = 10_000       # 10,000 and 4,576 (two short blocks mid-stream)
+# the engines of a long run, the native one first (its BAM the yardstick)
+LONG_ENGINES = (("native", ["--engine", "native"]),
+                ("device", ["--engine", "device"]),
+                ("hybrid", []))
+
+
+def settled_threads(before):
+    """Python threads alive once the threads started since `before` (a
+    set of threads) have ended or 10 s have passed, after a collection of
+    the engines a run left behind: their pools' threads end with them."""
+    import gc
+
+    gc.collect()
+    deadline = time.perf_counter() + 10
+    for t in threading.enumerate():
+        if t not in before and t is not threading.current_thread():
+            t.join(timeout=max(0.0, deadline - time.perf_counter()))
+    return threading.active_count()
+
+
+def sheet_sizes(n, batch):
+    return [min(batch, n - lo) for lo in range(0, n, batch)]
+
+
+def block_of(big):
+    """The engine's block of one card: MAPAD_BLOCK_READS, else 4096 reads
+    in big mode and 8192 in int32 (at the CLI's lanes)."""
+    return int(os.environ.get("MAPAD_BLOCK_READS", 0)) or (
+        4096 if big else 8192)
+
+
+def expected_launches(big, blocks):
+    """Each kernel's launches for `blocks` invocations of one store
+    generation each: K4 (or K6 and K7), K1 one a K2 generation (K7's own
+    besides), K2 an init and a generation, K3 and K5 one each."""
+    if big:
+        return dict(unpack_prep_full=blocks, bi_d_i64=blocks,
+                    extend_batch_i64=2 * blocks, pool_search_i64=2 * blocks,
+                    extract_chains_i64=blocks, pack_result_i64=blocks)
+    return dict(unpack_prep=blocks, extend_batch=blocks,
+                pool_search=2 * blocks, extract_chains=blocks,
+                pack_result=blocks)
+
+
+def sheets_check(what, e, run, batch, n, card, hold_memory=True):
+    """A watched run of `n` reads in sheets of `batch`: the sheets and
+    input blocks it pulled, its launches against its blocks, and where
+    `hold_memory` card memory within LONG_CARD_BYTES of the first sheet's
+    end at every later sheet boundary (a drop allowed at the run's end,
+    when nothing is in flight), host RSS within LONG_RSS_SHARE of it ->
+    its sheet figures (reads/s of each sheet as the engine pulled it)."""
+    sizes, block = sheet_sizes(n, batch), block_of(e["big"])
+    if run["sheets"] != sizes:
+        raise AssertionError(f"{what}: sheets {run['sheets']}, not {sizes}")
+    blocks = sum(-(-k // block) for k in sizes)
+    if run["input_blocks"] != blocks:
+        raise AssertionError(f"{what}: {run['input_blocks']} input blocks, "
+                             f"not {blocks}")
+    short = [k % block for k in sizes if k % block]
+    tiers = run["tier_blocks"]
+    from mapad_tpu_torch.tools.sheets import deep_before
+
+    before = deep_before(run) if tiers else 0
+    want = expected_launches(e["big"], blocks + len(tiers))
+    if e["launches"] != want:
+        raise AssertionError(f"{what}: launches {e['launches']} against "
+                             f"{want} for {blocks} input and {len(tiers)} "
+                             "tier blocks")
+    samples = run["samples"]
+    first = samples[0]
+    rows, bad = [], []
+    t_prev = n_prev = 0
+    prev = dict.fromkeys(samples[0]["stats"], 0)
+    for i, s in enumerate(samples):
+        d_alloc = s["allocated"] - first["allocated"]
+        d_res = s["reserved"] - first["reserved"]
+        d_rss = s["rss"] - first["rss"]
+        rate = (s["reads"] - n_prev) / max(s["seconds"] - t_prev, 1e-9)
+        t_prev, n_prev = s["seconds"], s["reads"]
+        # the sheet's blocks and stage seconds a block
+        st = {k: v - prev[k] for k, v in s["stats"].items()}
+        prev = s["stats"]
+        n_blocks = max(st.pop("batches"), 1)
+        rows.append(dict(sheet=i, reads_per_s=rate, blocks=n_blocks,
+                         ms_a_block={k: v * 1e3 / n_blocks
+                                     for k, v in st.items()},
+                         allocated_mib=s["allocated"] / 2**20,
+                         reserved_mib=s["reserved"] / 2**20,
+                         rss_gib=s["rss"] / 2**30,
+                         device_fraction=s.get("device_fraction")))
+        if i:
+            end = i == len(samples) - 1
+            for k, d in (("allocated", d_alloc), ("reserved", d_res)):
+                if d > LONG_CARD_BYTES or (not end
+                                           and -d > LONG_CARD_BYTES):
+                    bad.append(f"{k} {d / 2**20:+.1f} MiB after sheet {i}")
+            if d_rss > LONG_RSS_SHARE * first["rss"]:
+                bad.append(f"rss {d_rss / 2**20:+.1f} MiB after sheet {i}")
+    log(f"{what}: sheets {sizes} (short blocks {short}); {blocks} input "
+        f"blocks, {len(tiers)} tier blocks ({before} prepared before the "
+        f"input ran out; reads {tiers}); launches {e['launches']}, as the "
+        f"blocks imply")
+    for r in rows:
+        log(f"  sheet {r['sheet']}: {r['reads_per_s']:.1f} reads/s; "
+            f"{r['blocks']} blocks, ms a block: " + ", ".join(
+                f"{k} {v:.1f}" for k, v in r["ms_a_block"].items()))
+        log(f"  sheet {r['sheet']}: card "
+            f"allocated {r['allocated_mib']:.1f} MiB, reserved "
+            f"{r['reserved_mib']:.1f} MiB; host RSS {r['rss_gib']:.3f} GiB"
+            + (f"; device fraction {r['device_fraction']:.3f}"
+               if r["device_fraction"] is not None else "") + f"; {card}")
+    if bad and hold_memory:
+        raise AssertionError(f"{what}: memory grew across sheets: {bad}")
+    return dict(sheets=rows, input_blocks=blocks, short_blocks=short,
+                tier_blocks=tiers, tier_blocks_before_drained=before,
+                tier_blocks_after_drained=len(tiers) - before,
+                exhausted=run["exhausted"])
+
+
+def watched_maps(torch, maps, n, batch, card, what):
+    """LONG_ENGINES through `maps` (a CliMaps of `n` reads), each inside a
+    SheetWatch, the threads left after each counted -> {engine: its
+    figures}; the streaming runs held to `sheets_check`, the threads to the
+    first run's count."""
+    from mapad_tpu_torch.tools.sheets import SheetWatch
+
+    out, threads = {}, None
+    for key, extra in LONG_ENGINES:
+        before = set(threading.enumerate())
+        with SheetWatch(torch) as watch:
+            e = maps.run(key, extra)
+        e["threads"] = settled_threads(before)
+        log(f"{what}, {key}: {e['threads']} Python threads after the run")
+        threads = e["threads"] if threads is None else threads
+        if e["threads"] != threads:
+            raise AssertionError(f"{what}, {key}: {e['threads']} threads "
+                                 f"after the run, {threads} after the first")
+        if key != "native":
+            e.update(sheets_check(f"{what}, {key}", e, watch.runs[-1],
+                                  batch, n, card))
+            st = e["stats"]
+            log(f"  {key}: {e['reads_per_s']:.1f} reads/s; stage seconds "
+                + ", ".join(f"{k} {st[k]:.3f}" for k in (
+                    "prep_s", "device_s", "wait_s", "decode_s", "fb_secs"))
+                + f"; escalated {st['escalated']} by cause {st['esc_why']};"
+                f" {card}")
+        out[key] = e
+    return out
+
+
+def long_alone(torch, np, cli, load_index, card, t_start, scale, phases):
+    """`--long [SCALE] [--phases ab]`: path 15, runs of a user's length,
+    the phases named (both by default).  (a) path 1's
+    genome and LONG_READS of its reads with indels (three sheets at the
+    default --batch_size of 250,000, each ending in a short block), after
+    their first LONG_SHORT_READS as the yardstick of path 1's length: `map`
+    with each of LONG_ENGINES through the CLI; (b) the GRCh37-shaped
+    assembly at SCALE and LONG_BIG_READS of its reads (two sheets) in big
+    mode (forced below 2^31, chosen by the engine above), the deep tier at
+    its default (on), the BAMs also held to the assembly's invariants.
+    Every BAM equals the native one; card memory, host RSS and the threads
+    stay flat across sheets and runs, the launches are what the blocks
+    imply, and in (b) a deep block is prepared before the input runs out.
+    """
+    batch = cli.build_parser().parse_args(
+        ["map", "-r", "x", "-g", "x", "-o", "x", *MAP_FLAGS]).chunk_size
+    if batch != LONG_BATCH:
+        raise AssertionError(f"the CLI's --batch_size is {batch}, not "
+                             f"{LONG_BATCH}")
+    work = os.path.join(WORK, "long")
+    os.makedirs(work, exist_ok=True)
+    summary = dict(card=card, scale=scale, phases=phases)
+    if "a" in phases:
+        summary["a"] = long_a(torch, np, cli, card, work)
+    if "b" in phases:
+        summary["b"] = long_b(torch, cli, card, work, scale)
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    print(json.dumps({"long": summary}, default=str), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def long_a(torch, np, cli, card, work):
+    """Path 15 (a) -> its figures."""
+    global N_READS
+    from mapad_tpu_torch.tools.assembly import write_fastq
+
+    t = time.perf_counter()
+    fasta, genome = config_genome(np, work)
+    reads = config_reads(genome, LONG_READS, "single_stranded")
+    fastq = os.path.join(work, "reads.fq")
+    short_fq = os.path.join(work, "reads_short.fq")
+    write_fastq(reads, fastq)
+    write_fastq(reads[:LONG_SHORT_READS], short_fq)
+    del reads
+    if cli.main(["index", "-g", fasta]) != 0:
+        raise SystemExit("index failed")
+    log(f"path 15 (a): {GENOME_SIZE} bp genome (path 1's), {LONG_READS} "
+        f"reads with indels at {CONFIG_INDEL_RATE} a base, index, in "
+        f"{time.perf_counter() - t:.1f} s; {card}")
+    text_len = 2 * GENOME_SIZE + 2
+    N_READS = LONG_SHORT_READS
+    short = CliMaps(torch, cli, "path 15 (a), path 1's length", fasta,
+                    short_fq, os.path.join(work, "short"), text_len, False,
+                    card)
+    os.makedirs(short.work, exist_ok=True)
+    for key, extra in LONG_ENGINES:
+        short.run(key, extra)
+    N_READS = LONG_READS
+    maps = CliMaps(torch, cli, "path 15 (a)", fasta, fastq,
+                   os.path.join(work, "a"), text_len, False, card)
+    os.makedirs(maps.work, exist_ok=True)
+    runs = watched_maps(torch, maps, LONG_READS, LONG_BATCH, card,
+                          "path 15 (a)")
+    for key, e in runs.items():
+        ratio = e["reads_per_s"] / short.figures[key]["reads_per_s"]
+        log(f"path 15 (a), {key}: {e['reads_per_s']:.1f} reads/s over "
+            f"{LONG_READS} reads against "
+            f"{short.figures[key]['reads_per_s']:.1f} over "
+            f"{LONG_SHORT_READS} ({ratio:.3f}x); {card}")
+    hyb = runs["hybrid"]["stats"]
+    log(f"path 15 (a), hybrid: device fraction at each sheet's end "
+        f"{[r['device_fraction'] for r in runs['hybrid']['sheets']]}, "
+        f"reads on the device {hyb['hybrid_device_reads']}, on the host "
+        f"{hyb['hybrid_native_reads']}; {card}")
+    return dict(short=short.figures, long=runs)
+
+
+def long_b(torch, cli, card, work, scale):
+    """Path 15 (b): the assembly in big mode, the deep tier mid-stream
+    -> its figures."""
+    global N_READS
+    N_READS = LONG_BIG_READS
+    awork = os.path.join(WORK, "assembly")
+    w = assembly_make(scale, awork)
+    index_s, index_peak = cli_index(w["fasta"], w["lay"].text_len, awork,
+                                    "path 15 (b)", card)
+    text_len = w["lay"].text_len
+    chosen = text_len >= BIG_TEXT_MIN
+    maps = CliMaps(torch, cli, "path 15 (b)", w["fasta"], w["fastq"],
+                   os.path.join(work, "b"), text_len, True, card,
+                   force_big=not chosen)
+    os.makedirs(maps.work, exist_ok=True)
+    runs = watched_maps(torch, maps, LONG_BIG_READS, LONG_BATCH, card,
+                          "path 15 (b)")
+    got = assembly_invariants(w, maps.bam("native"), "path 15 (b)",
+                              text_len > 2**31)
+    for key in ("device", "hybrid"):
+        e = runs[key]
+        log(f"path 15 (b), {key}: deep blocks {len(e['tier_blocks'])}, "
+            f"{e['tier_blocks_before_drained']} prepared before the input "
+            f"ran out, {e['tier_blocks_after_drained']} after; deep_retried "
+            f"{e['stats']['deep_retried']}, nohit_host "
+            f"{e['stats']['nohit_host']}; {card}")
+    if not runs["device"]["tier_blocks_before_drained"]:
+        raise AssertionError("path 15 (b): no deep block before the input "
+                             "ran out")
+    hyb = runs["hybrid"]["stats"]
+    log(f"path 15 (b), hybrid: device fraction at each sheet's end "
+        f"{[r['device_fraction'] for r in runs['hybrid']['sheets']]}, "
+        f"reads on the device {hyb['hybrid_device_reads']}, on the host "
+        f"{hyb['hybrid_native_reads']}; {card}")
+    return dict(big="chosen" if chosen else "forced", index_s=index_s,
+                index_peak_gib=index_peak, long=runs,
+                records={k: v for k, v in got.items() if isinstance(v, int)})
+
+
+def sheets_phase(torch, np, cli, fasta, card, kernels):
+    """The default run's multi-sheet stream: SHEETS_READS of path 1's kind
+    of reads through `map --engine device` and `--engine native` at
+    --batch_size SHEETS_BATCH (sheets of 10,000, 10,000 and 4,576: two
+    short blocks mid-stream), the BAMs equal, the launches what the blocks
+    imply -> the launches of `kernels` in the device run (counted from 0
+    just before it)."""
+    from mapad_tpu_torch.tools.assembly import gen_genome, make_reads
+    from mapad_tpu_torch.tools.sheets import SheetWatch
+
+    global N_READS
+    t = time.perf_counter()
+    work = os.path.join(WORK, "sheets")
+    os.makedirs(work, exist_ok=True)
+    fastq = os.path.join(work, "reads.fq")
+    from mapad_tpu_torch.tools.assembly import write_fastq
+
+    write_fastq(make_reads(gen_genome(GENOME_SIZE, 42), SHEETS_READS, 142),
+                fastq)
+    saved, N_READS = N_READS, SHEETS_READS
+    try:
+        maps = CliMaps(torch, cli, "multi-sheet phase", fasta, fastq, work,
+                       2 * GENOME_SIZE + 2, False, card)
+        maps.argv += ["--batch_size", str(SHEETS_BATCH)]
+        maps.run("native", ["--engine", "native"])
+        with SheetWatch(torch) as watch:
+            e = maps.run("device", ["--engine", "device"])
+        # its first sheet ends two blocks into the run, before the
+        # pipeline's steady state: memory is printed, not held
+        sheets_check("multi-sheet phase", e, watch.runs[-1], SHEETS_BATCH,
+                     SHEETS_READS, card, hold_memory=False)
+    finally:
+        N_READS = saved
+    log(f"multi-sheet phase: {time.perf_counter() - t:.1f} s")
+    return {k: e["launches"][k] for k in kernels}
+
+
 def big_text_layout(np, size):
     """Path 11's genome of `size` bp as contigs of BIG_TEXT_CONTIG bp: a
     tools/assembly.py Layout with no runs, so that its BAMs are held to
@@ -3767,7 +4112,8 @@ def tier_stats(stats):
     return {k: stats.get(k, 0) for k in (
         "batches", "steps", "escalated", "esc_why", "oracle", "retried",
         "deep_retried", "nohit_host", "prep_s", "device_s", "wait_s",
-        "decode_s", "fb_secs")}
+        "decode_s", "fb_secs", "hybrid_device_reads", "hybrid_native_reads",
+        "device_fraction")}
 
 
 def assembly_retry(run, what):
@@ -4469,6 +4815,12 @@ def main() -> int:
         return configs_alone(torch, np, cli, load_index, args, card,
                              t_start)
 
+    if "--long" in sys.argv[1:]:
+        phases = (sys.argv[sys.argv.index("--phases") + 1]
+                  if "--phases" in sys.argv[1:] else "ab")
+        return long_alone(torch, np, cli, load_index, card, t_start,
+                          scale_arg("--long", LONG_SCALE), phases)
+
     if "--probes" in sys.argv[1:]:
         probe_rows, probe_launches = probe_phase(torch, card)
         return finish(torch, probe_rows, probe_launches,
@@ -4552,6 +4904,12 @@ def main() -> int:
     native_map_and_compare(cli, fastq, fasta, dev_bam,
                            os.path.join(WORK, "native.bam"), "path 1")
     del index
+
+    # --- a stream of several sheets on path 1's index: short blocks
+    # mid-stream ---
+    for name, n in sheets_phase(torch, np, cli, fasta, card,
+                                KERNELS_I32).items():
+        rows[name]["sheets_launches"] = n
 
     # --- path 2: big-genome mode (int64) forced, through pipeline.run ---
     fasta2, fastq2, reads2 = write_workload(np, GENOME2_SIZE, 52, "2")
@@ -4902,8 +5260,9 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     # bound, and the time of the same shards run one after the other, at
     # the check's shape and (k9_main_*) at path 7's block; the rows of path
     # 1's kernels also carry their launches in path 7's two-shard run
-    # (`path7_launches`, its own reset run) and in paths 9 (the in-process
-    # worker's) and 10 (`path9_launches`, `path10_launches`), pool_search
+    # (`path7_launches`, its own reset run), in paths 9 (the in-process
+    # worker's) and 10 (`path9_launches`, `path10_launches`) and in the
+    # multi-sheet phase (`sheets_launches`), pool_search
     # also its shards'
     # steps (`path7_steps`: one launch a generation plus one init per shard
     # and invocation), pack_result its rebasing launches there
@@ -4948,7 +5307,7 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
             "deepest_chain", "load_ns",
             "fixed_check", "fixed_steps", "fixed_ms", "fixed_us_step",
             "fixed_natural_steps", "occ4_batch", "past_2_32", "assembly",
-            "assembly_launches")
+            "assembly_launches", "sheets_launches")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},

@@ -370,7 +370,11 @@ def _run_inner_streaming(
 
     # Ordered writer: conversion futures are enqueued in block-submission
     # order and written in that order, whatever order they complete in.
-    write_q: "queue_mod.Queue" = queue_mod.Queue(maxsize=8)
+    # While it waits on one, the stream runs on until STREAM_WAIT more are
+    # queued: the engine's tiers resolve a block's futures by then.
+    from ..ops.engine import STREAM_WAIT
+
+    write_q: "queue_mod.Queue" = queue_mod.Queue(maxsize=STREAM_WAIT)
     write_err: list = []
 
     def writer_loop():

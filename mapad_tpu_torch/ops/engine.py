@@ -145,6 +145,11 @@ logger = logging.getLogger(__name__)
 
 
 DEFAULT_TIERS = ((2048, None),)
+# The yields after a block's within which `search_stream` resolves the
+# block's tier futures (MAPAD_INFLIGHT up to it): the streaming driver's
+# ordered writer (map/pipeline.py) holds that many blocks queued behind the
+# one whose futures it waits on, and then stops the stream.
+STREAM_WAIT = 8
 
 
 # --- K4: unpack the upload blob -----------------------------------------
@@ -1135,7 +1140,17 @@ class DeviceSearchEngine:
         `max_in_flight`) invocations queued on the device thread at once
         (it runs them one after another); MAPAD_PREP_THREADS (default 1)
         blocks in prep at once, one more queued behind them.  Blocks are
-        yielded in submission order whatever the prep threads."""
+        yielded in submission order whatever the prep threads.
+
+        A tier's futures resolve within STREAM_WAIT yields of their
+        block's: a caller that holds no more yielded blocks than that
+        while it waits on the oldest (the streaming driver's ordered
+        writer) never stops the stream that would resolve them.  A tier
+        buffer whose oldest entry has waited `tier_wait` yields is
+        flushed ahead of the queued blocks, as a tier block or, below
+        MAPAD_RETRY_MIN reads, to the host; an escalatee of a block
+        yielded that long ago goes to the host.  A stream too short for
+        that wait runs as in mapad_tpu."""
         from collections import deque
 
         cfg = self.pool_config
@@ -1170,7 +1185,7 @@ class DeviceSearchEngine:
         # escalatees accumulated (small against R, so retries resolve
         # shortly after their block)
         retry_block = int(os.environ.get("MAPAD_RETRY_BLOCK", str(R // 8)))
-        retry_buf: list = []  # (Future, record, gen)
+        retry_buf: list = []  # (Future, record, gen, yields before it)
         _RETRY = object()  # sentinel key: internal block, never yielded
 
         deep_tier = lazy_fallback and self.deep_tier_enabled()
@@ -1179,8 +1194,11 @@ class DeviceSearchEngine:
             "MAPAD_DEEP_BLOCK", str(max(retry_min, R // 8))
         ))
         deep_gens = int(os.environ.get("MAPAD_DEEP_GENS", "1"))
-        deep_buf: list = []  # (Future, record, gen)
+        deep_buf: list = []  # (Future, record, gen, yields before it)
         _DEEP = object()  # sentinel key: internal deep block
+        # a flushed tier block lands behind the invocations in flight
+        tier_wait = max(1, STREAM_WAIT + 1 - max_in_flight)
+        yielded = 0  # input blocks yielded so far
         deep_nohit_host = deep_tier and (
             os.environ.get("MAPAD_DEEP_NOHIT_HOST", "1") == "1"
         )
@@ -1203,19 +1221,43 @@ class DeviceSearchEngine:
             f.add_done_callback(_done)
             return fut
 
-        def submit_tier(tag, buf, take_n, tier_cfg, stat):
+        def submit_tier(tag, buf, take_n, tier_cfg, stat, first=False):
             take = buf[:take_n]
             del buf[:take_n]
             recs = [t[1] for t in take]
-            prep_q.append(
-                ((tag, take), recs,
-                 self._prep_exec.submit(self._prep_block, recs, R, tier_cfg))
-            )
+            entry = ((tag, take), recs,
+                     self._prep_exec.submit(self._prep_block, recs, R,
+                                            tier_cfg))
+            if first:
+                prep_q.appendleft(entry)
+            else:
+                prep_q.append(entry)
             self._stats[stat] = self._stats.get(stat, 0) + len(take)
+
+        def host_all(buf):
+            for fut, rec, _gen, _born in buf:
+                self._stats["oracle"] += 1
+                fb_submit(rec, None, None, fut)
+            buf.clear()
+
+        def flush_waited():
+            # tier entries that yielded blocks have waited on for
+            # tier_wait yields: a tier block ahead of the queue, or the
+            # host for too few to fill one
+            for tag, buf, take_n, tier_cfg, stat in (
+                    (_RETRY, retry_buf, R, cfg, "retried"),
+                    (_DEEP, deep_buf, deep_take, cfg_deep, "deep_retried")):
+                while buf and yielded - buf[0][3] >= tier_wait:
+                    if len(buf) < retry_min:
+                        host_all(buf)
+                    else:
+                        submit_tier(tag, buf, take_n, tier_cfg, stat,
+                                    first=True)
 
         def refill_prep():
             # a block in prep on every prep thread, one queued behind them
             nonlocal exhausted
+            flush_waited()
             while len(prep_q) < prep_threads + 1:
                 # an accumulated retry/deep block is ready work: prefer it
                 # over new input, and flush stragglers when the input and
@@ -1255,11 +1297,8 @@ class DeviceSearchEngine:
                 refill_prep()
             if not run_q:
                 # too few for another device block: host fallback
-                for fut, rec, _gen in retry_buf + deep_buf:
-                    self._stats["oracle"] += 1
-                    fb_submit(rec, None, None, fut)
-                retry_buf.clear()
-                deep_buf.clear()
+                host_all(retry_buf)
+                host_all(deep_buf)
                 break
             key, recs, launched = run_q.popleft()
             out = [None] * len(recs)
@@ -1277,23 +1316,26 @@ class DeviceSearchEngine:
             )
             stash = launched[3]
 
-            def route(i, rec, gen, fut=None):
+            def route(i, rec, gen, born, fut=None):
                 """Send one escalated read to retry/deep/host; returns the
-                future resolving to its (hits, duration)."""
-                fits = 0 < len(rec.sequence) <= cfg.max_len
+                future resolving to its (hits, duration).  `born`: the
+                yields before its input block's; one that has waited
+                tier_wait yields goes to the host."""
+                fits = (0 < len(rec.sequence) <= cfg.max_len
+                        and yielded - born < tier_wait)
                 # abandons exhausted their per-read cap and deep reads most
                 # of it (the same config would spend it again): only
                 # budget-starved reads re-run on the retry tier
                 if (retry_enabled and gen < retry_gens and fits
                         and i not in abandoned and i not in deep):
                     fut = fut or Future()
-                    retry_buf.append((fut, rec, gen + 1))
+                    retry_buf.append((fut, rec, gen + 1, born))
                     return fut
                 nohit = i in nohits
                 if (deep_tier and gen < deep_gens and fits
                         and not (deep_nohit_host and nohit)):
                     fut = fut or Future()
-                    deep_buf.append((fut, rec, gen + 1))
+                    deep_buf.append((fut, rec, gen + 1, born))
                     return fut
                 if deep_nohit_host and nohit:
                     self._stats["nohit_host"] = (
@@ -1321,18 +1363,19 @@ class DeviceSearchEngine:
 
             if tier is not None:
                 # retry/deep block: resolve the placeholder futures
-                for j, (fut, rec, gen) in enumerate(key[1]):
+                for j, (fut, rec, gen, born) in enumerate(key[1]):
                     if j in escalated:
-                        route(j, rec, gen, fut)
+                        route(j, rec, gen, born, fut)
                     else:
                         fut.set_result(out[j])
                 flush_nohit()
                 continue
             for i in escalated:
-                fut = route(i, recs[i], 0)
+                fut = route(i, recs[i], 0, yielded)
                 out[i] = fut if lazy_fallback else fut.result()
             flush_nohit()
             yield key, out
+            yielded += 1
 
     def deep_tier_enabled(self) -> bool:
         """Deep tier default: on with a big (int64, genome-scale) index,

@@ -2276,3 +2276,93 @@ def test_configs_search_batch_kernel(fmd, cuda, name):
         torch.cuda.synchronize()
     _equal(tuple(got), tuple(want), name)
     assert int((got.hcount.cpu() > 0).sum()) > 4
+
+
+# --- long streams: sheets that end in short blocks mid-stream -------------
+
+# sheets of 25,000, 25,000 and 10,000 reads: blocks of 4,096, seven a full
+# sheet (the first sheet long enough for the card's memory pool to reach
+# its steady state before the first turn), each sheet ending in a short one
+LONG_STREAM_READS = 60_000
+LONG_STREAM_FLAGS = ["-p", "0.03", "-l", "single_stranded", "-f", "0.6",
+                     "-t", "0.55", "-d", "0.01", "-s", "1.0", "-i", "0.001",
+                     "--batch_size", "25000"]
+
+
+@pytest.fixture(scope="module")
+def long_stream(cuda, tmp_path_factory):
+    """A 2 Mbp genome of tools/assembly.py's generator indexed by the CLI,
+    LONG_STREAM_READS of its reads with indels, and the native engine's BAM
+    of them in sheets of 25,000 -> dict."""
+    from mapad_tpu_torch.cli import main
+    from mapad_tpu_torch.tools.assembly import (
+        gen_genome,
+        make_reads,
+        write_fasta,
+        write_fastq,
+    )
+    from torch_port_helpers import bam_records
+
+    d = tmp_path_factory.mktemp("long_stream")
+    genome = gen_genome(2_000_000, 42)
+    fa, fq = str(d / "g.fa"), str(d / "r.fq")
+    write_fasta(fa, genome, ("chr1",), np.array([0]),
+                np.array([len(genome)]))
+    write_fastq(make_reads(genome, LONG_STREAM_READS, 142, indel_rate=0.001),
+                fq)
+    assert main(["index", "-g", fa]) == 0
+    native = str(d / "native.bam")
+    assert main(["map", "-r", fq, "-g", fa, "-o", native, "--engine",
+                 "native", *LONG_STREAM_FLAGS]) == 0
+    return dict(dir=d, fa=fa, fq=fq, native=bam_records(native))
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_long_stream_sheets_on_the_card(long_stream, big):
+    """`pipeline.run` on the card over sheets of 25,000 reads in blocks of
+    4,096, so that each sheet ends in a short block in the middle of the
+    stream, in int32 and in big mode (the deep tier on): the BAM equals the
+    native engine's; the card's allocated bytes between blocks and its
+    reserved bytes stay within 64 MiB of the first sheet's end at every
+    later sheet boundary (a drop allowed at the run's end, when nothing is
+    in flight); K5 launched once a block, tier blocks included."""
+    import os
+
+    from mapad_tpu_torch import cli
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.index.runtime import load_index
+    from mapad_tpu_torch.map import pipeline
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.tools.sheets import SheetWatch
+    from torch_port_helpers import bam_records
+
+    w = long_stream
+    args = cli.build_parser().parse_args(
+        ["map", "-r", w["fq"], "-g", w["fa"], "-o", "x",
+         *LONG_STREAM_FLAGS])
+    params = cli.build_alignment_parameters(args)
+    index = load_index(w["fa"])
+    engine = DeviceSearchEngine(index.fmd, params, big=big, packed_hits=True)
+    assert engine.device.type == "cuda" and engine.deep_tier_enabled() == big
+    engine.block_reads = 4096
+    out = str(w["dir"] / f"device_{big}.bam")
+    LAUNCHES.reset()
+    with SheetWatch(torch) as watch:
+        pipeline.run(w["fq"], w["fa"], out, True, params, None,
+                     engine=engine, position_seed=args.seed,
+                     cmdline="mapad map", threads=os.cpu_count() or 1,
+                     index=index)
+    run = watch.runs[-1]
+    assert run["sheets"] == [25_000, 25_000, 10_000]
+    assert run["input_blocks"] == 17
+    blocks = run["input_blocks"] + len(run["tier_blocks"])
+    assert LAUNCHES.get("pack_result" + ("_i64" if big else "")) == blocks
+    first, *later = run["samples"]
+    assert len(later) == 2
+    for i, s in enumerate(later):
+        for key in ("allocated", "reserved"):
+            grown = s[key] - first[key]
+            assert grown <= 64 << 20, (key, i, grown)
+            if s is not later[-1]:
+                assert -grown <= 64 << 20, (key, i, grown)
+    assert bam_records(out) == w["native"]

@@ -47,12 +47,13 @@ def test_port_imports_no_jax_and_no_mapad_tpu():
     assert {f"mapad_tpu_torch/parallel/{m}.py"
             for m in ("sharding", "pool_sharded", "multihost")} <= parallel
     # CRAM input, the mapAD-native index and distributed mode; big mode's
-    # tools
+    # tools; the sheet-boundary readings of long runs
     assert {f"mapad_tpu_torch/{m}.py" for m in (
         "io/rans_nx16", "io/arith", "io/fqzcomp", "io/tok3", "io/cram",
         "index/mapad_native", "distributed/wire", "distributed/dispatcher",
         "distributed/worker", "tools/big_rows", "tools/measure_big",
-        "tools/load_time", "tools/assembly", "tools/configs")} <= {
+        "tools/load_time", "tools/assembly", "tools/configs",
+        "tools/sheets", "tools/stream_stall")} <= {
             os.path.relpath(f, ROOT) for f in files}
     for path in files:
         bad = _imported_roots(path) & set(FORBIDDEN)

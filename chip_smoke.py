@@ -19,6 +19,11 @@
                                     # alone: runs of a user's length ((a)
                                     # 524,288 reads; (b) the assembly at
                                     # SCALE, 262,144 reads)
+    python3 chip_smoke.py --inputs [SCALE] [--phases abcd]  # path 16
+                                    # alone: mapAD's input as its users
+                                    # supply it (an unaligned pipeline
+                                    # BAM, stdin, .fastq.gz, the
+                                    # dispatcher)
 
 Builds the port's CUDA kernels from csrc/ (one nvcc per source, all at
 once), holds every kernel bit for bit against its plain PyTorch version on
@@ -208,6 +213,43 @@ short form after path 1: 24,576 reads at --batch_size 10,000 (sheets of
 10,000, 10,000 and 4,576) through `--engine device` and `--engine
 native`, the same checks (`sheets_launches` in path 1's rows).
 
+Path 16 (`--inputs [SCALE]`, alone): mapAD's input as its users supply
+it, through the CLI at its defaults.  tools/pipeline_bam.py writes an
+unaligned pipeline BAM from a seed: merged reads, unmerged pairs (R1 0x4D,
+R2 0x8D; mates of 76 and 150 bp, the 150 bp ones longer than the pool's
+max_len and escalated as overlong), QC-failed reads, reads stored
+reverse-complemented under 0x10 beside their forward twins, reads holding
+`=` and IUPAC codes, zero-length records, a run of quality-less records
+(QUAL 0xFF) filling whole blocks and a few scattered, tags to keep (RG,
+XI, YI, a B array) and to filter (NM, MD, AS, XD).  (a) path 1's genome
+and 524,288 records (three sheets of mapAD's --batch_size), `--engine
+native`, `device` and the hybrid; (b) the assembly at SCALE (0.0075: big
+mode forced) and 262,144 records starting at its N-run edges, short runs
+and joins among others, the same engines; (c) (a)'s BAM piped into `map -r
+-` with `--engine device -R` against `--engine native -R` on the file,
+and its merged reads as a `.fastq.gz`, device against native, with the
+decode of each input alone (and of the same reads as a FASTQ); (d) `map
+--dispatcher --batch_size 16384` over (a)'s first 65,536 records with two
+`worker --device cuda:0`, one killed (SIGKILL) holding its second chunk,
+which the other maps.  Every BAM equals its native one over every record
+(XD aside; (d)'s against `--seed 0` in name order) and is held to its
+input (`pipeline_bam.check_output`: names, flags less the mate bits, tags
+less the filtered ones in order with `-R`'s RG, quality-less QUAL, each
+0x10 record mapped as its forward twin); (b)'s BAM to the assembly's
+invariants; the device engine escalates every overlong read as such; each
+block's upload route follows its reads' highest quality (tools/sheets.py
+records it), and K4 (K6) launches on the device-LUT blocks alone, K7, K2,
+K3 and K5 on every block.  Printed: reads/s, the routes' prep and device
+ms a block, the decode's seconds and share of the wall, the hybrid's
+device fraction, memory at the sheet turns.  The default run keeps a short
+form after the small assembly: 24,576 records at --batch_size 10,000
+(the second sheet's first block quality-less), `--engine native` on the
+file and `--engine device` on stdin, the same checks, then the kernels on
+one block of this input against their plain versions: K2, K3 and K5 on
+256 quality-less reads in the host-scored upload, K4 on 256 reads led by
+those holding `=` and IUPAC codes, and K6, K7, K2, K3, K5 in int64 on the
+same reads (`inputs` and `inputs_launches` in the kernel rows).
+
 Before the paths, K8 runs against its plain version at full width with a
 step budget just above the per-read cap, so that the check's reads force
 store boundaries whose moved window overlaps itself (uncapped and capped
@@ -288,6 +330,9 @@ Work files go to .smoke/ (ignored by git).
 
 from __future__ import annotations
 
+import contextlib
+import gzip
+import io
 import json
 import logging
 import os
@@ -1642,24 +1687,30 @@ class _Lines:
 
 
 def dispatcher_run(what, fasta, fastq, native, out, workers, env,
-                   in_process=False):
-    """`map --dispatcher --batch_size PATH8_CHUNK` in a subprocess, a CLI
-    `worker` subprocess for each argument list in `workers` and, with
-    `in_process`, a `Worker` on a thread of this process once the first
-    CLI worker holds the first chunk; every subprocess under `env`.  A
-    process or thread that fails or hangs fails the smoke, and the BAM
-    `out` must equal `native` (`map --seed 0 --engine native` of the same
-    chunks: the position drawn for a read with several best hits is seeded
-    by the seed, the chunk's id and the read's place in it) in read-name
-    order (the dispatcher writes a chunk as its result comes in).  ->
-    (seconds from the dispatcher's start to its BAM, the in-process
-    `Worker` or None, each CLI worker's `_Lines`)."""
+                   in_process=False, batch_size=PATH8_CHUNK,
+                   while_waiting=None):
+    """`map --dispatcher --batch_size batch_size` in a subprocess, a CLI
+    `worker` subprocess (`-v`: it logs each chunk it takes) for each
+    argument list in `workers` and, with `in_process`, a `Worker` on a
+    thread of this process once the first CLI worker holds the first
+    chunk; every subprocess under `env`.  `while_waiting(dispatcher,
+    workers, procs)` (the dispatcher's `_Lines`, the CLI workers' `_Lines`
+    and processes), where given, runs once the workers are started and
+    returns the indices of the CLI workers it killed, whose exit is not
+    checked.  A process or thread that fails or hangs fails the smoke, and
+    the BAM `out` must equal `native` (`map --seed 0 --engine native` of
+    the same chunks: the position drawn for a read with several best hits
+    is seeded by the seed, the chunk's id and the read's place in it) in
+    read-name order (the dispatcher writes a chunk as its result comes
+    in).  -> (seconds from the dispatcher's start to its BAM, the
+    in-process `Worker` or None, each CLI worker's `_Lines`)."""
     from mapad_tpu_torch.distributed.worker import Worker
 
     port = str(free_port())
     cmd = [sys.executable, "-m", "mapad_tpu_torch.cli", "--port", port]
     procs, lines, errors = [], [], []
     worker = thread = None
+    killed = set()
 
     def start(argv):
         procs.append(subprocess.Popen(
@@ -1676,13 +1727,13 @@ def dispatcher_run(what, fasta, fastq, native, out, workers, env,
 
     t = time.perf_counter()
     try:
-        dispatcher = start(["map", "--dispatcher", "--batch_size",
-                            str(PATH8_CHUNK), "-r", fastq, "-g", fasta, "-o",
-                            out, "--force_overwrite", *MAP_FLAGS])
+        dispatcher = start(["map", "--dispatcher", "-r", fastq, "-g", fasta,
+                            "-o", out, "--force_overwrite", *MAP_FLAGS,
+                            "--batch_size", str(batch_size)])
         dispatcher.wait_for("Dispatcher listening", PATH9_TIMEOUT,
                             f"{what}: the dispatcher")
         for argv in workers:
-            start(["worker", "--host", "127.0.0.1", *argv])
+            start(["-v", "worker", "--host", "127.0.0.1", *argv])
         if in_process:
             # the first CLI worker holds the first chunk before this one
             # connects
@@ -1691,7 +1742,12 @@ def dispatcher_run(what, fasta, fastq, native, out, workers, env,
             worker = Worker("127.0.0.1", int(port))
             thread = threading.Thread(target=serve, daemon=True)
             thread.start()
+        if while_waiting is not None:
+            killed = {1 + k for k in while_waiting(dispatcher, lines[1:],
+                                                   procs[1:])}
         for k, (proc, text) in enumerate(zip(procs, lines)):
+            if k in killed:
+                continue
             who = ("the dispatcher" if k == 0 else
                    f"CLI worker {k} {' '.join(workers[k - 1])}".rstrip())
             try:
@@ -3422,17 +3478,35 @@ def block_of(big):
         4096 if big else 8192)
 
 
-def expected_launches(big, blocks):
+def expected_launches(big, blocks, lut):
     """Each kernel's launches for `blocks` invocations of one store
-    generation each: K4 (or K6 and K7), K1 one a K2 generation (K7's own
+    generation each, `lut` of them uploaded as the device-LUT blob: K4 (or
+    K6) on those, K7 on every block, K1 one a K2 generation (K7's own
     besides), K2 an init and a generation, K3 and K5 one each."""
     if big:
-        return dict(unpack_prep_full=blocks, bi_d_i64=blocks,
+        return dict(unpack_prep_full=lut, bi_d_i64=blocks,
                     extend_batch_i64=2 * blocks, pool_search_i64=2 * blocks,
                     extract_chains_i64=blocks, pack_result_i64=blocks)
-    return dict(unpack_prep=blocks, extend_batch=blocks,
+    return dict(unpack_prep=lut, extend_batch=blocks,
                 pool_search=2 * blocks, extract_chains=blocks,
                 pack_result=blocks)
+
+
+def block_routes(run, what):
+    """The upload route of each block a watched run prepared, held to its
+    reads: the device-LUT blob (K4, or K6) where every base quality of
+    the reads that fit the pool is below the LUT's ceiling, the
+    host-scored rows (or big mode's dense arrays) where one is not -> the
+    number of device-LUT blocks."""
+    from mapad_tpu_torch.ops.prep import _DEV_LUT_Q
+
+    blocks = run["blocks"]
+    wrong = [(i, b) for i, b in enumerate(blocks) if b["route"] != (
+        "lut" if b["max_qual"] < _DEV_LUT_Q else "host")]
+    if wrong:
+        raise AssertionError(f"{what}: {len(wrong)} blocks took the other "
+                             f"upload route, the first {wrong[:3]}")
+    return sum(b["route"] == "lut" for b in blocks)
 
 
 def sheets_check(what, e, run, batch, n, card, hold_memory=True):
@@ -3454,11 +3528,12 @@ def sheets_check(what, e, run, batch, n, card, hold_memory=True):
     from mapad_tpu_torch.tools.sheets import deep_before
 
     before = deep_before(run) if tiers else 0
-    want = expected_launches(e["big"], blocks + len(tiers))
+    lut = block_routes(run, what)
+    want = expected_launches(e["big"], blocks + len(tiers), lut)
     if e["launches"] != want:
         raise AssertionError(f"{what}: launches {e['launches']} against "
                              f"{want} for {blocks} input and {len(tiers)} "
-                             "tier blocks")
+                             f"tier blocks, {lut} of them device-LUT")
     samples = run["samples"]
     first = samples[0]
     rows, bad = [], []
@@ -3491,8 +3566,8 @@ def sheets_check(what, e, run, batch, n, card, hold_memory=True):
                 bad.append(f"rss {d_rss / 2**20:+.1f} MiB after sheet {i}")
     log(f"{what}: sheets {sizes} (short blocks {short}); {blocks} input "
         f"blocks, {len(tiers)} tier blocks ({before} prepared before the "
-        f"input ran out; reads {tiers}); launches {e['launches']}, as the "
-        f"blocks imply")
+        f"input ran out; reads {tiers}), {lut} of them device-LUT; "
+        f"launches {e['launches']}, as the blocks imply")
     for r in rows:
         log(f"  sheet {r['sheet']}: {r['reads_per_s']:.1f} reads/s; "
             f"{r['blocks']} blocks, ms a block: " + ", ".join(
@@ -3507,7 +3582,22 @@ def sheets_check(what, e, run, batch, n, card, hold_memory=True):
     return dict(sheets=rows, input_blocks=blocks, short_blocks=short,
                 tier_blocks=tiers, tier_blocks_before_drained=before,
                 tier_blocks_after_drained=len(tiers) - before,
-                exhausted=run["exhausted"])
+                exhausted=run["exhausted"], lut_blocks=lut,
+                routes=route_figures(run))
+
+
+def route_figures(run):
+    """A watched run's blocks by upload route -> {route: blocks, mean prep
+    ms a block, mean ms of the device thread a block}."""
+    out = {}
+    for r in ("lut", "host"):
+        prep = [b["prep_s"] for b in run["blocks"] if b["route"] == r]
+        dev = [b["device_s"] for b in run["runs"] if b["route"] == r]
+        if prep:
+            out[r] = dict(blocks=len(prep),
+                          prep_ms=sum(prep) * 1e3 / len(prep),
+                          device_ms=sum(dev) * 1e3 / max(len(dev), 1))
+    return out
 
 
 def watched_maps(torch, maps, n, batch, card, what):
@@ -3696,6 +3786,492 @@ def sheets_phase(torch, np, cli, fasta, card, kernels):
         N_READS = saved
     log(f"multi-sheet phase: {time.perf_counter() - t:.1f} s")
     return {k: e["launches"][k] for k in kernels}
+
+
+# --- path 16 (`--inputs [SCALE]`): mapAD's input as its users supply it ---
+
+INPUTS_READS = LONG_READS          # (a): sheets of 250,000, 250,000, 24,288
+INPUTS_BIG_READS = LONG_BIG_READS  # (b): sheets of 250,000 and 12,144
+INPUTS_SEED = 20
+INPUTS_SCALE = LONG_SCALE          # (b)'s assembly
+INPUTS_QLESS = (16_384, 8_192)  # the first sheet's third 8,192-read block
+#                                 (its fifth and sixth of 4,096 in big mode)
+INPUTS_RG = "@RG\tID:x\tSM:y"
+INPUTS_DISPATCH_READS = 65_536  # (d): four chunks of INPUTS_CHUNK
+INPUTS_CHUNK = 16_384
+INPUTS_SHORT_READS = SHEETS_READS     # the default run's form, in sheets of
+INPUTS_SHORT_QLESS = (10_000, 8_192)  # SHEETS_BATCH: the second sheet's
+#                                       first block quality-less
+INPUTS_CHECK_READS = 256  # one block of this input against the plain kernels
+INPUTS_FIXED = 512        # K2's fixed step count there
+
+
+@contextlib.contextmanager
+def piped_stdin(path):
+    """sys.stdin fed by `cat path` through a pipe, as `cat path | map -r -`
+    feeds it."""
+    proc = subprocess.Popen(["cat", path], stdout=subprocess.PIPE)
+    saved, sys.stdin = sys.stdin, io.TextIOWrapper(proc.stdout)
+    try:
+        yield
+    finally:
+        sys.stdin = saved
+        proc.stdout.close()
+        proc.kill()
+        proc.wait()
+
+
+def decode_seconds(path, what, card, stdin=False):
+    """Seconds to pull every sheet of `path` (or, with `stdin`, of `path`
+    piped into stdin) through the InputSource the pipeline reads, records
+    converted, at mapAD's --batch_size -> (seconds, records)."""
+    from mapad_tpu_torch.io.sniff import InputSource
+
+    t = time.perf_counter()
+    with piped_stdin(path) if stdin else contextlib.nullcontext():
+        src = InputSource.from_path("-" if stdin else path)
+        n = sum(len(sheet.records) for sheet in src.task_queue(LONG_BATCH))
+    secs = time.perf_counter() - t
+    log(f"decode of {what} ({src.kind}{', stdin' if stdin else ''}): {n} "
+        f"records in {secs:.2f} s = {n / secs:.1f} records/s (the "
+        f"InputSource alone, on the host; {card})")
+    return secs, n
+
+
+def inputs_checks(truth, maps, runs, what, card, read_group=None):
+    """Path 16's checks of one input's maps (`runs`, CliMaps figures by
+    engine; every BAM already equal to the native one): the native and
+    device BAMs held to the input (`pipeline_bam.check_output`), the
+    overlong reads among the device engine's escalations (and the
+    hybrid's), the routes' costs printed -> the checks' counts."""
+    from mapad_tpu_torch.tools import pipeline_bam as pb
+
+    out = {}
+    for key in ("native", "device"):
+        if key in runs:
+            out[key] = pb.check_output(truth, maps.bam(key), read_group)
+    log(f"{what}: the native and device BAMs held to the input: "
+        f"{out.get('native') or out.get('device')} (names, flags less the "
+        f"mate bits, tags less the filtered ones in order, quality-less "
+        f"QUAL, 0x10 records as their forward twins)")
+    overlong = int(truth.overlong.sum())
+    for key, e in runs.items():
+        if key == "native":
+            continue
+        got = e["stats"]["esc_why"]["overlong"]
+        if (got != overlong if key == "device"
+                else not 0 < got <= overlong):
+            raise AssertionError(f"{what}, {key}: {got} reads escalated as "
+                                 f"overlong, the input holds {overlong}")
+        for route, r in e.get("routes", {}).items():
+            log(f"  {key}, {route} blocks: {r['blocks']}, prep "
+                f"{r['prep_ms']:.1f} ms a block, device thread "
+                f"{r['device_ms']:.1f} ms a block; {card}")
+        log(f"  {key}: {got} of the input's {overlong} overlong reads "
+            f"escalated as such; {e['reads_per_s']:.1f} reads/s; {card}")
+        if "device_fraction" in e["stats"] and e["stats"]["device_fraction"]:
+            log(f"  {key}: device fraction {e['stats']['device_fraction']:.3f}"
+                f", reads on the device {e['stats']['hybrid_device_reads']},"
+                f" on the host {e['stats']['hybrid_native_reads']}")
+    return out
+
+
+def inputs_small(np, cli, work, card):
+    """Path 1's genome (written and indexed in `work`) and a pipeline BAM
+    of INPUTS_READS of its records -> dict: fasta, bam, truth."""
+    from mapad_tpu_torch.tools import pipeline_bam as pb
+
+    t, n = time.perf_counter(), INPUTS_READS
+    fasta, genome = config_genome(np, work)
+    if not os.path.exists(os.path.join(f"{fasta}.tpx", "meta.json")):
+        if cli.main(["index", "-g", fasta]) != 0:
+            raise SystemExit("index failed")
+    bam = os.path.join(work, f"pipeline_{n}.bam")
+    truth = pb.make(bam, genome, n, INPUTS_SEED, qualityless=INPUTS_QLESS)
+    log(f"path 16: path 1's genome ({GENOME_SIZE} bp) and a pipeline BAM of "
+        f"{truth.counts()} in {time.perf_counter() - t:.1f} s; {card}")
+    return dict(fasta=fasta, bam=bam, truth=truth, work=work)
+
+
+def inputs_a(torch, cli, a, card):
+    """Path 16 (a): the pipeline BAM through `map` with each of
+    LONG_ENGINES at the CLI's defaults -> its figures."""
+    global N_READS
+    N_READS = INPUTS_READS
+    maps = CliMaps(torch, cli, "path 16 (a)", a["fasta"], a["bam"],
+                   os.path.join(a["work"], "a"), 2 * GENOME_SIZE + 2, False,
+                   card)
+    os.makedirs(maps.work, exist_ok=True)
+    runs = watched_maps(torch, maps, INPUTS_READS, LONG_BATCH, card,
+                        "path 16 (a)")
+    checks = inputs_checks(a["truth"], maps, runs, "path 16 (a)", card)
+    secs, _n = decode_seconds(a["bam"], "path 16 (a)'s BAM", card)
+    for key, e in runs.items():
+        log(f"path 16 (a), {key}: the BAM's decode alone {secs:.2f} s, "
+            f"{secs / e['seconds']:.3f} of this map's wall "
+            f"({e['seconds']:.2f} s)")
+    return dict(runs=runs, checks=checks, decode_s=secs)
+
+
+def inputs_b(torch, cli, card, scale):
+    """Path 16 (b): the assembly at `scale` and a pipeline BAM of its reads
+    (starts at its N-run edges, short runs and joins among them) in big
+    mode (forced below 2^31) -> its figures."""
+    global N_READS
+    from mapad_tpu_torch.tools import assembly
+    from mapad_tpu_torch.tools import pipeline_bam as pb
+
+    awork = os.path.join(WORK, "assembly")
+    t = time.perf_counter()
+    lay, bases, _r, _k, fasta, _fq = assembly.make(awork, scale,
+                                                  ASSEMBLY_SEED, 1)
+    starts, kinds = assembly.read_starts(lay, INPUTS_BIG_READS, INPUTS_SEED)
+    bam = os.path.join(WORK, "inputs", f"assembly_{scale:g}.bam")
+    truth = pb.make(bam, bases, INPUTS_BIG_READS, INPUTS_SEED, starts=starts,
+                    qualityless=INPUTS_QLESS)
+    log(f"path 16 (b): the assembly at {scale:g} ({lay.text_len:,} "
+        f"symbols) and a pipeline BAM of {truth.counts()} "
+        f"({int((kinds != '').sum())} starts at edges) in "
+        f"{time.perf_counter() - t:.1f} s")
+    cli_index(fasta, lay.text_len, awork, "path 16 (b)", card)
+    chosen = lay.text_len >= BIG_TEXT_MIN
+    N_READS = INPUTS_BIG_READS
+    maps = CliMaps(torch, cli, "path 16 (b)", fasta, bam,
+                   os.path.join(WORK, "inputs", "b"), lay.text_len, True,
+                   card, force_big=not chosen)
+    os.makedirs(maps.work, exist_ok=True)
+    runs = watched_maps(torch, maps, INPUTS_BIG_READS, LONG_BATCH, card,
+                        "path 16 (b)")
+    inv = bam_invariants(lay, bases, maps.bam("native"), "path 16 (b)")
+    checks = inputs_checks(truth, maps, runs, "path 16 (b)", card)
+    return dict(big="chosen" if chosen else "forced", runs=runs,
+                checks=checks,
+                records={k: v for k, v in inv.items() if isinstance(v, int)})
+
+
+def stdin_run(torch, maps, key, path, n, batch, card, what):
+    """`maps.run(key)` with its input `path` piped into `map -r -`, watched
+    and held to `sheets_check` -> its figures."""
+    from mapad_tpu_torch.tools.sheets import SheetWatch
+
+    at = maps.argv.index(path)
+    maps.argv[at] = "-"
+    try:
+        with SheetWatch(torch) as watch, piped_stdin(path):
+            e = maps.run(key, ["--engine", "device"])
+    finally:
+        maps.argv[at] = path
+    e.update(sheets_check(what, e, watch.runs[-1], batch, n, card,
+                          hold_memory=False))
+    return e
+
+
+def inputs_c(torch, cli, a, card):
+    """Path 16 (c): the BAM of (a) piped into `map -r -` with `--engine
+    device` and `-R` against `--engine native` on the file with the same
+    `-R`; (a)'s merged reads as a `.fastq.gz`, device against native; the
+    decode alone of each input and of the same reads as a FASTQ -> its
+    figures."""
+    global N_READS
+    from mapad_tpu_torch.tools import pipeline_bam as pb
+    from mapad_tpu_torch.tools.sheets import SheetWatch
+
+    truth, work = a["truth"], os.path.join(a["work"], "c")
+    os.makedirs(work, exist_ok=True)
+    N_READS = INPUTS_READS
+    maps = CliMaps(torch, cli, "path 16 (c), -R", a["fasta"], a["bam"], work,
+                   2 * GENOME_SIZE + 2, False, card,
+                   flags=[*MAP_FLAGS, "-R", INPUTS_RG])
+    maps.run("native", ["--engine", "native"])
+    e = stdin_run(torch, maps, "device", a["bam"], INPUTS_READS,
+                  LONG_BATCH, card, "path 16 (c), stdin -R")
+    runs = dict(native=maps.figures["native"], device=e)
+    checks = inputs_checks(truth, maps, runs, "path 16 (c), stdin -R", card,
+                           read_group="x")
+
+    gz = os.path.join(work, "merged.fastq.gz")
+    fq = os.path.join(work, "merged.fq")
+    N_READS = pb.write_fastq_gz(gz, truth)
+    with gzip.open(gz, "rb") as f_in, open(fq, "wb") as f_out:
+        shutil.copyfileobj(f_in, f_out)
+    gz_maps = CliMaps(torch, cli, "path 16 (c), .fastq.gz", a["fasta"], gz,
+                      os.path.join(work, "gz"), 2 * GENOME_SIZE + 2, False,
+                      card)
+    os.makedirs(gz_maps.work, exist_ok=True)
+    gz_maps.run("native", ["--engine", "native"])
+    with SheetWatch(torch) as watch:
+        g = gz_maps.run("device", ["--engine", "device"])
+    g.update(sheets_check("path 16 (c), .fastq.gz", g, watch.runs[-1],
+                          LONG_BATCH, N_READS, card, hold_memory=False))
+    decode = {}
+    for what, path, stdin in (("the BAM", a["bam"], False),
+                              ("the BAM", a["bam"], True),
+                              ("the merged reads' .fastq.gz", gz, False),
+                              ("the merged reads' FASTQ", fq, False)):
+        decode[f"{what}{' on stdin' if stdin else ''}"] = decode_seconds(
+            path, what, card, stdin)
+    return dict(stdin=runs, fastq_gz=dict(native=gz_maps.figures["native"],
+                                          device=g),
+                merged_reads=N_READS, checks=checks, decode=decode)
+
+
+def kill_second_taker(what, seen):
+    """A `dispatcher_run` hook: the first CLI worker to take its second
+    chunk, that is after its first result, is sent SIGKILL, and the
+    dispatcher must queue its chunk again.  Stores in `seen` the
+    dispatcher's `_Lines`, the killed worker's index, the chunk it held and
+    the other worker's `_Lines`."""
+    def hook(dispatcher, workers, procs):
+        end = time.perf_counter() + PATH9_TIMEOUT
+        while True:
+            taken = [[ln for ln in list(w.lines) if "Map chunk" in ln]
+                     for w in workers]
+            k = next((k for k in (0, 1) if len(taken[k]) >= 2), None)
+            if k is not None:
+                break
+            if dispatcher.proc.poll() is not None or (
+                    time.perf_counter() > end):
+                raise AssertionError(
+                    f"{what}: no worker took a second chunk:\n"
+                    + "\n".join(w.tail() for w in (dispatcher, *workers)))
+            time.sleep(0.02)
+        procs[k].kill()
+        procs[k].wait()
+        seen.update(dispatcher=dispatcher, k=k, other=workers[1 - k],
+                    held=int(re.search(r"Map chunk (\d+)",
+                                       taken[k][-1]).group(1)))
+        dispatcher.wait_for("Re-queue chunk", PATH9_TIMEOUT,
+                            f"{what}: the dispatcher")
+        return {k}
+    return hook
+
+
+def inputs_d(cli, a, card):
+    """Path 16 (d): the first INPUTS_DISPATCH_READS records of (a)'s BAM
+    through `map --dispatcher` with two CLI workers on the card, one killed
+    holding a chunk (`dispatcher_run`, `kill_second_taker`) -> its
+    figures."""
+    global N_READS
+    from mapad_tpu_torch.tools import pipeline_bam as pb
+
+    work = os.path.join(a["work"], "d")
+    os.makedirs(work, exist_ok=True)
+    N_READS = INPUTS_DISPATCH_READS
+    bam = os.path.join(work, "head.bam")
+    truth = pb.head(a["truth"], a["bam"], bam, N_READS)
+    native = os.path.join(work, "native.bam")
+    t = time.perf_counter()
+    if cli.main(["--seed", "0", "--threads", "0", "map", "-r", bam, "-g",
+                 a["fasta"], "-o", native, "--force_overwrite", "--engine",
+                 "native", *MAP_FLAGS, "--batch_size",
+                 str(INPUTS_CHUNK)]) != 0:
+        raise SystemExit("native map failed")
+    log(f"path 16 (d): map --seed 0 --engine native --batch_size "
+        f"{INPUTS_CHUNK}: {time.perf_counter() - t:.2f} s")
+    checks = pb.check_output(truth, native)
+    what, seen = "path 16 (d)", {}
+    secs, _, _ = dispatcher_run(
+        what, a["fasta"], bam, native, os.path.join(work, "dispatched.bam"),
+        [["--device", "cuda:0"]] * 2, dict(os.environ, MAPAD_SHARD="0"),
+        batch_size=INPUTS_CHUNK, while_waiting=kill_second_taker(what, seen))
+    killed = seen["held"]
+    requeued = [int(m) for m in re.findall(
+        r"Re-queue chunk (\d+)", "\n".join(seen["dispatcher"].lines))]
+    mapped = [int(m) for m in re.findall(
+        r"Map chunk (\d+)", "\n".join(seen["other"].lines))]
+    log(f"{what}: worker {seen['k'] + 1} killed holding chunk {killed}; the "
+        f"dispatcher requeued {requeued}; the other worker mapped chunks "
+        f"{mapped}")
+    if requeued != [killed] or killed not in mapped:
+        raise AssertionError(f"{what}: chunk {killed} of the killed worker "
+                             f"requeued {requeued}, the other worker mapped "
+                             f"{mapped}")
+    log(f"path 16 (d), map --dispatcher with two workers on cuda:0, one "
+        f"killed: {N_READS} records in {secs:.2f} s = {N_READS / secs:.1f} "
+        f"reads/s, dispatcher start to BAM; {card}")
+    return dict(seconds=secs, reads_per_s=N_READS / secs, killed=killed,
+                other_mapped=mapped, checks=checks)
+
+
+def inputs_kernels(torch, small, big, truth, card):
+    """The kernels on one block of this input against their plain versions:
+    on INPUTS_CHECK_READS quality-less reads in the host-scored upload, K2
+    at INPUTS_FIXED steps, K3 and K5 (int32); on as many reads led by
+    those holding `=` and IUPAC codes, K4 (int32), then K6, K7, K2, K3 and
+    K5 (int64).  -> {kernel-table row: its `inputs` keys}."""
+    import numpy as np
+
+    from mapad_tpu_torch.map.record import Record
+    from mapad_tpu_torch.ops import bi_d
+    from mapad_tpu_torch.ops import engine as eng
+    from mapad_tpu_torch.ops.prep import _DEV_LUT_Q
+    from mapad_tpu_torch.ops import search_pool2 as sp2
+    from mapad_tpu_torch.tools import pipeline_bam as pb
+
+    R = INPUTS_CHECK_READS
+    lens = np.array([len(s) for s in truth.sequences])
+    fits = (lens > 0) & ~truth.overlong
+
+    def block(first):
+        rest = np.flatnonzero(fits & ~first & ~truth.qualityless)
+        idx = [*np.flatnonzero(fits & first), *rest][:R]
+        return [Record.from_bam(truth.names[i], int(truth.flags[i]),
+                                truth.sequences[i], truth.qualities[i],
+                                truth.tags[i]) for i in idx]
+
+    qless = block(truth.qualityless)
+    iupac = block((truth.kinds == pb.IUPAC) & ~truth.qualityless)
+    n_iupac = sum(any(c not in b"ACGTN" for c in r.sequence) for r in iupac)
+    out = {}
+
+    def pool(engine, consts, slut, cfg, what, key):
+        err, res, done, _ = fixed_pool_check(torch, engine, consts, slut,
+                                             cfg, R, INPUTS_FIXED, what)
+        if not done:
+            raise AssertionError(f"{what}: no hit in {INPUTS_FIXED} steps")
+        sfx = "_i64" if engine.device_index.big else ""
+        for name in ("pool_search", "extract_chains", "pack_result"):
+            out.setdefault(name + sfx, {})[key] = dict(
+                max_abs_err=err, reads=R, fixed_steps=INPUTS_FIXED,
+                chains=int(res.n_chains), hits=done)
+        log(f"K2 + K3 + K5{sfx} on {what}: {R} reads, debug_fixed_steps="
+            f"{INPUTS_FIXED}, bit-exact against the plain versions; "
+            f"{int(res.n_chains)} chains, {done} of them hits; {card}")
+
+    cfg, prep, _t0 = small._prep_block(qless, R, small.pool_config)
+    if prep["dev_lut"]:
+        raise AssertionError("a quality-less block took the device-LUT blob")
+    consts, kw = small._upload(prep)
+    pool(small, consts, kw["slut"], cfg,
+         "a quality-less block (host-scored rows, no K4)", "qualityless")
+
+    tab, pen_tab, off = small._device_lut()
+    cfg, prep, _t0 = small._prep_block(iupac, R, small.pool_config)
+    if not prep["dev_lut"]:
+        raise AssertionError("a block of quality reads took the host-scored "
+                             "rows")
+    M = prep["max_len"]
+    blob = torch.from_numpy(prep["blob"]).to(small.device)
+    parts = eng._unpack_prep_lut(blob, tab, off, R, M, _DEV_LUT_Q,
+                                 prep["rle"])
+    out["unpack_prep"] = {"iupac": dict(max_abs_err=compare(
+        torch, parts, eng._unpack_prep_lut_plain(
+            blob, tab, off, R, M, _DEV_LUT_Q, prep["rle"]),
+        "unpack_prep on a block with IUPAC bases"), reads=R,
+        iupac_reads=n_iupac)}
+    log(f"K4 on a block of {R} reads, {n_iupac} of them holding `=` or "
+        f"IUPAC codes: bit-exact; {card}")
+
+    tab, pen_tab, off = big._device_lut()
+    cfg, prep, _t0 = big._prep_block(iupac, R, big.pool_config)
+    if not prep.get("dev_full"):
+        raise AssertionError("a block of quality reads took the dense arrays")
+    M, idx = prep["max_len"], big.device_index
+    blob = torch.from_numpy(prep["blob"]).to(big.device)
+    dense = eng._unpack_prep_full(blob, tab, pen_tab, off, R, M, _DEV_LUT_Q)
+    err6 = compare(torch, dense, eng._unpack_prep_full_plain(
+        blob, tab, pen_tab, off, R, M, _DEV_LUT_Q),
+        "unpack_prep_full on a block with IUPAC bases")
+    rank, code, n, score_lut, pen, split, *_rest = dense
+    steps, fwd = prep["bid_steps"], cfg.compute_forward_part
+    bid = bi_d.compute_bi_d(idx, rank, pen, n, split, fwd, steps)
+    err7 = compare(torch, (bid,), (bi_d.compute_bi_d_plain(
+        idx, rank, pen, n, split, fwd, steps),),
+        "bi_d_i64 on a block with IUPAC bases")
+    out["unpack_prep_full"] = {"iupac": dict(max_abs_err=err6, reads=R,
+                                             iupac_reads=n_iupac)}
+    out["bi_d_i64"] = {"iupac": dict(max_abs_err=err7, reads=R,
+                                     iupac_reads=n_iupac)}
+    log(f"K6, K7 (int64) on the same block: bit-exact; {card}")
+    slut = sp2._dense_slut(idx, (rank, code, score_lut, pen), n, split, cfg,
+                           steps)
+    pool(big, (n, split, *dense[6:]), slut, cfg,
+         "a block with IUPAC bases (int64)", "iupac")
+    return {k: {"inputs": v} for k, v in out.items()}
+
+
+def inputs_phase(torch, np, cli, fasta, card, kernels, params, args):
+    """The default run's form of path 16: INPUTS_SHORT_READS records of a
+    pipeline BAM of path 1's genome (a quality-less block, overlong mates,
+    IUPAC and `=` bases, 0x10 twins), `map --engine native` on the file
+    and `map --engine device` on stdin at --batch_size SHEETS_BATCH, the
+    BAMs equal and held to the input, the launches what the blocks' routes
+    imply; then `inputs_kernels` on path 1's index.  -> {row: keys}: the
+    kernels' `inputs` and `inputs_launches` (the stdin run's, counted from
+    0 just before it)."""
+    global N_READS
+    from mapad_tpu_torch.index import load_index
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.tools import pipeline_bam as pb
+
+    t = time.perf_counter()
+    work = os.path.join(WORK, "inputs_short")
+    os.makedirs(work, exist_ok=True)
+    bam = os.path.join(work, "pipeline.bam")
+    from mapad_tpu_torch.tools.assembly import gen_genome
+
+    truth = pb.make(bam, gen_genome(GENOME_SIZE, 42), INPUTS_SHORT_READS,
+                    INPUTS_SEED, qualityless=INPUTS_SHORT_QLESS, scattered=1)
+    log(f"path 16, short form: a pipeline BAM of {truth.counts()}")
+    saved, N_READS = N_READS, INPUTS_SHORT_READS
+    try:
+        maps = CliMaps(torch, cli, "path 16, short form", fasta, bam, work,
+                       2 * GENOME_SIZE + 2, False, card)
+        maps.argv += ["--batch_size", str(SHEETS_BATCH)]
+        maps.run("native", ["--engine", "native"])
+        e = stdin_run(torch, maps, "device", bam, INPUTS_SHORT_READS,
+                      SHEETS_BATCH, card, "path 16, short form, stdin")
+        inputs_checks(truth, maps, dict(native=maps.figures["native"],
+                                        device=e),
+                      "path 16, short form", card)
+        if not e["routes"].get("host") or not e["routes"].get("lut"):
+            raise AssertionError(f"path 16, short form: routes "
+                                 f"{e['routes']}, not both")
+    finally:
+        N_READS = saved
+    index = load_index(fasta)
+    rows = inputs_kernels(
+        torch, DeviceSearchEngine(index.fmd, params, lanes=args.lanes,
+                                  packed_hits=True),
+        DeviceSearchEngine(index.fmd, params, lanes=args.lanes, big=True,
+                           packed_hits=True), truth, card)
+    for name in kernels:
+        rows.setdefault(name, {})["inputs_launches"] = e["launches"][name]
+    log(f"path 16, short form: {time.perf_counter() - t:.1f} s")
+    return rows
+
+
+def inputs_alone(torch, np, cli, card, t_start, scale, phases):
+    """`--inputs [SCALE] [--phases abcd]`: path 16, the phases named (all by
+    default).  (a) path 1's genome and a pipeline BAM of INPUTS_READS
+    records (tools/pipeline_bam.py) through `map` with each of
+    LONG_ENGINES at the CLI's defaults; (b) the assembly at SCALE and a
+    pipeline BAM of INPUTS_BIG_READS of its reads in big mode, the same
+    engines; (c) (a)'s BAM on stdin with `-R` and its merged reads as a
+    `.fastq.gz`, device against native; (d) the dispatcher with two card
+    workers, one killed holding a chunk.  Every BAM equals its native one
+    and is held to its input; the launches are what the blocks' routes
+    imply."""
+    work = os.path.join(WORK, "inputs")
+    os.makedirs(work, exist_ok=True)
+    summary = dict(card=card, scale=scale, phases=phases)
+    a = (inputs_small(np, cli, work, card)
+         if set(phases) & set("acd") else None)
+    for p, fn in (("a", lambda: inputs_a(torch, cli, a, card)),
+                  ("b", lambda: inputs_b(torch, cli, card, scale)),
+                  ("c", lambda: inputs_c(torch, cli, a, card)),
+                  ("d", lambda: inputs_d(cli, a, card))):
+        if p in phases:
+            t = time.perf_counter()
+            summary[p] = fn()
+            log(f"path 16 ({p}): {time.perf_counter() - t:.1f} s")
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(card)
+    print(json.dumps({"inputs": summary}, default=str), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 def big_text_layout(np, size):
@@ -4821,6 +5397,12 @@ def main() -> int:
         return long_alone(torch, np, cli, load_index, card, t_start,
                           scale_arg("--long", LONG_SCALE), phases)
 
+    if "--inputs" in sys.argv[1:]:
+        phases = (sys.argv[sys.argv.index("--phases") + 1]
+                  if "--phases" in sys.argv[1:] else "abcd")
+        return inputs_alone(torch, np, cli, card, t_start,
+                            scale_arg("--inputs", INPUTS_SCALE), phases)
+
     if "--probes" in sys.argv[1:]:
         probe_rows, probe_launches = probe_phase(torch, card)
         return finish(torch, probe_rows, probe_launches,
@@ -4975,6 +5557,12 @@ def main() -> int:
     # N, the retry tier; int32 and big mode ---
     for name, k in small_assembly_phase(torch, cli, load_index, params, args,
                                         card, pipeline).items():
+        rows[name].update(k)
+
+    # --- path 16's short form: a pipeline BAM on stdin, its blocks'
+    # routes, the kernels on a quality-less and an IUPAC block ---
+    for name, k in inputs_phase(torch, np, cli, fasta, card, KERNELS_I32,
+                                params, args).items():
         rows[name].update(k)
 
     from mapad_tpu_torch.map.native_search import NativeSearchEngine
@@ -5262,7 +5850,9 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
     # 1's kernels also carry their launches in path 7's two-shard run
     # (`path7_launches`, its own reset run), in paths 9 (the in-process
     # worker's) and 10 (`path9_launches`, `path10_launches`) and in the
-    # multi-sheet phase (`sheets_launches`), pool_search
+    # multi-sheet phase (`sheets_launches`) and in path 16's short form
+    # (`inputs_launches`, its stdin run's), and the kernels' checks on
+    # its quality-less and IUPAC blocks (`inputs`), pool_search
     # also its shards'
     # steps (`path7_steps`: one launch a generation plus one init per shard
     # and invocation), pack_result its rebasing launches there
@@ -5307,7 +5897,8 @@ def finish(torch, rows, launches, path_of, card, t_start) -> int:
             "deepest_chain", "load_ns",
             "fixed_check", "fixed_steps", "fixed_ms", "fixed_us_step",
             "fixed_natural_steps", "occ4_batch", "past_2_32", "assembly",
-            "assembly_launches", "sheets_launches")
+            "assembly_launches", "sheets_launches", "inputs",
+            "inputs_launches")
     table = [
         {"name": name, **{k: dict(row, launches=launches[name])[k]
                           for k in keys},

@@ -184,6 +184,11 @@ class Dispatcher:
             self.task_queue.requery_task(task)
             self._queue_exhausted = False
             conn.assigned_task = None
+            # a worker that found the queue empty waits for a task without
+            # being watched for writing: only this chunk would reach it
+            for other in connections:
+                if other.assigned_task is None and not other.tx:
+                    sel.modify(other.sock, selectors.EVENT_WRITE, other)
 
     def _finished(self, connections):
         # Queue drained and no chunk in flight (dispatcher.rs:323-332).

@@ -14,7 +14,12 @@ before that block's own tensors: what the engine holds between blocks,
 whatever block is in flight when the sheet turns.  It also counts the
 input blocks and the tier blocks prepared (a block prepared under a
 config other than the primary: the deep tier's), and takes the engine's
-tier counters when the input ran out.
+tier counters when the input ran out.  For each block it records the
+upload route the engine took (`route`: "lut", the device-LUT blob that K4
+or K6 unpacks; "host", the host-scored rows or dense arrays), the highest
+base quality among its reads that fit the pool (`max_qual`: the route's
+input), and its prep seconds; for each block the device thread ran, its
+route and seconds.
 
     with SheetWatch(torch) as watch:
         pipeline.run(...)
@@ -43,6 +48,16 @@ def deep_before(run) -> int:
     return n
 
 
+def route(prep) -> str:
+    """The upload route of one prepared block (a shard's, with a mesh):
+    "lut" where the card unpacks the device-LUT blob (K4, or K6 in big
+    mode), else "host" (the host-scored rows, or big mode's dense
+    arrays)."""
+    if "shards" in prep:
+        return route(prep["shards"][0])
+    return "lut" if prep.get("dev_lut") or prep.get("dev_full") else "host"
+
+
 def resident_bytes() -> int:
     """This process's resident set (VmRSS of /proc/self/status)."""
     with open("/proc/self/status") as f:
@@ -57,8 +72,10 @@ class SheetWatch:
     dict for each run: `samples` (one at each sheet boundary, the last at
     the end), `sheets` (reads a sheet), `input_blocks`, `tier_blocks`
     (the reads of each tier block, in the order prepared), `exhausted`
-    (the tier counters when the input ran out; `deep_before`) and
-    `seconds`."""
+    (the tier counters when the input ran out; `deep_before`), `blocks`
+    (a dict a block prepared: `tier`, `reads`, `max_qual`, `route`,
+    `prep_s`), `runs` (a dict a block the device thread ran: `route`,
+    `device_s`) and `seconds`."""
 
     def __init__(self, torch=None):
         self.torch = torch
@@ -91,24 +108,38 @@ class SheetWatch:
                    else engine)
             run = dict(samples=[], sheets=[], input_blocks=0, tier_blocks=[],
                        exhausted=None, reads=0, t0=time.perf_counter(),
-                       pending=[])
+                       pending=[], blocks=[], runs=[])
             watch.runs.append(run)
             prep, stream = dev._prep_block, engine.search_stream
             run_block = dev._run_block
 
             def prep_block(recs, R, cfg):
-                if cfg != dev.pool_config:
+                tier = cfg != dev.pool_config
+                if tier:
                     run["tier_blocks"].append(len(recs))
-                return prep(recs, R, cfg)
+                t = time.perf_counter()
+                out = prep(recs, R, cfg)
+                run["blocks"].append(dict(
+                    tier=tier, reads=len(recs), route=route(out[1]),
+                    prep_s=time.perf_counter() - t,
+                    max_qual=max((max(r.base_qualities, default=0)
+                                  for r in recs
+                                  if len(r.sequence) <= cfg.max_len),
+                                 default=0)))
+                return out
 
-            def timed_block(*a, **k):
+            def timed_block(cfg, prep_, *a, **k):
                 while True:  # the shards of a mesh begin blocks at once
                     try:
                         s = run["pending"].pop()
                     except IndexError:
                         break
                     s["allocated"] = watch.torch.cuda.memory_allocated()
-                return run_block(*a, **k)
+                t = time.perf_counter()
+                out = run_block(cfg, prep_, *a, **k)
+                run["runs"].append(dict(route=route(prep_),
+                                        device_s=time.perf_counter() - t))
+                return out
 
             def pulled(blocks):
                 for (sheet, off), recs in blocks:

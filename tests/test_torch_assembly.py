@@ -50,6 +50,7 @@ from torch_port_helpers import (  # noqa: E402
     packed_equal,
     run_pool_both,
 )
+from torch_port_helpers import unsharded_env  # noqa: E402,F401
 
 SCALE = 1 / 2000
 N_READS = 2000

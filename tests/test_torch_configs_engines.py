@@ -38,6 +38,7 @@ from torch_port_helpers import (  # noqa: E402
     records,
     run_pool_both,
 )
+from torch_port_helpers import unsharded_env  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

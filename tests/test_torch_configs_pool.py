@@ -30,6 +30,7 @@ from torch_port_helpers import (  # noqa: E402
     config_params,
     run_pool_both,
 )
+from torch_port_helpers import unsharded_env  # noqa: E402,F401
 
 # the settings of tests/test_device_configs.py, max_num_gaps_open 0 and
 # `-c 1.0 -e 0.5`: (configs setting, flag changes, reads, seed, quality)

@@ -2366,3 +2366,151 @@ def test_long_stream_sheets_on_the_card(long_stream, big):
             if s is not later[-1]:
                 assert -grown <= 64 << 20, (key, i, grown)
     assert bam_records(out) == w["native"]
+
+
+# --- mapAD's input as its users supply it (chip_smoke.py path 16) ---------
+
+PIPELINE_BAM_READS = 12_288  # three sheets of 4,096 reads, a block each
+PIPELINE_BAM_FLAGS = ["-p", "0.03", "-l", "single_stranded", "-f", "0.6",
+                      "-t", "0.55", "-d", "0.01", "-s", "1.0", "-i",
+                      "0.001", "--batch_size", "4096"]
+
+
+@pytest.fixture(scope="module")
+def pipeline_bam(cuda, tmp_path_factory):
+    """A 1 Mbp genome of tools/assembly.py's generator indexed by the CLI, a
+    pipeline BAM of PIPELINE_BAM_READS of its records (tools/pipeline_bam.py;
+    the second 4,096 quality-less) and the native engine's BAM of it ->
+    dict."""
+    from mapad_tpu_torch.cli import main
+    from mapad_tpu_torch.tools import pipeline_bam as pb
+    from mapad_tpu_torch.tools.assembly import gen_genome, write_fasta
+    from torch_port_helpers import bam_records
+
+    d = tmp_path_factory.mktemp("pipeline_bam")
+    genome = gen_genome(1_000_000, 42)
+    fa, bam = str(d / "g.fa"), str(d / "reads.bam")
+    write_fasta(fa, genome, ("chr1",), np.array([0]),
+                np.array([len(genome)]))
+    truth = pb.make(bam, genome, PIPELINE_BAM_READS, 20,
+                    qualityless=(4096, 4096), scattered=1)
+    assert main(["index", "-g", fa]) == 0
+    native = str(d / "native.bam")
+    assert main(["map", "-r", bam, "-g", fa, "-o", native, "--engine",
+                 "native", *PIPELINE_BAM_FLAGS]) == 0
+    return dict(dir=d, fa=fa, bam=bam, truth=truth,
+                native=bam_records(native))
+
+
+@pytest.mark.parametrize("big", [False, True])
+def test_pipeline_bam_routes_and_launches_on_the_card(pipeline_bam, big):
+    """`pipeline.run` on the card over a pipeline BAM in blocks of 4,096:
+    each block's upload route follows its reads' highest quality (the
+    quality-less block: the host-scored rows, or big mode's dense arrays),
+    K4 (K6) launches on the device-LUT blocks alone, K5 (and K7) on every
+    block; the BAM equals the native engine's and is held to the input."""
+    import os
+
+    from mapad_tpu_torch import cli
+    from mapad_tpu_torch._build import LAUNCHES
+    from mapad_tpu_torch.index.runtime import load_index
+    from mapad_tpu_torch.map import pipeline
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.ops.prep import _DEV_LUT_Q
+    from mapad_tpu_torch.tools import pipeline_bam as pb
+    from mapad_tpu_torch.tools.sheets import SheetWatch
+    from torch_port_helpers import bam_records
+
+    w = pipeline_bam
+    args = cli.build_parser().parse_args(
+        ["map", "-r", w["bam"], "-g", w["fa"], "-o", "x",
+         *PIPELINE_BAM_FLAGS])
+    params = cli.build_alignment_parameters(args)
+    index = load_index(w["fa"])
+    engine = DeviceSearchEngine(index.fmd, params, big=big, packed_hits=True)
+    engine.block_reads = 4096
+    out = str(w["dir"] / f"device_{big}.bam")
+    LAUNCHES.reset()
+    with SheetWatch(torch) as watch:
+        pipeline.run(w["bam"], w["fa"], out, True, params, None,
+                     engine=engine, position_seed=args.seed,
+                     cmdline="mapad map", threads=os.cpu_count() or 1,
+                     index=index)
+    blocks = watch.runs[-1]["blocks"]
+    routes = [b["route"] for b in blocks]
+    assert routes == ["lut" if b["max_qual"] < _DEV_LUT_Q else "host"
+                      for b in blocks]
+    assert routes[1] == "host" and "lut" in routes
+    sfx = "_i64" if big else ""
+    assert LAUNCHES.get("unpack_prep_full" if big else "unpack_prep") == \
+        routes.count("lut")
+    assert LAUNCHES.get("pack_result" + sfx) == len(blocks)
+    if big:
+        assert LAUNCHES.get("bi_d_i64") == len(blocks)
+    assert engine._stats["esc_why"]["overlong"] == int(
+        w["truth"].overlong.sum())
+    assert bam_records(out) == w["native"]
+    pb.check_output(w["truth"], out)
+
+
+@pytest.mark.parametrize("block,big", [("qualityless", False),
+                                       ("iupac", False), ("iupac", True)])
+def test_pipeline_bam_kernels_against_plain(fmd, cuda, tmp_path, block, big):
+    """One block of a pipeline BAM of the bench reference against the plain
+    versions: K2 + K3 + K5 on quality-less reads in the host-scored upload;
+    K4 (int32) or K6 and K7 (int64), then K2 + K3 + K5, on reads led by
+    those holding `=` and IUPAC codes."""
+    from mapad_tpu_torch.map.record import Record
+    from mapad_tpu_torch.ops import bi_d
+    from mapad_tpu_torch.ops import engine as teng
+    from mapad_tpu_torch.ops.engine import DeviceSearchEngine
+    from mapad_tpu_torch.ops.prep import _DEV_LUT_Q
+    from mapad_tpu_torch.ops.search_pool import PoolConfig
+    from mapad_tpu_torch.tools import pipeline_bam as pb
+
+    t = pb.make(str(tmp_path / "p.bam"), np.frombuffer(bench_ref(),
+                                                       dtype=np.uint8),
+                256, 20, qualityless=(64, 64), scattered=1)
+    lens = np.array([len(s) for s in t.sequences])
+    fits = (lens > 0) & ~t.overlong
+    first = (t.qualityless if block == "qualityless"
+             else (t.kinds == pb.IUPAC) & ~t.qualityless)
+    idx = [*np.flatnonzero(fits & first),
+           *np.flatnonzero(fits & ~first & ~t.qualityless)][:48]
+    recs = [Record.from_bam(t.names[i], int(t.flags[i]), t.sequences[i],
+                            t.qualities[i], t.tags[i]) for i in idx]
+    eng = DeviceSearchEngine(
+        fmd, adna_params("mapad_tpu_torch"), big=big, device=cuda,
+        pool_config=PoolConfig(lanes=8, total_steps=3072, read_step_cap=512,
+                               max_chains=512))
+    cfg, prep, _ = eng._prep_block(recs, 48, eng.pool_config)
+    R, M = prep["L"], prep["max_len"]
+    if block == "qualityless":
+        assert not prep["dev_lut"]
+    elif big:
+        assert prep["dev_full"]
+        blob = torch.from_numpy(prep["blob"]).to(cuda)
+        tab, pen_tab, off = eng._device_lut()
+        dense = teng._unpack_prep_full(blob, tab, pen_tab, off, R, M,
+                                       _DEV_LUT_Q)
+        _equal(dense, teng._unpack_prep_full_plain(blob, tab, pen_tab, off,
+                                                   R, M, _DEV_LUT_Q), "K6")
+        rank, _code, n, _lut, pen, split, *_rest = dense
+        args = (eng.device_index, rank, pen, n, split,
+                cfg.compute_forward_part, prep["bid_steps"])
+        _equal((bi_d.compute_bi_d(*args),), (bi_d.compute_bi_d_plain(*args),),
+               "K7")
+    else:
+        assert prep["dev_lut"]
+        blob = torch.from_numpy(prep["blob"]).to(cuda)
+        tab, _pen_tab, off = eng._device_lut()
+        _equal(teng._unpack_prep_lut(blob, tab, off, R, M, _DEV_LUT_Q,
+                                     prep["rle"]),
+               teng._unpack_prep_lut_plain(blob, tab, off, R, M, _DEV_LUT_Q,
+                                           prep["rle"]), "K4")
+    got, want, _ = _pool_both(eng, cfg, prep, cuda)
+    _equal(tuple(got), tuple(want), (block, big))
+    _equal((teng._pack_result(got),), (teng._pack_result_plain(got),), "K5")
+    n_chains = min(int(got.n_chains), cfg.max_chains)
+    assert int(((got.c_read[:n_chains] >= 0)
+                & ~got.c_abandon[:n_chains]).sum()) > 4

@@ -33,6 +33,7 @@ from torch_port_helpers import (  # noqa: E402
     records,
     vindija_params,
 )
+from torch_port_helpers import unsharded_env  # noqa: E402,F401
 
 CFG = dict(max_len=128, lanes=8, total_steps=2048, read_step_cap=512,
            max_chains=256)

@@ -28,6 +28,7 @@ from mapad_tpu_torch.models import Discrete, SimpleAncientDnaModel  # noqa: E402
 from mapad_tpu_torch.ops.engine import DeviceSearchEngine  # noqa: E402
 from mapad_tpu_torch.ops.search_pool import PoolConfig  # noqa: E402
 from test_integration import _check_results, prepare  # noqa: E402
+from torch_port_helpers import unsharded_env  # noqa: E402,F401
 
 
 def _port_params(jparams):

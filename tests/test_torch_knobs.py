@@ -41,6 +41,7 @@ from torch_port_helpers import (  # noqa: E402
     run_pool_both,
     vindija_params,
 )
+from torch_port_helpers import unsharded_env  # noqa: E402,F401
 
 # every variable of the engine's routing and upload that a test here sets
 _KNOBS = ("MAPAD_DEV_LUT", "MAPAD_XD_STEPS", "MAPAD_INFLIGHT",

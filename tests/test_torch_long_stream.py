@@ -30,6 +30,7 @@ from mapad_tpu_torch.tools.assembly import make_reads, write_fastq  # noqa: E402
 from mapad_tpu_torch.tools.sheets import SheetWatch  # noqa: E402
 from test_torch_integration import _header_without_cl, _records  # noqa: E402
 from torch_port_helpers import adna_params, bench_ref  # noqa: E402
+from torch_port_helpers import unsharded_env  # noqa: E402,F401
 
 # a block holds at least `lanes` reads
 CFG = dict(max_len=128, lanes=8, total_steps=1024, read_step_cap=256,

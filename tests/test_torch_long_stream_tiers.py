@@ -23,6 +23,7 @@ from test_torch_long_stream import (  # noqa: E402
     _same_bam,
     work,  # noqa: F401  (the fixture)
 )
+from torch_port_helpers import unsharded_env  # noqa: E402,F401
 
 # two lanes and a per-read cap of 48: some reads abandon and take the
 # deep tier

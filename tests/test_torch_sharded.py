@@ -46,6 +46,7 @@ from torch_port_helpers import (  # noqa: E402
     port_index,
     records,
 )
+from torch_port_helpers import unsharded_env  # noqa: E402,F401
 
 CPU = torch.device("cpu")
 # tests/test_multichip.py's engine config (store generations on)

@@ -11,6 +11,7 @@ import os
 import re
 
 import numpy as np
+import pytest
 import torch
 
 # the plain kernels run thousands of tiny tensor ops; one intra-op thread
@@ -18,6 +19,21 @@ import torch
 torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def unsharded_env():
+    """MAPAD_SHARD and MAPAD_BLOCK_READS unset for a whole module (its
+    module fixtures too).  mapad_tpu's multi-chip dry run
+    (`__graft_entry__.dryrun_multichip`, run by tests/test_multichip.py)
+    sets MAPAD_SHARD=1 and MAPAD_BLOCK_READS=1024 for the rest of its
+    process, and with them mapad_tpu's engine shards every block over the
+    8 virtual devices.  A module that compares unsharded engines imports
+    this fixture; a test that wants a mesh sets the variables itself."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("MAPAD_SHARD", raising=False)
+        mp.delenv("MAPAD_BLOCK_READS", raising=False)
+        yield
 
 
 def port_twin(test_module: str, subs=()) -> dict:
